@@ -26,7 +26,9 @@
 // are upcast to f32 on load; each thread issues its 4-wide loads of a
 // page before storing any), and runs an online softmax whose state
 // (m, l, acc) stays in registers: one warp per query row, lanes over the
-// page's keys for the scores and over D for the P.V accumulate.
+// page's keys for the scores and over D for the P.V accumulate.  That
+// walk (pa_attend_tile) lives in paged_attention_common.cuh, shared with
+// the chunk-prefill kernel; this kernel works out its tile's descriptor.
 //
 // What bounds it on an H100.  Decode rows (one query per descriptor) read
 // every visible K/V byte once and do 4*D flops per key: bytes of K/V over
@@ -39,93 +41,10 @@
 // Overlapping the page loads with compute (cp.async/TMA), wgmma on bf16
 // pools and split-K over pages for long contexts are later work.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "paged_attention_common.cuh"
 
 #define RPA_QB 8                       // query rows per block (one tile)
 #define RPA_WARPS 4
-#define RPA_ROWS_PER_WARP (RPA_QB / RPA_WARPS)
-#define RPA_MAX_D 128
-#define RPA_MAX_PS 64
-#define RPA_NEG_INF (-1e30f)
-
-__device__ __forceinline__ float rpa_to_f32(float x) { return x; }
-__device__ __forceinline__ float rpa_to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-// four consecutive elements as f32 (16 bytes of f32, 8 bytes of bf16)
-__device__ __forceinline__ float4 rpa_load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-__device__ __forceinline__ float4 rpa_load4(const __nv_bfloat16* p) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p);
-  const __nv_bfloat162 lo = *reinterpret_cast<const __nv_bfloat162*>(&raw.x);
-  const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(&raw.y);
-  const float2 a = __bfloat1622float2(lo);
-  const float2 b = __bfloat1622float2(hi);
-  return make_float4(a.x, a.y, b.x, b.y);
-}
-
-// Stage one [page_size, D] K and V page into shared memory.  With
-// vec4 (D % 4 == 0 and aligned pools) every thread first issues up to
-// RPA_STAGE 4-wide loads of K and of V, and only then stores them, so a
-// page costs about one global-memory latency rather than one per element
-// a thread copies.
-#define RPA_STAGE 4
-template <typename KV>
-__device__ __forceinline__ void rpa_stage_page(
-    const KV* __restrict__ kp, const KV* __restrict__ vp, long long s_row,
-    float* k_s, float* v_s, int kst, int D, int page_size, bool vec4) {
-  const int nt = blockDim.x;
-  if (!vec4) {
-    for (int e = threadIdx.x; e < page_size * D; e += nt) {
-      const int j = e / D;
-      const int d = e - j * D;
-      const long long off = j * s_row + d;
-      k_s[j * kst + d] = rpa_to_f32(kp[off]);
-      v_s[j * D + d] = rpa_to_f32(vp[off]);
-    }
-    return;
-  }
-  const int n4 = page_size * D / 4;
-  for (int base = threadIdx.x; base < n4; base += nt * RPA_STAGE) {
-    float4 kr[RPA_STAGE], vr[RPA_STAGE];
-#pragma unroll
-    for (int u = 0; u < RPA_STAGE; ++u) {
-      const int e = 4 * (base + u * nt);
-      if (e < 4 * n4) {
-        const int j = e / D;
-        const long long off = j * s_row + (e - j * D);
-        kr[u] = rpa_load4(kp + off);
-        vr[u] = rpa_load4(vp + off);
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < RPA_STAGE; ++u) {
-      const int e = 4 * (base + u * nt);
-      if (e < 4 * n4) {
-        const int j = e / D;
-        const int d = e - j * D;
-        float* kd = k_s + j * kst + d;
-        float* vd = v_s + j * D + d;
-        kd[0] = kr[u].x; kd[1] = kr[u].y; kd[2] = kr[u].z; kd[3] = kr[u].w;
-        vd[0] = vr[u].x; vd[1] = vr[u].y; vd[2] = vr[u].z; vd[3] = vr[u].w;
-      }
-    }
-  }
-}
-
-__device__ __forceinline__ float rpa_warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float rpa_warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
 
 template <typename KV>
 __global__ void __launch_bounds__(RPA_WARPS * 32)
@@ -145,113 +64,12 @@ rpa_kernel(const float* __restrict__ q, const KV* __restrict__ k_pool,
   const int n_rows = min(RPA_QB, len - row_off);
   const int row0 = starts[s] + row_off;       // first packed row of tile
   const int qpos0 = kv_lens[s] - len + row_off;  // its position
-  const int qpos_max = qpos0 + n_rows - 1;
-  if (qpos_max < 0) return;
-  const int n_pages = min(qpos_max / page_size + 1, max_pages);
-
+  if (qpos0 + n_rows - 1 < 0) return;  // no row of the tile sees a key
   extern __shared__ float smem[];
-  float* q_s = smem;                              // [QB][D], scale folded
-  float* k_s = q_s + RPA_QB * D;                  // [page_size][D + 1]
-  float* v_s = k_s + page_size * (D + 1);         // [page_size][D]
-  const int kst = D + 1;  // odd row stride: conflict-free column reads
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const long long hd = (long long)H * D;
-
-  for (int e = tid; e < n_rows * D; e += blockDim.x) {
-    const int i = e / D;
-    const int d = e - i * D;
-    q_s[i * D + d] = q[(row0 + i) * hd + (long long)h * D + d] * scale;
-  }
-
-  float m[RPA_ROWS_PER_WARP], l[RPA_ROWS_PER_WARP];
-  float acc[RPA_ROWS_PER_WARP][RPA_MAX_D / 32];
-#pragma unroll
-  for (int r = 0; r < RPA_ROWS_PER_WARP; ++r) {
-    m[r] = RPA_NEG_INF;
-    l[r] = 0.f;
-#pragma unroll
-    for (int c = 0; c < RPA_MAX_D / 32; ++c) acc[r][c] = 0.f;
-  }
-
-  const int* pt = page_tables + (long long)s * max_pages;
-  const KV* kb = k_pool + (long long)h * s_head;
-  const KV* vb = v_pool + (long long)h * s_head;
-  for (int pi = 0; pi < n_pages; ++pi) {
-    const long long page = pt[pi];
-    __syncthreads();  // q_s written; the previous page's tiles consumed
-    rpa_stage_page(kb + page * s_page, vb + page * s_page, s_row, k_s, v_s,
-                   kst, D, page_size, vec4);
-    __syncthreads();
-    const int col0 = pi * page_size;
-#pragma unroll
-    for (int r = 0; r < RPA_ROWS_PER_WARP; ++r) {
-      const int i = warp * RPA_ROWS_PER_WARP + r;
-      if (i >= n_rows) break;  // warp-uniform
-      const int qpos = qpos0 + i;
-      // scores: lane owns keys j = lane and lane + 32 of this page
-      float p[RPA_MAX_PS / 32];
-      float mx = RPA_NEG_INF;
-#pragma unroll
-      for (int c = 0; c < RPA_MAX_PS / 32; ++c) {
-        const int j = lane + 32 * c;
-        float sc = RPA_NEG_INF;
-        if (j < page_size && col0 + j <= qpos) {
-          float a = 0.f;
-          const float* qr = q_s + i * D;
-          const float* kr = k_s + j * kst;
-          for (int d = 0; d < D; ++d) a = fmaf(qr[d], kr[d], a);
-          sc = a;
-        }
-        p[c] = sc;
-        mx = fmaxf(mx, sc);
-      }
-      mx = rpa_warp_max(mx);
-      const float m_cur = fmaxf(m[r], mx);
-      const float alpha = expf(m[r] - m_cur);
-      float psum = 0.f;
-#pragma unroll
-      for (int c = 0; c < RPA_MAX_PS / 32; ++c) {
-        // masked keys contribute exactly 0
-        p[c] = (p[c] <= RPA_NEG_INF * 0.5f) ? 0.f : expf(p[c] - m_cur);
-        psum += p[c];
-      }
-      psum = rpa_warp_sum(psum);
-      l[r] = l[r] * alpha + psum;
-      m[r] = m_cur;
-#pragma unroll
-      for (int c = 0; c < RPA_MAX_D / 32; ++c) acc[r][c] *= alpha;
-      // P.V: lanes over D, p_j broadcast from the lane that owns key j
-#pragma unroll
-      for (int c = 0; c < RPA_MAX_PS / 32; ++c) {
-        const int jn = min(32, page_size - 32 * c);
-        for (int jj = 0; jj < jn; ++jj) {
-          const float pj = __shfl_sync(0xffffffffu, p[c], jj);
-          const float* vr = v_s + (32 * c + jj) * D;
-#pragma unroll
-          for (int dc = 0; dc < RPA_MAX_D / 32; ++dc) {
-            const int d = lane + 32 * dc;
-            if (d < D) acc[r][dc] = fmaf(pj, vr[d], acc[r][dc]);
-          }
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < RPA_ROWS_PER_WARP; ++r) {
-    const int i = warp * RPA_ROWS_PER_WARP + r;
-    if (i >= n_rows) break;
-    // a row that saw no key keeps the zero the wrapper filled in
-    const float inv = l[r] > 0.f ? 1.f / l[r] : 0.f;
-    float* orow = out + (row0 + i) * hd + (long long)h * D;
-#pragma unroll
-    for (int dc = 0; dc < RPA_MAX_D / 32; ++dc) {
-      const int d = lane + 32 * dc;
-      if (d < D) orow[d] = acc[r][dc] * inv;
-    }
-  }
+  pa_attend_tile<KV, RPA_QB, RPA_WARPS>(
+      q, k_pool, v_pool, s_page, s_row, s_head,
+      page_tables + (long long)s * max_pages, max_pages, row0, qpos0, n_rows,
+      h, out, H, D, page_size, scale, vec4, smem);
 }
 
 template <typename KV>
@@ -262,21 +80,9 @@ static int rpa_launch(const void* q, const void* k_pool, const void* v_pool,
                       const void* kv_lens, void* out, int T, int S, int H,
                       int D, int page_size, float scale,
                       cudaStream_t stream) {
-  const size_t smem =
-      sizeof(float) * ((size_t)RPA_QB * D + (size_t)page_size * (D + 1) +
-                       (size_t)page_size * D);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        rpa_kernel<KV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  // 4-wide page loads need D % 4 == 0 (then every page/row/head stride
-  // is a multiple of 4 elements too) and pools aligned to 4 elements
-  const size_t align = 4 * sizeof(KV);
-  const bool vec4 = D % 4 == 0 &&
-                    reinterpret_cast<size_t>(k_pool) % align == 0 &&
-                    reinterpret_cast<size_t>(v_pool) % align == 0;
+  const size_t smem = pa_staged_smem(RPA_QB, D, page_size);
+  const int err = pa_allow_smem(rpa_kernel<KV>, smem);
+  if (err != 0) return err;
   dim3 grid((T + RPA_QB - 1) / RPA_QB, S, H);
   rpa_kernel<KV><<<grid, RPA_WARPS * 32, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const KV*>(k_pool),
@@ -284,26 +90,22 @@ static int rpa_launch(const void* q, const void* k_pool, const void* v_pool,
       static_cast<const int*>(page_tables), max_pages,
       static_cast<const int*>(starts), static_cast<const int*>(lens),
       static_cast<const int*>(kv_lens), static_cast<float*>(out), H, D,
-      page_size, scale, vec4);
+      page_size, scale, pa_vec4<KV>(k_pool, v_pool, D));
   return (int)cudaGetLastError();
 }
-
-extern "C" {
 
 // q/out [T, H, D] f32 contiguous; pools f32 (kv_bf16 == 0) or bf16, with
 // element strides s_page/s_row/s_head and a unit D stride; page_tables
 // [S, max_pages] and starts/lens/kv_lens [S] int32.  Returns the CUDA error
 // code of the launch (0 on success).
-int rpa_ragged_paged_attention(const void* q, const void* k_pool,
-                               const void* v_pool, int kv_bf16,
-                               long long s_page, long long s_row,
-                               long long s_head, const void* page_tables,
-                               int max_pages, const void* starts,
-                               const void* lens, const void* kv_lens,
-                               void* out, int T, int S, int H, int D,
-                               int page_size, float scale, void* stream) {
+extern "C" int rpa_ragged_paged_attention(
+    const void* q, const void* k_pool, const void* v_pool, int kv_bf16,
+    long long s_page, long long s_row, long long s_head,
+    const void* page_tables, int max_pages, const void* starts,
+    const void* lens, const void* kv_lens, void* out, int T, int S, int H,
+    int D, int page_size, float scale, void* stream) {
   if (T <= 0 || S <= 0 || H <= 0) return 0;
-  if (D < 1 || D > RPA_MAX_D || page_size < 1 || page_size > RPA_MAX_PS)
+  if (D < 1 || D > PA_MAX_D || page_size < 1 || page_size > PA_MAX_PS)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (kv_bf16)
@@ -315,9 +117,3 @@ int rpa_ragged_paged_attention(const void* q, const void* k_pool,
                            page_tables, max_pages, starts, lens, kv_lens,
                            out, T, S, H, D, page_size, scale, st);
 }
-
-const char* rpa_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
-}
-
-}  // extern "C"

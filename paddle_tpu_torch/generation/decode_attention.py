@@ -1,19 +1,34 @@
 """Attention over the paged KV cache, and the dense causal oracle.
 
-``ragged_paged_attention`` is the ragged step's attention: the kernel's
-wrapper (ops/paged_attention.py), which sends CUDA tensors through the
-hand-written kernel and CPU tensors through its plain PyTorch version,
-``ragged_paged_attention_reference``.  Its masking makes padded keys
-contribute exactly zero (``exp(NEG_INF - m)`` underflows to 0.0), so
-padding the key or descriptor axis never changes a live row beyond
-float reassociation.
+Under the JAX package's names, each of the three paged attentions is its
+kernel's wrapper (ops/paged_attention.py), which sends CUDA tensors
+through the hand-written kernel and CPU tensors through its plain
+PyTorch version (the ``*_reference`` names):
+
+- ``ragged_paged_attention``: the ragged step's packed decode rows and
+  prefill chunks;
+- ``paged_decode_attention``: one query row per sequence (the legacy
+  step's fused and eager decode);
+- ``chunk_prefill_attention``: one sequence's prefill chunk (the legacy
+  step's ChunkedPrefillStep); ``chunk_prefill_attention_reference`` is
+  its dense core over keys already gathered in position order, the JAX
+  reference's signature.
+
+Their masking makes padded keys contribute exactly zero
+(``exp(NEG_INF - m)`` underflows to 0.0), so padding the key or
+descriptor axis never changes a live row beyond float reassociation.
 """
 import math
 
 import torch
 
 from ..ops.paged_attention import (
-    NEG_INF, ragged_paged_attention_kernel as ragged_paged_attention,
+    NEG_INF,
+    chunk_prefill_attention_dense as chunk_prefill_attention_reference,
+    chunk_prefill_attention_kernel as chunk_prefill_attention,
+    paged_decode_attention_kernel as paged_decode_attention,
+    paged_decode_attention_torch as paged_decode_attention_reference,
+    ragged_paged_attention_kernel as ragged_paged_attention,
     ragged_paged_attention_torch as ragged_paged_attention_reference)
 
 
@@ -32,5 +47,7 @@ def dense_causal_reference(q, k, v, scale=None):
     return torch.einsum("hqk,khd->qhd", weights, v)
 
 
-__all__ = ["NEG_INF", "dense_causal_reference",
+__all__ = ["NEG_INF", "chunk_prefill_attention",
+           "chunk_prefill_attention_reference", "dense_causal_reference",
+           "paged_decode_attention", "paged_decode_attention_reference",
            "ragged_paged_attention", "ragged_paged_attention_reference"]

@@ -1,18 +1,26 @@
-"""GenerationEngine: paged-KV continuous-batching decode on the ragged
-step.
+"""GenerationEngine: paged-KV continuous-batching decode on one of two
+step modes.
 
-    submit(prompt) -> AdmissionQueue -> scheduler slots -> RAGGED STEPS
-       <- GenerationHandle (stream)      (each step packs the decode
-                                          batch's rows AND prefill chunks
-                                          into one call: scatter K/V into
-                                          the page pools, ragged paged
-                                          attention, logits, sample)
+    submit(prompt) -> AdmissionQueue -> scheduler slots -> STEPS
+       <- GenerationHandle (stream)
+
+- the RAGGED step (``step_mode="ragged"``, the default): each step packs
+  the decode batch's rows AND prefill chunks into one call (scatter K/V
+  into the page pools, ragged paged attention, logits, sample);
+- the LEGACY step (``step_mode="legacy"``): each step runs one chunk call
+  per packed prefill chunk (ChunkedPrefillStep: chunk-prefill attention)
+  plus the whole decode batch, either as one fused call
+  (``decode="fused"``, FusedDecodeStep: paged decode attention) or
+  eagerly layer by layer (``decode="eager"``);
+- with ``prefill_chunk_tokens=0`` either mode prefills each admitted
+  prompt in one shot (``model.prefill_batch``, batched by length
+  bucket), and only decode rides the step.
 
 The engine owns the KV pages, the schedule, sampling and metrics; the
-model implements ``decode_params(device)`` and ``ragged_step_fn(...)``
-(model.TinyCausalLM).  Greedy decode through this engine is
-token-identical to naive full-recompute generation: continuous batching,
-chunking and paging change the cost of a token, never its value.
+model implements the step functions (model.TinyCausalLM).  Greedy decode
+through this engine is token-identical to naive full-recompute
+generation: continuous batching, chunking and paging change the cost of
+a token, never its value.
 
 The engine runs on the card unless the config asks for the CPU: a
 ``GenerationConfig()`` resolves its device to ``"cuda"`` and building an
@@ -25,6 +33,7 @@ exhaustion preempts the youngest sequences (recompute-style) before
 ever failing a request.
 """
 import concurrent.futures
+import math
 import queue
 import threading
 import time
@@ -35,10 +44,13 @@ import torch
 from ..device import resolve_device
 from ..profiler import RecordEvent
 from ..serving.admission import RequestTooLargeError, ServingError
-from .fused import RaggedStep
+from ..serving.bucketing import ShapeBucketer, SignatureCache
+from .decode_attention import paged_decode_attention
+from .fused import (ChunkedPrefillStep, FusedDecodeStep, RaggedStep,
+                    decode_batch_menu)
 from .kv_cache import DeviceKVPool, OutOfPagesError
 from .metrics import GenerationMetrics, StepTimer
-from .sampling import SamplingParams, sample_tokens_batch
+from .sampling import SamplingParams, sample_token, sample_tokens_batch
 from .scheduler import (ContinuousBatchingScheduler, GenerationRequest,
                         SequenceState)
 
@@ -65,28 +77,38 @@ class GenerationConfig:
 
     device: where the weights, pools and steps live — None (the default)
         means "cuda"; pass "cpu" to run every step on the CPU with the
-        kernel's plain version.  Never a silent fallback: an engine on
+        kernels' plain versions.  Never a silent fallback: an engine on
         "cuda" without a card refuses to build.
     kv_dtype: pool storage dtype, float32 (default) or bfloat16.
     pool_layout: "token" ([P, page_size, H, D]) or "kernel"
         ([H, P, page_size, D]); None = "token".
-    prefill_chunk_tokens: chunk size of chunked prefill; None = 64.
-    step_token_budget: the ragged step's fixed packed token axis; None =
-        prefill_chunk_tokens + max_decode_slots.  It must hold every
-        decode slot plus at least one prefill row.
+    step_mode: "ragged" (one mixed-batch call per step) or "legacy" (a
+        chunk call per packed chunk plus the decode batch's call, or the
+        eager decode); None = "ragged", or "legacy" when `decode` is set
+        (a decode path names a legacy step).
+    decode: the legacy step's decode — "fused" (one call per step) or
+        "eager" (per-layer attend callbacks); None = "fused".  Rejected
+        with step_mode="ragged", which has no separate decode call.
+    prefill_chunk_tokens: chunk size of chunked prefill; None = 64; 0 =
+        one-shot prefill of each admitted prompt (batched by length
+        bucket, at most max_prefill_batch prompts per call).
+    step_token_budget: the ragged step's fixed packed token axis (the
+        legacy chunked step's pack room); None = prefill_chunk_tokens +
+        max_decode_slots.  On the ragged step it must hold every decode
+        slot plus, with chunking on, at least one prefill row.
     prefill_pack: pack several prompts' chunks into a step's leftover
         room (True) or one chunk per step (False).
 
     Settings the JAX engine has and this port does not support yet
-    (step_mode="legacy", spec_mode, loop_steps > 1, prefix_cache=True,
-    int8 kv_dtype, mesh, prefill_chunk_tokens=0) are accepted here and
-    refused with NotImplementedError when the engine is built.
+    (spec_mode, loop_steps > 1, prefix_cache=True, int8 kv_dtype, mesh)
+    are accepted here and refused with NotImplementedError when the
+    engine is built.
     """
 
     def __init__(self, max_decode_slots=8, num_pages=256, page_size=16,
                  queue_depth=64, default_timeout_ms=None,
                  default_max_new_tokens=16, kv_dtype=torch.float32,
-                 max_prefill_batch=4, pool_layout=None,
+                 max_prefill_batch=4, decode=None, pool_layout=None,
                  prefill_chunk_tokens=None, step_token_budget=None,
                  step_mode=None, prefill_pack=True, spec_mode=None,
                  loop_steps=1, prefix_cache=None, mesh=None, device=None):
@@ -100,6 +122,11 @@ class GenerationConfig:
         self.max_prefill_batch = int(max_prefill_batch)
         if self.max_prefill_batch < 1:
             raise ValueError("max_prefill_batch must be >= 1")
+        if decode not in (None, "eager", "fused"):
+            raise ValueError(
+                f"decode must be 'eager', 'fused' or None (auto), got "
+                f"{decode!r}")
+        self.decode = decode
         if pool_layout not in (None, "token", "kernel"):
             raise ValueError(
                 f"pool_layout must be 'token', 'kernel' or None, got "
@@ -107,8 +134,8 @@ class GenerationConfig:
         self.pool_layout = pool_layout or "token"
         if prefill_chunk_tokens is not None and int(prefill_chunk_tokens) < 0:
             raise ValueError(
-                f"prefill_chunk_tokens must be >= 0 or None, got "
-                f"{prefill_chunk_tokens}")
+                f"prefill_chunk_tokens must be >= 0 (0: one-shot prefill) "
+                f"or None, got {prefill_chunk_tokens}")
         self.prefill_chunk_tokens = (DEFAULT_PREFILL_CHUNK_TOKENS
                                      if prefill_chunk_tokens is None
                                      else int(prefill_chunk_tokens))
@@ -122,6 +149,11 @@ class GenerationConfig:
             raise ValueError(
                 f"step_mode must be 'legacy', 'ragged' or None (auto), "
                 f"got {step_mode!r}")
+        if step_mode == "ragged" and decode is not None:
+            raise ValueError(
+                "step_mode='ragged' replaces the decode dispatch path (one "
+                "mixed-batch call serves decode AND prefill chunks); "
+                f"decode={decode!r} makes no sense with it")
         self.step_mode = step_mode
         self.prefill_pack = bool(prefill_pack)
         self.spec_mode = spec_mode or "off"
@@ -135,8 +167,6 @@ def _refuse_unported(cfg):
     """NotImplementedError for every setting the port does not run yet —
     never a silent switch to another path."""
     unported = []
-    if cfg.step_mode == "legacy":
-        unported.append("step_mode='legacy'")
     if cfg.spec_mode != "off":
         unported.append(f"spec_mode={cfg.spec_mode!r}")
     if cfg.loop_steps > 1:
@@ -147,12 +177,19 @@ def _refuse_unported(cfg):
         unported.append("kv_dtype=int8")
     if cfg.mesh is not None:
         unported.append("mesh")
-    if cfg.prefill_chunk_tokens == 0:
-        unported.append("prefill_chunk_tokens=0 (one-shot prefill)")
     if unported:
         raise NotImplementedError(
             "not supported by the PyTorch port yet: " + ", ".join(unported)
-            + " (it serves the ragged step with chunked prefill)")
+            + " (it serves the ragged and legacy steps on float pools of "
+            "one card)")
+
+
+def _require(model, names, what):
+    missing = [n for n in names if not hasattr(model, n)]
+    if missing:
+        raise ValueError(f"{what} needs a model implementing "
+                         f"{', '.join(names)} ({type(model).__name__} "
+                         f"lacks {', '.join(missing)})")
 
 
 class GenerationResult:
@@ -227,7 +264,8 @@ class GenerationHandle:
 
 
 class GenerationEngine:
-    """Paged-KV continuous-batching engine over the ragged step."""
+    """Paged-KV continuous-batching engine over the ragged or the legacy
+    step."""
 
     _IDLE_POLL_S = 0.02
 
@@ -237,11 +275,12 @@ class GenerationEngine:
         self.metrics = metrics or GenerationMetrics()
         _refuse_unported(cfg)
         self.device = resolve_device(cfg.device, "GenerationEngine")
-        if not (hasattr(model, "ragged_step_fn")
-                and hasattr(model, "decode_params")):
-            raise ValueError(
-                f"the engine needs a model implementing ragged_step_fn and "
-                f"decode_params ({type(model).__name__} lacks them)")
+        self.step_mode = cfg.step_mode or ("legacy" if cfg.decode
+                                           else "ragged")
+        self.decode_mode = ("ragged" if self.step_mode == "ragged"
+                            else cfg.decode or "fused")
+        self.prefill_chunk_tokens = chunk = cfg.prefill_chunk_tokens
+        self._check_model(model, chunk)
         self.cache = DeviceKVPool(
             model.num_layers, model.num_heads, model.head_dim,
             num_pages=cfg.num_pages, page_size=cfg.page_size,
@@ -250,28 +289,47 @@ class GenerationEngine:
         self.scheduler = ContinuousBatchingScheduler(
             self.cache, num_slots=cfg.max_decode_slots,
             queue_depth=cfg.queue_depth, metrics=self.metrics)
-        self.step_mode = self.decode_mode = "ragged"
-        self.prefill_chunk_tokens = chunk = cfg.prefill_chunk_tokens
         slots = cfg.max_decode_slots
         self.step_token_budget = (cfg.step_token_budget
                                   if cfg.step_token_budget is not None
                                   else chunk + slots)
-        # the budget IS the packed token axis: it must hold the full
-        # decode batch plus at least one prefill row, or a full batch
-        # that never finished would starve prompts forever
-        if self.step_token_budget < slots + 1:
-            raise ValueError(
-                f"step_token_budget={self.step_token_budget} < "
-                f"{slots + 1}: the ragged step's packed token axis must "
-                f"hold every decode slot plus at least one prefill-chunk "
-                f"row")
-        self._ragged = RaggedStep(model, self.cache, self.metrics,
-                                  max_tokens=self.step_token_budget,
-                                  max_seqs=slots + 1, device=self.device)
+        # the one-shot prefill's (batch, length) menu and its signature
+        # count, under the prefill metric names
+        self._bucketer = ShapeBucketer.for_prefill(
+            decode_batch_menu(cfg.max_prefill_batch),
+            cfg.num_pages * cfg.page_size,
+            getattr(model, "max_positions", None))
+        self._prefill_signatures = SignatureCache(self.metrics)
+        self._ragged = self._fused = self._chunk_step = None
+        if self.step_mode == "ragged":
+            # the budget IS the packed token axis: it must hold the full
+            # decode batch plus, with chunking on, at least one prefill
+            # row, or a full batch that never finished would starve
+            # prompts forever
+            need = slots + (1 if chunk else 0)
+            if self.step_token_budget < need:
+                raise ValueError(
+                    f"step_token_budget={self.step_token_budget} < {need}: "
+                    f"the ragged step's packed token axis must hold every "
+                    f"decode slot"
+                    + (" plus at least one prefill-chunk row" if chunk
+                       else ""))
+            self._ragged = RaggedStep(model, self.cache, self.metrics,
+                                      max_tokens=self.step_token_budget,
+                                      max_seqs=slots + 1, device=self.device)
+        else:
+            if self.decode_mode == "fused":
+                self._fused = FusedDecodeStep(model, self.cache,
+                                              self.metrics,
+                                              decode_batch_menu(slots),
+                                              self.device)
+            if chunk:
+                self._chunk_step = ChunkedPrefillStep(
+                    model, self.cache, self.metrics, chunk, self.device)
         # which attention implementation the steps run, stamped once so
         # a snapshot never hides the path its numbers came from
         self.metrics.set_kernel_path(self.decode_mode,
-                                     self._ragged.use_kernel)
+                                     self.device.type == "cuda")
         self.metrics.set_kv_quant_dtype(
             str(self.cache.dtype).replace("torch.", ""))
         self._lock = threading.Lock()  # one stepper at a time
@@ -280,6 +338,34 @@ class GenerationEngine:
         self._thread = None
         if start:
             self.start()
+
+    def _check_model(self, model, chunk):
+        """The protocol methods each configured path calls.  The eager
+        decode and the one-shot prefill run on the model's own weights,
+        so those must live on the engine's device."""
+        legacy = self.step_mode == "legacy"
+        if not legacy:
+            _require(model, ("ragged_step_fn", "decode_params"),
+                     "the ragged step")
+        elif self.decode_mode == "fused":
+            _require(model, ("decode_step_fn", "decode_params"),
+                     "decode='fused'")
+        else:
+            _require(model, ("decode",), "decode='eager'")
+        if legacy and chunk:
+            _require(model, ("prefill_chunk_fn", "decode_params"),
+                     "chunked prefill on the legacy step")
+        if not chunk:
+            _require(model, ("prefill_batch",),
+                     "prefill_chunk_tokens=0")
+        own_weights = not chunk or self.decode_mode == "eager"
+        model_dev = getattr(model, "device", None)
+        if own_weights and model_dev is not None \
+                and torch.device(model_dev) != self.device:
+            raise ValueError(
+                f"the model's weights are on {model_dev} and the engine on "
+                f"{self.device}: the eager decode and the one-shot prefill "
+                f"run on the model's own weights")
 
     # --------------------------- client API -------------------------
     def submit(self, prompt, max_new_tokens=None, sampling=None,
@@ -355,12 +441,285 @@ class GenerationEngine:
 
     # --------------------------- stepping ---------------------------
     def step(self):
-        """One scheduler step: admit, plan a pack of prefill chunks, and
-        one ragged step for the decode batch plus the pack.  Returns the
-        number of sequences that advanced (0 == idle).  Thread-safe; the
-        background worker uses exactly this."""
+        """One scheduler step: admit, prefill, and one decode step for
+        every decode-ready sequence — on the ragged step, or on the
+        legacy step (chunked or one-shot prefill).  Returns the number of
+        sequences that advanced (0 == idle).  Thread-safe; the background
+        worker uses exactly this."""
         with self._lock:
-            return self._step_ragged()
+            if self._ragged is not None:
+                return self._step_ragged()
+            if self.prefill_chunk_tokens:
+                return self._step_chunked()
+            return self._step_one_shot()
+
+    # ---------------------------- legacy step ------------------------
+    def _step_one_shot(self):
+        """One legacy step with one-shot prefill: admit and prefill (at
+        most max_prefill_batch prompts, so queued prompts cannot starve
+        the decode batch of a whole step), then one decode step."""
+        admitted = self.scheduler.admit(limit=self.config.max_prefill_batch)
+        self._prefill_admitted(admitted)
+        self._reap_deadlines()
+        active = self.scheduler.decode_ready()
+        if not active:
+            self._drain_kv_bytes()
+            self._observe_occupancy()
+            return 0
+        with StepTimer() as timer:
+            with RecordEvent("generation::decode_step"):
+                active = self._ensure_step_capacity()
+                if not active:
+                    return 0
+                self._decode_batch(active)
+        self.metrics.observe_step(len(active), timer.seconds)
+        self._observe_step_rows(len(active))
+        self._drain_kv_bytes()
+        self._observe_occupancy()
+        return len(active)
+
+    def _step_chunked(self):
+        """One legacy chunked-prefill step: admit, a PACK of chunk calls
+        (the oldest mid-prefill sequence's chunk first, then more
+        prompts' chunks into the step token budget's leftover room — the
+        ragged step's packing rule, one call per chunk here), plus the
+        whole decode batch, every step.  The budget sizes the pack, never
+        the oldest prompt's chunk: the head of the line always gets its
+        whole chunk."""
+        self.scheduler.admit(limit=self.config.max_prefill_batch)
+        self._reap_deadlines()
+        room = max(self.step_token_budget
+                   - len(self.scheduler.decode_ready()),
+                   self.prefill_chunk_tokens)
+        pack = self.scheduler.plan_pack(
+            self.prefill_chunk_tokens, room=room,
+            max_seqs=None if self.config.prefill_pack else 1)
+        advanced = 0
+        chunk_u = chunk_d = chunk_calls = chunk_syncs = 0
+        for state, n in pack:
+            if state.slot is None or not state.prefilling:
+                continue  # preempted by an earlier pack reservation
+            if self._prefill_chunk_step(state, n):
+                advanced += 1
+                chunk_u += self._chunk_step.last_rows_useful
+                chunk_d += self._chunk_step.last_rows_dispatched
+                chunk_calls += 1
+                if not state.prefilling:
+                    chunk_syncs += 1  # final chunk: logits fetched
+        decoding = self.scheduler.decode_ready()
+        if decoding:
+            with StepTimer() as timer:
+                with RecordEvent("generation::decode_step"):
+                    decoding = self._ensure_step_capacity()
+                    if decoding:
+                        self._decode_batch(decoding)
+            if decoding:
+                self.metrics.observe_step(len(decoding), timer.seconds)
+                advanced += len(decoding)
+        if chunk_calls:
+            # the step issued a call per packed chunk besides the decode
+            # call: the dispatch gauge says so; a chunk-only step is the
+            # pack's calls and its final chunks' logits fetches
+            if decoding:
+                self.metrics.count_step_extra_dispatches(chunk_calls)
+            else:
+                self.metrics.observe_decode_step(chunk_calls, chunk_syncs,
+                                                 2 * chunk_calls)
+        self._observe_step_rows(len(decoding), chunk_u, chunk_d)
+        self._drain_kv_bytes()
+        self._observe_occupancy()
+        return advanced
+
+    def _observe_step_rows(self, decode_rows, chunk_useful=0,
+                           chunk_dispatched=0):
+        """The legacy step's row accounting: the decode call's useful and
+        padded rows — the fused step's dummy rows are exactly the masked
+        work padded_token_waste counts; the eager path pads nothing —
+        plus the chunk calls' rows."""
+        if self._fused is not None and decode_rows:
+            useful = self._fused.last_rows_useful
+            dispatched = self._fused.last_rows_dispatched
+        else:
+            useful = dispatched = decode_rows
+        useful += chunk_useful
+        dispatched += chunk_dispatched
+        if dispatched:
+            self.metrics.observe_step_rows(useful, dispatched,
+                                           dispatched - useful)
+
+    def _decode_batch(self, active):
+        """One decode step (fused or eager) + sampling for `active`."""
+        if self._fused is not None:
+            all_greedy, out = self._decode_fused(active)
+            if all_greedy:
+                self._apply_tokens(active, out)
+            else:
+                self._apply_logits_batch(active, out)
+        else:
+            self._apply_logits_batch(active, self._decode(active))
+
+    def _decode_inputs(self, active):
+        """Reserve this step's token per sequence and batch the step
+        inputs (page tables and lengths cannot change within the step:
+        every page it touches was just reserved)."""
+        seq_ids = [s.seq_id for s in active]
+        tokens, positions = self._reserve_decode_rows(active)
+        pt, lens = self.cache.gather_block_tables(seq_ids)
+        return seq_ids, tokens, positions, pt, lens
+
+    def _decode(self, active):
+        """The eager decode: the model's per-layer attend callback writes
+        the step's K/V into the pools and runs paged decode attention
+        (the kernel on the card).  Two calls per layer, one host sync."""
+        seq_ids, tokens, positions, pt, lens = self._decode_inputs(active)
+        pt_dev = torch.as_tensor(pt, device=self.device)
+        lens_dev = torch.as_tensor(lens, device=self.device)
+        layout = self.cache.pool_layout
+
+        def attend(layer, q, k_new, v_new):
+            self.cache.write_decode_tokens(seq_ids, positions, layer,
+                                           k_new, v_new)
+            k_pool, v_pool = self.cache.layer_pools(layer)
+            return paged_decode_attention(q, k_pool, v_pool, pt_dev,
+                                          lens_dev, layout=layout)
+
+        logits = self.model.decode(tokens, positions, attend)
+        logits = logits.cpu().numpy()        # the [B, V] logits fetch
+        # uploads: tables, lengths, tokens, positions, and each layer's
+        # write targets (pages, rows)
+        layers = self.cache.num_layers
+        self.metrics.observe_decode_step(2 * layers, 1, 4 + 2 * layers)
+        return logits
+
+    def _decode_fused(self, active):
+        """One fused call for the whole step: returns ``(all_greedy,
+        out)`` where `out` is [B] token ids when every request is greedy
+        (argmax ran on the device) else the [B, V] logits block."""
+        _, tokens, positions, pt, lens = self._decode_inputs(active)
+        all_greedy = all(s.request.params.greedy for s in active)
+        out = self._fused.step(tokens, positions, pt, lens, all_greedy)
+        # the scatter ran inside the call; keep the O(tokens) write bound
+        # visible in kv_bytes_moved (comparable across paths)
+        self.cache.count_fused_append(len(active))
+        self.metrics.observe_decode_step(self._fused.last_dispatches,
+                                         self._fused.last_syncs,
+                                         self._fused.last_uploads)
+        return all_greedy, out
+
+    # -------------------------- one-shot prefill ---------------------
+    def _prefill_admitted(self, states):
+        """Prefill newly admitted sequences in one shot, batched: group
+        by padded-length bucket, then one `prefill_batch` call per group
+        of <= max_prefill_batch prompts."""
+        groups = {}
+        for state in states:
+            # the menu covers every sequence the pool and the model's
+            # positions can hold, a preempted one's generated tokens too
+            bucket = self._bucketer.length_bucket(len(state.tokens))
+            groups.setdefault(bucket, []).append(state)
+        size = self.config.max_prefill_batch
+        for bucket in sorted(groups):
+            group = groups[bucket]
+            for i in range(0, len(group), size):
+                self._prefill_group(group[i:i + size])
+
+    def _prefill_group(self, states):
+        """One batched prefill: reserve every span, pad the prompts to
+        the (batch, length) bucket, one model call, write the K/V spans
+        (padding positions land in the sink page), and sample each
+        sequence's first token from its own row."""
+        ready = []
+        for state in states:
+            try:
+                start = self.cache.reserve(state.seq_id, len(state.tokens))
+            except OutOfPagesError as e:
+                # a lone sequence that outgrew the whole pool
+                self.scheduler.retire(state)
+                state.handle.set_exception(e)
+                continue
+            ready.append((state, start))
+        if not ready:
+            return
+        with RecordEvent("generation::prefill"):
+            tokens, lengths = self._bucketer.pad_token_batch(
+                [state.tokens for state, _ in ready])
+            b_real = len(ready)
+            # padded batch rows prefill a 1-token dummy; their K/V and
+            # logits are discarded
+            lengths_padded = np.ones((tokens.shape[0],), np.int32)
+            lengths_padded[:b_real] = lengths
+            self._prefill_signatures.touch(tokens.shape)
+            last_logits, k, v = self.model.prefill_batch(tokens,
+                                                         lengths_padded)
+            self.cache.write_prefill_batch(
+                [state.seq_id for state, _ in ready],
+                [start for _, start in ready], lengths, k[:b_real],
+                v[:b_real])
+        last_logits = last_logits[:b_real].cpu().numpy()   # one fetch
+        for state, _ in ready:
+            state.prefilling = False
+            state.prefill_pos = len(state.tokens)
+            self.metrics.count_prefill(len(state.tokens))
+        # a prefill's last-position logits ARE the next-token logits
+        self._apply_logits_batch([state for state, _ in ready],
+                                 last_logits)
+
+    # -------------------------- chunked prefill ----------------------
+    def _prefill_chunk_step(self, state, n):
+        """ONE legacy prefill chunk for `state`: reserve `n` tokens
+        (preempting youngest-others on page shortage), one
+        ChunkedPrefillStep call, and on the FINAL chunk sample the first
+        token from the chunk's last-position logits (the only chunk
+        logits ever fetched).  Returns True when the chunk ran."""
+        start = self._reserve_chunk(state, n)
+        if start is None:
+            return False
+        with RecordEvent("generation::prefill"):
+            logits_last = self._chunk_step.run(
+                state.seq_id, state.tokens[start:start + n], start)
+            # the scatter ran inside the call; count its O(tokens) bound
+            self.cache.count_fused_append(n)
+        state.prefill_pos += n
+        self.metrics.count_prefill(n)
+        self.metrics.count_chunk()
+        self._prewarm_decode(state)
+        if state.prefill_pos == len(state.tokens):
+            state.prefilling = False
+            self._on_logits(state, logits_last.cpu().numpy())
+        return True
+
+    def prewarm_decode(self, batch_rows, pages_cols, greedy=True):
+        """Record the fused decode's (batch, pages, greedy) signature
+        without dispatching anything (counted under
+        decode_compiles_prewarm).  Returns True when the signature was
+        new.  False on every other decode path, and past the bucket
+        menu."""
+        if self._fused is None:
+            return False
+        try:
+            new = self._fused.prewarm(batch_rows, pages_cols, greedy)
+        except RequestTooLargeError:
+            return False
+        if new:
+            self.metrics.count_decode_prewarm()
+        return new
+
+    def _prewarm_decode(self, state):
+        """While `state` is mid-prefill, record the fused decode
+        signature its first decode step will land in — at most once per
+        prefill."""
+        if self._fused is None or state.prewarmed or not state.prefilling:
+            return
+        state.prewarmed = True
+        decoding = self.scheduler.decode_ready()
+        pages = [len(self.cache.page_table(s.seq_id)) for s in decoding]
+        pages.append(math.ceil((len(state.tokens) + 1)
+                               / self.cache.page_size))
+        greedy = (state.request.params.greedy
+                  and all(s.request.params.greedy for s in decoding))
+        self.prewarm_decode(len(decoding) + 1, max(pages), greedy)
+
+    # ---------------------------- ragged step ------------------------
 
     def _step_ragged(self):
         """One RAGGED mixed-batch step.  Plans and reserves the chunks
@@ -368,13 +727,20 @@ class GenerationEngine:
         they drop out of the decode batch — or a YOUNGER pack member),
         then the decode capacity check (which may preempt chunkers —
         their rows drop out of the pack)."""
-        self.scheduler.admit(limit=self.config.max_prefill_batch)
+        admitted = self.scheduler.admit(limit=self.config.max_prefill_batch)
+        if not self.prefill_chunk_tokens:
+            # no chunking: prompts take the one-shot prefill and only
+            # decode rides the ragged step
+            self._prefill_admitted(admitted)
         self._reap_deadlines()
-        room = self.step_token_budget - len(self.scheduler.decode_ready())
-        planned = self.scheduler.plan_pack(
-            self.prefill_chunk_tokens, room=room,
-            max_seqs=(self._ragged.max_seqs if self.config.prefill_pack
-                      else 1))
+        planned = []
+        if self.prefill_chunk_tokens:
+            room = (self.step_token_budget
+                    - len(self.scheduler.decode_ready()))
+            planned = self.scheduler.plan_pack(
+                self.prefill_chunk_tokens, room=room,
+                max_seqs=(self._ragged.max_seqs if self.config.prefill_pack
+                          else 1))
         pack = []  # [(state, n, start)] — reserved, still-alive chunks
         for state, n in planned:
             if state.slot is None or not state.prefilling:
@@ -566,6 +932,18 @@ class GenerationEngine:
         self.metrics.count_token()
         if state.n_generated >= req.max_new_tokens:
             self._finish(state, "length")
+
+    def _on_logits(self, state, logits_row):
+        """Sample `state`'s next token from one [V] host logits row and
+        apply it (the per-row path of the one-shot and chunked
+        prefills)."""
+        req = state.request
+        if state.n_generated >= req.max_new_tokens:
+            self._finish(state, "length")
+            return
+        with RecordEvent("generation::sample"):
+            token = sample_token(logits_row, req.params, state.rng)
+        self._apply_token(state, token)
 
     def _apply_logits_batch(self, states, logits):
         """Sample + apply one token per row of a [B, V] host logits

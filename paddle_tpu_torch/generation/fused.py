@@ -1,9 +1,25 @@
-"""RaggedStep: one mixed-batch step call per engine step.
+"""The engine's step owners: each pads one step's host inputs to its
+shape buckets, uploads them, makes ONE call of the model's step function
+on the live pools, and counts what it dispatched.
 
-The decode batch's single-token rows AND the step's prefill chunks ride
-one PACKED token axis of fixed size `max_tokens`, described by
-per-sequence ``[start, len, kv_len]`` descriptors, through one call of
-the model's ragged step function:
+- `RaggedStep` — the ragged step (below);
+- `FusedDecodeStep` — the legacy step's decode: one call of
+  ``model.decode_step_fn`` per decode step;
+- `ChunkedPrefillStep` — the legacy step's prefill: one call of
+  ``model.prefill_chunk_fn`` per prefill chunk.
+
+PyTorch runs eagerly: there is no jit and no donation.  A
+`SignatureCache` counts the padded signatures each owner dispatched
+(what a CUDA-graph capture would be keyed on).  The pools are written in
+place.  If a call fails part-way, the pools may hold a partial write, so
+the cache is reset to fresh storage and the error propagates — the
+engine's fail-the-batch-and-keep-serving recovery then keeps serving on
+clean pools.
+
+In the ragged step the decode batch's single-token rows AND the step's
+prefill chunks ride one PACKED token axis of fixed size `max_tokens`,
+described by per-sequence ``[start, len, kv_len]`` descriptors, through
+one call of the model's ragged step function:
 
 - the token axis is padded to `max_tokens` with inert slots (sink page,
   position 0), so batch size, chunk length and the decode/prefill mix
@@ -15,11 +31,6 @@ the model's ragged step function:
   capture would be keyed on);
 - greedy is folded in: the step returns both the argmax ids [S] and the
   logits [S, V] on the device, and the engine fetches one of them.
-
-The pools are written in place.  If the call fails part-way, the pools
-may hold a partial write, so the cache is reset to fresh storage and the
-error propagates — the engine's fail-the-batch-and-keep-serving
-recovery then keeps serving on clean pools.
 """
 import numpy as np
 import torch
@@ -29,20 +40,181 @@ from ..serving.bucketing import ShapeBucketer, SignatureCache
 from .metrics import DecodeCacheMetrics
 
 
-def _dispatch_in_place(cache, fn, args):
-    """Run ONE pool-writing step call: hand it the cache's pool state,
-    install what it returns.  On ANY failure the pools may be half
+def _dispatch_in_place(cache, call):
+    """Run ONE pool-writing step call: ``call(k_pools, v_pools)`` gets
+    the cache's pool state and returns ``(out, k_pools, v_pools)``; the
+    returned pools are installed.  On ANY failure the pools may be half
     written — leave the cache on fresh storage and re-raise.  Returns the
     non-pool output, still on the device."""
     state = cache.take_pool_state()
     ll = cache.num_layers
     try:
-        out, k_out, v_out = fn(*args, state[:ll], state[ll:])
+        out, k_out, v_out = call(state[:ll], state[ll:])
         cache.put_pool_state(list(k_out) + list(v_out))
     except BaseException:
         cache.reset_pools()
         raise
     return out
+
+
+def decode_batch_menu(max_slots):
+    """Power-of-two batch buckets up to (and always including) the cap —
+    the one batch-menu builder for both the fused decode step and the
+    engine's prefill bucketer."""
+    menu, b = [], 1
+    while b < max_slots:
+        menu.append(b)
+        b *= 2
+    menu.append(int(max_slots))
+    return tuple(sorted(set(menu)))
+
+
+def _pages_bucketer(cache, batch_buckets=(1,)):
+    """Batch buckets plus the power-of-two pages menu of `cache`."""
+    return ShapeBucketer(
+        batch_buckets=batch_buckets,
+        length_buckets=ShapeBucketer.geometric_menu(cache.num_pages,
+                                                    start=1))
+
+
+class FusedDecodeStep:
+    """The legacy decode step as ONE call of the model's decode step
+    function per engine step.
+
+    The live batch B is padded to the batch bucket with DUMMY rows
+    (lens 0: their K/V lands in the sink page and their attention row is
+    exact zeros) and the page-table axis to its pages bucket; one
+    signature per (batch bucket, pages bucket, greedy).  An all-greedy
+    batch takes the step function's argmax variant, so the single host
+    sync fetches B ids instead of B x V logits.  `last_*` are per-call
+    counts the engine's gauges are set from."""
+
+    def __init__(self, model, cache, metrics, batch_buckets, device):
+        self._cache = cache
+        self.device = torch.device(device)
+        self._params = model.decode_params(self.device)
+        self._bucketer = _pages_bucketer(cache, tuple(batch_buckets))
+        self._fns = {greedy: model.decode_step_fn(
+            cache.page_size, cache.num_pages,
+            pool_layout=cache.pool_layout, greedy=greedy)
+            for greedy in (False, True)}
+        self._signatures = SignatureCache(DecodeCacheMetrics(metrics))
+        self.last_dispatches = 0
+        self.last_syncs = 0
+        self.last_uploads = 0
+        self.last_rows_useful = 0
+        self.last_rows_dispatched = 0
+
+    @property
+    def compile_count(self):
+        """Distinct (batch bucket, pages bucket, greedy) signatures — the
+        bucket menu bounds it."""
+        return self._signatures.compile_count
+
+    def cached_buckets(self):
+        return self._signatures.cached_buckets()
+
+    def _signature(self, batch_rows, pages_cols, greedy):
+        return (self._bucketer.batch_bucket(batch_rows),
+                self._bucketer.length_bucket(max(int(pages_cols), 1)),
+                bool(greedy))
+
+    def prewarm(self, batch_rows, pages_cols, greedy):
+        """Record the (batch, pages, greedy) signature a prefilling
+        sequence's first decode step will land in, dispatching nothing.
+        True when the signature is new."""
+        rows = min(max(int(batch_rows), 1), self._bucketer.max_batch)
+        return self._signatures.touch(
+            self._signature(rows, pages_cols, greedy))
+
+    def step(self, tokens, positions, page_tables, lens, greedy):
+        """One decode step for `len(tokens)` live sequences: pad, upload,
+        ONE step call on the live pools, and the ONE host sync.  Returns
+        the real rows: [B] int32 ids when greedy, else [B, V] logits."""
+        b_real = len(tokens)
+        bucket_b, bucket_p, greedy = self._signature(
+            b_real, page_tables.shape[1], greedy)
+        tok = np.zeros((bucket_b,), np.int32)
+        tok[:b_real] = tokens
+        pos = np.zeros((bucket_b,), np.int32)
+        pos[:b_real] = positions
+        ln = np.zeros((bucket_b,), np.int32)
+        ln[:b_real] = lens
+        pt = np.zeros((bucket_b, bucket_p), np.int32)
+        pt[:b_real, :page_tables.shape[1]] = page_tables
+        self._signatures.touch((bucket_b, bucket_p, greedy))
+        tok, pos, pt, ln = (torch.as_tensor(a, device=self.device)
+                            for a in (tok, pos, pt, ln))
+        fn = self._fns[greedy]
+        out = _dispatch_in_place(
+            self._cache,
+            lambda kp, vp: fn(self._params, tok, pos, kp, vp, pt, ln))
+        host = out[:b_real].cpu().numpy()      # the single host sync
+        self.last_dispatches = 1
+        self.last_syncs = 1
+        self.last_uploads = 4
+        # bucket_b - b_real DUMMY rows ran the whole masked step
+        # (generation.padded_token_waste)
+        self.last_rows_useful = b_real
+        self.last_rows_dispatched = bucket_b
+        return host
+
+
+class ChunkedPrefillStep:
+    """The legacy prefill step: ONE call of the model's chunk function
+    per prefill chunk.  The token axis is fixed at `chunk_tokens`, so a
+    chunk's signature is its pages bucket alone, whatever the prompt
+    length; the signatures count under the PREFILL cache metrics (a
+    chunk step is a prefill step).  `run` returns the chunk's last
+    logits on the device unfetched: the engine fetches only the final
+    chunk's, so mid-prompt chunks cost no host sync."""
+
+    def __init__(self, model, cache, metrics, chunk_tokens, device):
+        self._cache = cache
+        self.device = torch.device(device)
+        self.chunk_tokens = int(chunk_tokens)
+        if self.chunk_tokens < 1:
+            raise ValueError("chunk_tokens must be >= 1")
+        self._params = model.decode_params(self.device)
+        self._bucketer = _pages_bucketer(cache)
+        self._fn = model.prefill_chunk_fn(cache.page_size, cache.num_pages,
+                                          pool_layout=cache.pool_layout)
+        self._signatures = SignatureCache(metrics)
+        self.last_rows_useful = 0
+        self.last_rows_dispatched = 0
+
+    @property
+    def compile_count(self):
+        """Distinct pages buckets dispatched — independent of prompt
+        length."""
+        return self._signatures.compile_count
+
+    def run(self, seq_id, tokens, start):
+        """One chunk: `tokens` (<= chunk_tokens of them, already reserved
+        at positions [start, start + len)) padded to the chunk size, the
+        sequence's page table to its pages bucket, ONE step call.  Returns
+        the chunk's last-position logits [V] on the device."""
+        n = len(tokens)
+        if n > self.chunk_tokens:
+            raise ValueError(f"chunk of {n} tokens > chunk_tokens="
+                             f"{self.chunk_tokens}")
+        self._cache.check_span_writable(seq_id, start, n)
+        tok = np.zeros((self.chunk_tokens,), np.int32)
+        tok[:n] = tokens
+        pt_row, _ = self._cache.gather_block_tables([seq_id])
+        bucket_p = self._bucketer.length_bucket(pt_row.shape[1])
+        pt = np.zeros((bucket_p,), np.int32)
+        pt[:pt_row.shape[1]] = pt_row[0]
+        self._signatures.touch(bucket_p)
+        tok, pt = (torch.as_tensor(a, device=self.device) for a in (tok, pt))
+        logits = _dispatch_in_place(
+            self._cache, lambda kp, vp: self._fn(self._params, tok,
+                                                 int(start), n, kp, vp, pt))
+        # chunk-axis padding rows are masked dummy work inside this
+        # sequence's call (generation.padded_token_waste)
+        self.last_rows_useful = n
+        self.last_rows_dispatched = self.chunk_tokens
+        return logits
 
 
 class RaggedStep:
@@ -60,9 +232,7 @@ class RaggedStep:
             raise ValueError("max_tokens and max_seqs must be >= 1")
         self.use_kernel = self.device.type == "cuda"
         self._params = model.decode_params(self.device)
-        pages_menu = ShapeBucketer.geometric_menu(cache.num_pages, start=1)
-        self._bucketer = ShapeBucketer(batch_buckets=(1,),
-                                       length_buckets=pages_menu)
+        self._bucketer = _pages_bucketer(cache)
         self._fn = model.ragged_step_fn(cache.page_size, cache.num_pages,
                                         pool_layout=cache.pool_layout)
         self._signatures = SignatureCache(DecodeCacheMetrics(metrics))
@@ -126,7 +296,8 @@ class RaggedStep:
         self._signatures.touch(bucket_p)
         host = (tok, pos, pg, rw, pt, st, ln, kv)
         args = [self._params, *(self._upload(a) for a in host)]
-        ids, logits = _dispatch_in_place(self._cache, self._fn, args)
+        ids, logits = _dispatch_in_place(
+            self._cache, lambda kp, vp: self._fn(*args, kp, vp))
         if self.use_kernel:
             self.last_score_blocks, self.last_score_blocks_untiled = \
                 ragged_score_blocks(st, ln, kv, self._cache.page_size,

@@ -113,6 +113,39 @@ class PagedKVCache:
         self._lens[seq_id] = start + new_tokens
         return start
 
+    # ------------------------- write targets -------------------------
+    def _locate(self, seq_id, pos):
+        """(page, row) of an already-reserved position, for a write."""
+        table = self._table(seq_id)
+        if pos >= self._lens[seq_id]:
+            raise IndexError(f"position {pos} not reserved for {seq_id!r} "
+                             f"(len={self._lens[seq_id]})")
+        return table[pos // self.page_size], pos % self.page_size
+
+    def check_span_writable(self, seq_id, start, n):
+        """Pre-dispatch guard of the in-step writers (the fused decode and
+        chunk steps): positions [start, start+n) must be reserved
+        (IndexError otherwise).  Without prefix sharing no page is
+        shared, so reserved is writable."""
+        self._table(seq_id)
+        start, n = int(start), int(n)
+        if start + n > self._lens[seq_id]:
+            raise IndexError(
+                f"span [{start}, {start + n}) not reserved for {seq_id!r} "
+                f"(len={self._lens[seq_id]})")
+
+    def _span_pages_rows(self, seq_id, start, n, pad_to=None):
+        """(pages, rows) int32 for positions [start, start+n), padded to
+        `pad_to` entries with the padding sentinel ``num_pages``."""
+        table = self._table(seq_id)
+        pad_to = n if pad_to is None else pad_to
+        pages = np.full((pad_to,), self.num_pages, np.int32)
+        rows = np.zeros((pad_to,), np.int32)
+        pos = start + np.arange(n)
+        pages[:n] = np.asarray(table, np.int32)[pos // self.page_size]
+        rows[:n] = pos % self.page_size
+        return pages, rows
+
     # --------------------------- accounting --------------------------
     def _count_write_payload(self, tokens, layers):
         """K+V bytes a write of `tokens` tokens over `layers` layers
@@ -219,10 +252,13 @@ class DeviceKVPool(PagedKVCache):
     - ``"token"`` (default): ``[num_pages + 1, page_size, H, D]``;
     - ``"kernel"``: ``[H, num_pages + 1, page_size, D]``.
 
-    The ragged step writes the pools in place (`scatter_pool_update`)
-    and reads them through `layer_pools`.  ``k_pool`` / ``v_pool`` are
-    host copies in the canonical token layout without the sink page
-    (debug and tests only).
+    The ragged and fused steps write the pools in place
+    (`scatter_pool_update`) and read them through `layer_pools`; the
+    legacy step's eager decode and one-shot prefill write through
+    `write_decode_tokens` / `write_prefill_batch`, which land padding in
+    the sink page too.
+    ``k_pool`` / ``v_pool`` are host copies in the canonical token layout
+    without the sink page (debug and tests only).
     """
 
     def __init__(self, num_layers, num_heads, head_dim, num_pages=256,
@@ -260,6 +296,46 @@ class DeviceKVPool(PagedKVCache):
     def layer_pools(self, layer):
         """One layer's live ``(k, v)`` pool tensors (sink page included)."""
         return self._k[layer], self._v[layer]
+
+    # ---------------------- legacy-step writes -----------------------
+    def _scatter(self, layers, pages, rows, k, v, real_tokens):
+        """Scatter k[i], v[i] ([n, H, D] each) into the pools of
+        ``layers[i]`` at (pages, rows) — host int arrays uploaded once;
+        sentinel pages land in the sink."""
+        pg = torch.as_tensor(np.asarray(pages, np.int32), device=self.device)
+        rw = torch.as_tensor(np.asarray(rows, np.int32), device=self.device)
+        for li, kl, vl in zip(layers, k, v):
+            scatter_pool_update(self._k[li], pg, rw, kl, self.pool_layout)
+            scatter_pool_update(self._v[li], pg, rw, vl, self.pool_layout)
+        self._count_write_payload(real_tokens, len(layers))
+
+    def write_decode_tokens(self, seq_ids, positions, layer, k, v):
+        """One layer's decode write: token i (k, v [B, H, D]) at reserved
+        position ``positions[i]`` of ``seq_ids[i]``."""
+        targets = [self._locate(sid, int(pos))
+                   for sid, pos in zip(seq_ids, positions)]
+        self._scatter([layer], [p for p, _ in targets],
+                      [r for _, r in targets], [k], [v], len(seq_ids))
+
+    def write_prefill_batch(self, seq_ids, starts, lengths, k, v):
+        """Write a batch of length-padded prefill spans, k, v
+        ``[B, L, T_padded, H, D]``: sequence i's first ``lengths[i]``
+        tokens land at reserved positions ``starts[i] ...``; its padding
+        positions go to the sink page, never to a page a table maps."""
+        b, _, t_pad = k.shape[:3]
+        pages = np.empty((b, t_pad), np.int32)
+        rows = np.empty((b, t_pad), np.int32)
+        for i, sid in enumerate(seq_ids):
+            n = int(lengths[i])
+            self.check_span_writable(sid, int(starts[i]), n)
+            pages[i], rows[i] = self._span_pages_rows(
+                sid, int(starts[i]), n, pad_to=t_pad)
+        h, d = self.num_heads, self.head_dim
+        # [B, L, Tp, H, D] -> per layer [B * Tp, H, D]
+        lk = k.transpose(0, 1).reshape(self.num_layers, b * t_pad, h, d)
+        lv = v.transpose(0, 1).reshape(self.num_layers, b * t_pad, h, d)
+        self._scatter(range(self.num_layers), pages.reshape(-1),
+                      rows.reshape(-1), lk, lv, int(np.sum(lengths)))
 
     @property
     def n_state_groups(self):

@@ -4,7 +4,8 @@ object (`set_queue_depth`, `count_rejected_busy`,
 `count_rejected_deadline`), so the scheduler reuses the serving
 AdmissionQueue unchanged.
 
-Metric names (the ragged step's subset of the JAX engine's, same names):
+Metric names (the ragged and legacy steps' subset of the JAX engine's,
+same names):
 
 - ``generation.requests_total``       accepted generation requests
 - ``generation.rejected_busy``        admission rejections (queue full)
@@ -17,16 +18,28 @@ Metric names (the ragged step's subset of the JAX engine's, same names):
 - ``generation.preempted_total``      sequences preempted (pages reclaimed)
 - ``generation.kv_bytes_moved``       KV bytes the step's writes move
                                       (O(tokens) on the device pools)
-- ``generation.decode_dispatches_per_step``  gauge: ragged-step calls in
-                                      the last step (exactly 1)
+- ``generation.decode_dispatches_per_step``  gauge: step calls in the
+                                      last step (1 on the ragged step; on
+                                      the legacy chunked step one per
+                                      chunk plus the decode's)
 - ``generation.decode_host_syncs_per_step``  gauge: blocking device->host
                                       fetches in the last step (<= 1)
 - ``generation.step_host_uploads``    gauge: host arrays uploaded to the
                                       device in the last step (the
                                       packed step inputs)
-- ``generation.decode_compiles_total``  distinct pages-bucket signatures
-                                      dispatched
+- ``generation.decode_compiles_total``  distinct decode signatures
+                                      dispatched (pages buckets on the
+                                      ragged step; (batch, pages, greedy)
+                                      on the legacy fused decode)
 - ``generation.decode_cache_hits`` / ``_misses``  signature cache
+- ``generation.decode_compiles_prewarm``  fused-decode signatures first
+                                      recorded by the mid-prefill
+                                      pre-warm
+- ``generation.prefill_compiles_total``  distinct prefill signatures
+                                      dispatched ((batch, length) buckets
+                                      of the one-shot prefill, pages
+                                      buckets of the legacy chunk step)
+- ``generation.prefill_cache_hits`` / ``_misses``  their signature cache
 - ``generation.prefill_chunks_total``  prefill chunks packed into steps
 - ``generation.step_rows_useful``     real token rows the steps computed
 - ``generation.step_rows_dispatched``  row slots the steps carried (the
@@ -74,6 +87,10 @@ STEP_HOST_UPLOADS = PREFIX + "step_host_uploads"
 DECODE_COMPILES_TOTAL = PREFIX + "decode_compiles_total"
 DECODE_CACHE_HITS = PREFIX + "decode_cache_hits"
 DECODE_CACHE_MISSES = PREFIX + "decode_cache_misses"
+DECODE_COMPILES_PREWARM = PREFIX + "decode_compiles_prewarm"
+PREFILL_COMPILES_TOTAL = PREFIX + "prefill_compiles_total"
+PREFILL_CACHE_HITS = PREFIX + "prefill_cache_hits"
+PREFILL_CACHE_MISSES = PREFIX + "prefill_cache_misses"
 PREFILL_CHUNKS_TOTAL = PREFIX + "prefill_chunks_total"
 STEP_ROWS_USEFUL = PREFIX + "step_rows_useful"
 STEP_ROWS_DISPATCHED = PREFIX + "step_rows_dispatched"
@@ -145,12 +162,32 @@ class GenerationMetrics:
     def count_decode_compile(self):
         self._stat(DECODE_COMPILES_TOTAL).increase()
 
+    def count_decode_prewarm(self):
+        """One fused-decode signature first recorded by the pre-warm
+        (it lands in decode_compiles_total too; this is its tag)."""
+        self._stat(DECODE_COMPILES_PREWARM).increase()
+
+    # --- prefill signature cache (SignatureCache metrics interface) ---
+    def count_cache(self, hit):
+        self._stat(PREFILL_CACHE_HITS if hit
+                   else PREFILL_CACHE_MISSES).increase()
+
+    def count_compile(self):
+        self._stat(PREFILL_COMPILES_TOTAL).increase()
+
     # --- per-step observation ---
     def observe_decode_step(self, dispatches, host_syncs, uploads=0):
         """Per-step dispatch/sync/upload gauges."""
         self._stat(DECODE_DISPATCHES_PER_STEP).set(int(dispatches))
         self._stat(DECODE_HOST_SYNCS_PER_STEP).set(int(host_syncs))
         self._stat(STEP_HOST_UPLOADS).set(int(uploads))
+
+    def count_step_extra_dispatches(self, n):
+        """Add step calls the legacy chunked step made besides its decode
+        call (one per packed chunk) to the per-step dispatch gauge the
+        decode path just set."""
+        stat = self._stat(DECODE_DISPATCHES_PER_STEP)
+        stat.set(int(stat.get()) + int(n))
 
     def set_kernel_path(self, mode, use_kernel):
         """Gauge (string): ``"<mode>:cuda"`` / ``"<mode>:torch-reference"``,

@@ -1,14 +1,22 @@
 """TinyCausalLM: a small pre-LN causal transformer implementing the
-generation engine's ragged-step protocol — the reference model for
-tests and the chip smoke run.
+generation engine's step protocols — the reference model for tests and
+the chip smoke run.
 
-Two forward paths over the SAME weights:
+Forward paths over the SAME weights:
 
 - `prefill(tokens)` — dense causal attention over the whole prefix
   (full recompute); `greedy_reference` builds the no-cache oracle on it;
+- `prefill_batch(tokens, lengths)` — the same dense causal prefill over
+  a length-padded batch (the legacy step's one-shot prefill);
 - `ragged_step_fn(...)` — one packed mixed-batch engine step: embed ->
   L x (scatter K/V into the page pools + ragged paged attention + MLP)
-  -> logits at each descriptor's last row.
+  -> logits at each descriptor's last row;
+- `decode_step_fn(...)` — one legacy fused decode step: one token per
+  sequence, paged decode attention;
+- `prefill_chunk_fn(...)` — one legacy prefill chunk of one sequence,
+  chunk-prefill attention;
+- `decode(tokens, positions, attend)` — the eager decode step, with the
+  engine's attend callback writing and reading the pools per layer.
 
 Weights are drawn from one ``np.random.default_rng(seed)`` in a fixed
 order, the same draws as the JAX package's model, so the two packages'
@@ -24,7 +32,7 @@ from torch import nn
 
 from ..device import resolve_device
 from . import decode_attention
-from .decode_attention import dense_causal_reference
+from .decode_attention import NEG_INF, dense_causal_reference
 from .kv_cache import scatter_pool_update
 
 _BLOCK_KEYS = ("ln1_s", "ln1_b", "wq", "wk", "wv", "wo", "ln2_s", "ln2_b",
@@ -145,6 +153,11 @@ class TinyCausalLM(nn.Module):
                    max_positions=arrays["pos_emb"].shape[0], seed=seed,
                    device=device, _arrays=arrays)
 
+    @property
+    def device(self):
+        """Where the weights live."""
+        return self.tok_emb.device
+
     # ----------------------- shared per-position math ----------------
     def _embed(self, params, tokens, positions):
         # loud failure where a gather past the table would clamp (JAX) or
@@ -211,6 +224,180 @@ class TinyCausalLM(nn.Module):
                                                blk["ln2_b"]))
         logits = self._logits(params, x[t - 1:t])[0]
         return logits, torch.stack(ks), torch.stack(vs)
+
+    # -------------------------- batched prefill -----------------------
+    @torch.no_grad()
+    def prefill_batch(self, tokens, lengths):
+        """tokens: [B, T] ints, length-padded (pad ids are real vocab
+        rows: their K/V and logits are discarded); lengths: [B] real
+        token counts.  Returns (last_logits [B, V] at each row's
+        ``lengths - 1``, k [B, L, T, H, D], v [B, L, T, H, D]) on the
+        weights' device.  The attention is dense causal plain PyTorch:
+        no kernel of the TPU package runs here either."""
+        tokens = np.asarray(tokens)
+        b, t = tokens.shape
+        if t > self.max_positions:
+            raise ValueError(
+                f"padded length {t} > max_positions={self.max_positions}")
+        params = self.decode_params()
+        dev = params["tok_emb"].device
+        tok = torch.as_tensor(tokens, dtype=torch.long, device=dev)
+        last_row = torch.as_tensor(np.asarray(lengths), dtype=torch.long,
+                                   device=dev) - 1
+        h, dd = self.num_heads, self.head_dim
+        scale = 1.0 / math.sqrt(dd)
+        x = params["tok_emb"][tok] + params["pos_emb"][:t][None]
+        causal = (torch.arange(t, device=dev)[:, None]
+                  >= torch.arange(t, device=dev)[None, :])
+        ks, vs = [], []
+        for blk in params["blocks"]:
+            hn = _layer_norm(x, blk["ln1_s"], blk["ln1_b"])
+            q = (hn @ blk["wq"]).reshape(b, t, h, dd)
+            k = (hn @ blk["wk"]).reshape(b, t, h, dd)
+            v = (hn @ blk["wv"]).reshape(b, t, h, dd)
+            ks.append(k)
+            vs.append(v)
+            logits = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
+            logits = torch.where(causal[None, None], logits,
+                                 torch.full_like(logits, NEG_INF))
+            weights = torch.softmax(logits, dim=-1)
+            attn = torch.einsum("bhqk,bkhd->bqhd", weights, v)
+            x = x + attn.reshape(b, t, self.d_model) @ blk["wo"]
+            x = x + self._mlp(blk, _layer_norm(x, blk["ln2_s"],
+                                               blk["ln2_b"]))
+        last = x[torch.arange(b, device=dev), last_row]
+        return (self._logits(params, last), torch.stack(ks, 1),
+                torch.stack(vs, 1))
+
+    # ------------------------- eager decode ---------------------------
+    @torch.no_grad()
+    def decode(self, tokens, positions, attend):
+        """tokens, positions: [B] host ints.  ``attend(layer, q, k, v)``
+        (each [B, H, D]) writes the step's K/V into the engine-owned
+        pools and returns paged attention [B, H, D].  Returns logits
+        [B, V] on the weights' device."""
+        positions = np.asarray(positions)
+        if positions.size and int(positions.max()) >= self.max_positions:
+            raise ValueError(f"position {int(positions.max())} >= "
+                             f"max_positions={self.max_positions}")
+        params = self.decode_params()
+        dev = params["tok_emb"].device
+        tok = torch.as_tensor(np.asarray(tokens), dtype=torch.long,
+                              device=dev)
+        pos = torch.as_tensor(positions, dtype=torch.long, device=dev)
+        b = tok.shape[0]
+        x = params["tok_emb"][tok] + params["pos_emb"][pos]
+        for li, blk in enumerate(params["blocks"]):
+            hn = _layer_norm(x, blk["ln1_s"], blk["ln1_b"])
+            q, k, v = self._qkv(blk, hn)
+            attn = attend(li, q, k, v)
+            x = x + attn.reshape(b, self.d_model) @ blk["wo"]
+            x = x + self._mlp(blk, _layer_norm(x, blk["ln2_s"],
+                                               blk["ln2_b"]))
+        return self._logits(params, x)
+
+    # -------------------------- fused decode --------------------------
+    def decode_step_fn(self, page_size, num_pages, pool_layout="token",
+                       greedy=False):
+        """The legacy fused decode step the engine's FusedDecodeStep
+        calls once per decode step::
+
+            fn(params, tokens, positions, k_pools, v_pools, page_tables,
+               lens) -> (out, k_pools, v_pools)
+
+        tokens/positions: [B] int (B = the padded batch bucket);
+        page_tables: [B, MP] int32 padded with page 0; lens: [B] int32
+        cached tokens INCLUDING the one being decoded.  ``lens == 0``
+        marks a DUMMY padding row: it embeds its padding token at
+        position 0, writes its K/V into the sink page ``num_pages`` and
+        its attention row is exact zeros.  Each layer writes the pools
+        IN PLACE (the returned lists hold the same tensors), then attends
+        through the page tables.  `out` is logits [B, V], or argmax ids
+        [B] int32 with greedy=True; it stays on the device.  The device
+        of the tensors picks the attention implementation."""
+        page_size = int(page_size)
+        num_pages = int(num_pages)
+
+        @torch.no_grad()
+        def step(params, tokens, positions, k_pools, v_pools, page_tables,
+                 lens):
+            b = tokens.shape[0]
+            pos = positions.long()
+            x = params["tok_emb"][tokens.long()] + params["pos_emb"][pos]
+            rows_b = torch.arange(b, device=pos.device)
+            pages = torch.where(lens > 0,
+                                page_tables[rows_b, pos // page_size].long(),
+                                num_pages)
+            rows = pos % page_size
+            for li, blk in enumerate(params["blocks"]):
+                hn = _layer_norm(x, blk["ln1_s"], blk["ln1_b"])
+                q, k, v = self._qkv(blk, hn)
+                kp = scatter_pool_update(k_pools[li], pages, rows, k,
+                                         pool_layout)
+                vp = scatter_pool_update(v_pools[li], pages, rows, v,
+                                         pool_layout)
+                attn = decode_attention.paged_decode_attention(
+                    q, kp, vp, page_tables, lens, layout=pool_layout)
+                x = x + attn.reshape(b, self.d_model) @ blk["wo"]
+                x = x + self._mlp(blk, _layer_norm(x, blk["ln2_s"],
+                                                   blk["ln2_b"]))
+            logits = self._logits(params, x)
+            out = (torch.argmax(logits, dim=-1).to(torch.int32) if greedy
+                   else logits)
+            return out, k_pools, v_pools
+
+        return step
+
+    # ------------------------- chunked prefill ------------------------
+    def prefill_chunk_fn(self, page_size, num_pages, pool_layout="token"):
+        """The legacy chunked-prefill step the engine's
+        ChunkedPrefillStep calls once per chunk::
+
+            fn(params, tokens, start, length, k_pools, v_pools,
+               page_table) -> (last_logits [V], k_pools, v_pools)
+
+        tokens: [C] int, the chunk padded to the fixed chunk size;
+        start: host int, the chunk's first position (the tokens already
+        cached); length: host int, the real chunk tokens.  Rows >=
+        length are chunk padding: they embed position 0, write the sink
+        page ``num_pages``, and their attention and logits are
+        discarded.  page_table: [MP] int32 for this sequence, padded
+        with page 0.  Each layer writes the chunk's K/V into the pools
+        IN PLACE, then attends over prefix and chunk through the page
+        table.  The logits stay on the device."""
+        page_size = int(page_size)
+        num_pages = int(num_pages)
+
+        @torch.no_grad()
+        def step(params, tokens, start, length, k_pools, v_pools,
+                 page_table):
+            start, length = int(start), int(length)
+            c = tokens.shape[0]
+            idx = torch.arange(c, device=tokens.device)
+            live = idx < length
+            positions = torch.where(live, start + idx, 0)
+            x = (params["tok_emb"][tokens.long()]
+                 + params["pos_emb"][positions])
+            slot = torch.clamp((start + idx) // page_size,
+                               max=page_table.shape[0] - 1)
+            pages = torch.where(live, page_table[slot].long(), num_pages)
+            rows = (start + idx) % page_size
+            for li, blk in enumerate(params["blocks"]):
+                hn = _layer_norm(x, blk["ln1_s"], blk["ln1_b"])
+                q, k, v = self._qkv(blk, hn)
+                kp = scatter_pool_update(k_pools[li], pages, rows, k,
+                                         pool_layout)
+                vp = scatter_pool_update(v_pools[li], pages, rows, v,
+                                         pool_layout)
+                attn = decode_attention.chunk_prefill_attention(
+                    q, kp, vp, page_table, start, layout=pool_layout)
+                x = x + attn.reshape(c, self.d_model) @ blk["wo"]
+                x = x + self._mlp(blk, _layer_norm(x, blk["ln2_s"],
+                                                   blk["ln2_b"]))
+            logits = self._logits(params, x[length - 1:length])[0]
+            return logits, k_pools, v_pools
+
+        return step
 
     # -------------------------- ragged step ---------------------------
     def _ragged_core_fn(self, pool_layout="token"):

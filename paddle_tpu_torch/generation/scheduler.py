@@ -47,10 +47,13 @@ class SequenceState:
     after preemption).  `tokens` is prompt + everything sampled so far.
     `prefilling` / `prefill_pos` track the prefill->decode transition:
     chunked prefill advances `prefill_pos` one chunk per step, and only
-    sequences with `prefilling == False` join the decode batch."""
+    sequences with `prefilling == False` join the decode batch.
+    `prewarmed` marks that the legacy step already recorded the decode
+    signature this prefill will land in (once per prefill)."""
 
     __slots__ = ("seq_id", "request", "tokens", "n_generated", "rng",
-                 "slot", "preemptions", "prefilling", "prefill_pos")
+                 "slot", "preemptions", "prefilling", "prefill_pos",
+                 "prewarmed")
 
     def __init__(self, seq_id, request):
         self.seq_id = seq_id
@@ -62,6 +65,7 @@ class SequenceState:
         self.preemptions = 0
         self.prefilling = True
         self.prefill_pos = 0
+        self.prewarmed = False
 
     @property
     def handle(self):
@@ -212,6 +216,7 @@ class ContinuousBatchingScheduler:
         state.preemptions += 1
         state.prefilling = True
         state.prefill_pos = 0
+        state.prewarmed = False
         self._pending.appendleft(state)
 
     def preempt_youngest(self, exclude=None):

@@ -1,8 +1,14 @@
 """Hand-written CUDA kernels of the port, each beside its wrapper and
 its plain PyTorch version."""
-from .paged_attention import (RAGGED_Q_BLOCK, ragged_paged_attention_kernel,
+from .paged_attention import (RAGGED_Q_BLOCK, chunk_prefill_attention_kernel,
+                              chunk_prefill_attention_torch,
+                              paged_decode_attention_kernel,
+                              paged_decode_attention_torch,
+                              ragged_paged_attention_kernel,
                               ragged_paged_attention_torch,
                               ragged_score_blocks)
 
-__all__ = ["RAGGED_Q_BLOCK", "ragged_paged_attention_kernel",
+__all__ = ["RAGGED_Q_BLOCK", "chunk_prefill_attention_kernel",
+           "chunk_prefill_attention_torch", "paged_decode_attention_kernel",
+           "paged_decode_attention_torch", "ragged_paged_attention_kernel",
            "ragged_paged_attention_torch", "ragged_score_blocks"]

@@ -1,21 +1,31 @@
-"""Ragged paged attention: the hand-written CUDA kernel
-(``csrc/ragged_paged_attention.cu``), its wrapper, its plain PyTorch
-version, and the host mirror of the kernel's tile rule.
+"""Paged attention over the KV page pools: three hand-written CUDA
+kernels, each with its wrapper and its plain PyTorch version, and the
+host mirror of the ragged kernel's tile rule.
 
-The kernel replaces the Pallas TPU kernel
-``paddle_tpu/ops/pallas/paged_attention.py::ragged_paged_attention_kernel``.
-The source file's header gives its design and what bounds it on an H100.
+- `ragged_paged_attention_kernel` (plain: `ragged_paged_attention_torch`),
+  ``csrc/ragged_paged_attention.cu``, replaces the Pallas
+  ``ragged_paged_attention_kernel``;
+- `paged_decode_attention_kernel` (plain: `paged_decode_attention_torch`),
+  ``csrc/paged_decode_attention.cu``, replaces the Pallas
+  ``paged_decode_attention_kernel``;
+- `chunk_prefill_attention_kernel` (plain:
+  `chunk_prefill_attention_torch`), ``csrc/chunk_prefill_attention.cu``,
+  replaces the Pallas ``chunk_prefill_attention_kernel``
 
-- `ragged_paged_attention_kernel` is the wrapper and the one place the
-  device is chosen (``generation.decode_attention`` exports it as
-  ``ragged_paged_attention``): it launches the kernel for CUDA tensors
-  (counting each launch in its ``launches`` attribute) and raises on
-  anything the kernel does not take; for CPU tensors, and only for
-  those, it runs the plain version.
-- `ragged_paged_attention_torch` is the plain version: the gather-and-
-  mask construction of the JAX reference, on any device.
+(the TPU kernels live in ``paddle_tpu/ops/pallas/paged_attention.py``).
+Each source file's header gives its design and what bounds it on an
+H100.
+
+- Each wrapper is the one place its device is chosen
+  (``generation.decode_attention`` exports them under the JAX names): it
+  launches the kernel for CUDA tensors, counting each launch in its
+  ``launches`` attribute, and raises on anything the kernel does not
+  take; for CPU tensors, and only for those, it runs the plain version.
+  int8 pools raise NotImplementedError on every device.
+- The plain versions are the gather-and-mask constructions of the JAX
+  references, on any device.
 - `ragged_score_blocks` counts on the host the [QB, page_size] score
-  blocks per head the kernel computes.
+  blocks per head the ragged kernel computes.
 """
 import ctypes
 import math
@@ -30,7 +40,9 @@ NEG_INF = -1e30
 RAGGED_Q_BLOCK = 8
 MAX_HEAD_DIM = 128
 MAX_PAGE_SIZE = 64
-_LIB = "ragged_paged_attention"
+_RAGGED_LIB = "ragged_paged_attention"
+_DECODE_LIB = "paged_decode_attention"
+_CHUNK_LIB = "chunk_prefill_attention"
 
 
 def _gather_pool(pool, pt, b, h, d, layout, dtype):
@@ -88,6 +100,69 @@ def ragged_paged_attention_torch(q, k_pool, v_pool, page_tables, starts,
     return torch.einsum("sthk,skhd->thd", weights, v)
 
 
+def paged_decode_attention_torch(q, k_pool, v_pool, page_tables, seq_lens,
+                                 scale=None, layout="token"):
+    """Plain PyTorch paged decode attention: one query row per sequence.
+
+    q: [B, H, D]; k_pool, v_pool: one layer's pool in either layout;
+    page_tables: [B, max_pages] int (padding: page 0); seq_lens: [B] int.
+    Sequence b attends to its first ``seq_lens[b]`` keys.  Returns
+    [B, H, D]; a sequence of length 0 gets exact zeros (its softmax over
+    an all-masked row is zeroed after the fact)."""
+    b, h, d = q.shape
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    dev = q.device
+    pt = page_tables.to(dev, torch.long)
+    lens = seq_lens.to(dev, torch.long)
+    k = _gather_pool(k_pool, pt, b, h, d, layout, q.dtype)
+    v = _gather_pool(v_pool, pt, b, h, d, layout, q.dtype)
+    logits = torch.einsum("bhd,bkhd->bhk", q, k) * scale
+    live = (torch.arange(k.shape[1], device=dev)[None, :]
+            < lens[:, None])[:, None, :]                         # [B,1,K]
+    logits = torch.where(live, logits, torch.full_like(logits, NEG_INF))
+    weights = torch.softmax(logits, dim=-1)
+    weights = torch.where((lens > 0)[:, None, None], weights,
+                          torch.zeros_like(weights))
+    return torch.einsum("bhk,bkhd->bhd", weights, v)
+
+
+def chunk_prefill_attention_dense(q, k, v, start, scale=None):
+    """Causal attention of ONE prefill chunk over keys in position order.
+
+    q: [n, H, D], row i at position ``start + i``; k, v: [K, H, D], the
+    prefix in rows [0, start) and the chunk's own keys after it (K may
+    exceed start + n: rows past a query's position are masked and
+    contribute exactly 0).  bf16 keys are upcast to q's dtype first.
+    Returns [n, H, D]."""
+    k = k.to(q.dtype)
+    v = v.to(q.dtype)
+    n, _, d = q.shape
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    logits = torch.einsum("qhd,khd->hqk", q, k) * scale
+    visible = (torch.arange(k.shape[0], device=q.device)[None, :]
+               <= (start + torch.arange(n, device=q.device))[:, None])
+    logits = torch.where(visible[None], logits,
+                         torch.full_like(logits, NEG_INF))
+    weights = torch.softmax(logits, dim=-1)
+    return torch.einsum("hqk,khd->qhd", weights, v)
+
+
+def chunk_prefill_attention_torch(q, k_pool, v_pool, page_table, start,
+                                  scale=None, layout="token"):
+    """Plain PyTorch chunked-prefill attention for ONE sequence, whose
+    chunk K/V were already scattered into the pools: q [n, H, D] (row i
+    at position ``start + i``), page_table [max_pages] int (padding: page
+    0), `start` an int.  Every key is read through the page table.
+    Returns [n, H, D]."""
+    n, h, d = q.shape
+    pt = page_table.to(q.device, torch.long)[None]
+    k = _gather_pool(k_pool, pt, 1, h, d, layout, q.dtype)[0]
+    v = _gather_pool(v_pool, pt, 1, h, d, layout, q.dtype)[0]
+    return chunk_prefill_attention_dense(q, k, v, int(start), scale=scale)
+
+
 def _pool_strides(pool, layout):
     """(page, row, head) element strides of a pool in either layout."""
     if layout == "kernel":
@@ -97,12 +172,19 @@ def _pool_strides(pool, layout):
     return s_page, s_row, s_head
 
 
-def _check_cuda_args(q, k_pool, v_pool, page_tables, starts, lens, kv_lens,
-                     layout):
+def _refuse_int8(k_pool):
+    if k_pool.dtype == torch.int8:
+        raise NotImplementedError("int8 KV pools are not ported yet")
+
+
+def _check_kernel_args(q, k_pool, v_pool, layout, **int_args):
+    """Refuse what the CUDA kernels do not take: tensors off q's device
+    or not contiguous, q not float32 [rows, H, D], pools not one 4-D
+    shape of float32 or bfloat16 matching q's heads and head_dim, head_dim
+    past MAX_HEAD_DIM or page_size past MAX_PAGE_SIZE, or index tensors
+    (`int_args`) not int32.  Returns the page size."""
     dev = q.device
-    named = {"q": q, "k_pool": k_pool, "v_pool": v_pool,
-             "page_tables": page_tables, "starts": starts, "lens": lens,
-             "kv_lens": kv_lens}
+    named = {"q": q, "k_pool": k_pool, "v_pool": v_pool, **int_args}
     for name, x in named.items():
         if x.device != dev:
             raise ValueError(f"{name} is on {x.device}, q on {dev}: the "
@@ -110,7 +192,7 @@ def _check_cuda_args(q, k_pool, v_pool, page_tables, starts, lens, kv_lens,
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     if q.dtype != torch.float32 or q.dim() != 3:
-        raise ValueError(f"q must be float32 [T, H, D], got {q.dtype} "
+        raise ValueError(f"q must be float32 [rows, H, D], got {q.dtype} "
                          f"{tuple(q.shape)}")
     if k_pool.dtype not in (torch.float32, torch.bfloat16) \
             or v_pool.dtype != k_pool.dtype:
@@ -119,7 +201,7 @@ def _check_cuda_args(q, k_pool, v_pool, page_tables, starts, lens, kv_lens,
     if k_pool.dim() != 4 or v_pool.shape != k_pool.shape:
         raise ValueError(f"pools must share one 4-D shape, got "
                          f"{tuple(k_pool.shape)} and {tuple(v_pool.shape)}")
-    t, h, d = q.shape
+    _, h, d = q.shape
     if layout == "kernel":
         ph, _, page_size, pd = k_pool.shape
     else:
@@ -130,8 +212,8 @@ def _check_cuda_args(q, k_pool, v_pool, page_tables, starts, lens, kv_lens,
         raise ValueError(f"the kernel takes head_dim <= {MAX_HEAD_DIM} and "
                          f"page_size <= {MAX_PAGE_SIZE}, got {d} and "
                          f"{page_size}")
-    for name in ("page_tables", "starts", "lens", "kv_lens"):
-        if named[name].dtype != torch.int32:
+    for name, x in int_args.items():
+        if x.dtype != torch.int32:
             raise ValueError(f"{name} must be int32")
     return page_size
 
@@ -147,16 +229,34 @@ def _check_descriptors(page_tables, starts, lens, kv_lens):
             f"{tuple(kv_lens.shape)}")
 
 
+def _launch(lib_name, entry, q, k_pool, v_pool, layout, page_size,
+            *mid, scale):
+    """Launch one kernel on the current stream: ``entry(q, k_pool,
+    v_pool, kv_bf16, s_page, s_row, s_head, *mid, page_size, scale,
+    stream)``, raising on a refused launch."""
+    lib = _load(lib_name)
+    s_page, s_row, s_head = _pool_strides(k_pool, layout)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    rc = getattr(lib, entry)(
+        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+        int(k_pool.dtype == torch.bfloat16), s_page, s_row, s_head, *mid,
+        page_size, float(scale), stream)
+    if rc != 0:
+        raise RuntimeError(f"{lib_name} launch failed: CUDA error {rc} "
+                           f"({lib.pa_error_string(rc).decode()})")
+
+
 def ragged_paged_attention_kernel(q, k_pool, v_pool, page_tables, starts,
                                   lens, kv_lens, scale=None,
                                   layout="token"):
-    """The kernel's wrapper: same contract as the plain version.
+    """The ragged kernel's wrapper: same contract as the plain version.
 
     CUDA tensors launch the CUDA kernel (building it on first use) on the
     current stream, with the output zero-filled here so rows no
     descriptor owns stay exactly 0; a refused launch raises.  CPU tensors
     run the plain version.  Anything else raises."""
     _check_descriptors(page_tables, starts, lens, kv_lens)
+    _refuse_int8(k_pool)
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     if q.device.type == "cpu":
@@ -165,26 +265,16 @@ def ragged_paged_attention_kernel(q, k_pool, v_pool, page_tables, starts,
             scale=scale, layout=layout)
     if q.device.type != "cuda":
         raise ValueError(f"no kernel for device {q.device}")
-    if k_pool.dtype == torch.int8:
-        raise NotImplementedError("int8 KV pools are not ported yet")
-    page_size = _check_cuda_args(q, k_pool, v_pool, page_tables, starts,
-                                 lens, kv_lens, layout)
-    lib = _load()
+    page_size = _check_kernel_args(q, k_pool, v_pool, layout,
+                                   page_tables=page_tables, starts=starts,
+                                   lens=lens, kv_lens=kv_lens)
     t, h, d = q.shape
     s_n, max_pages = page_tables.shape
     out = torch.zeros_like(q)
-    s_page, s_row, s_head = _pool_strides(k_pool, layout)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    rc = lib.rpa_ragged_paged_attention(
-        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-        int(k_pool.dtype == torch.bfloat16), s_page, s_row, s_head,
-        page_tables.data_ptr(), max_pages, starts.data_ptr(),
-        lens.data_ptr(), kv_lens.data_ptr(), out.data_ptr(), t, s_n, h, d,
-        page_size, float(scale), stream)
-    if rc != 0:
-        raise RuntimeError(
-            f"ragged paged attention launch failed: CUDA error {rc} "
-            f"({lib.rpa_error_string(rc).decode()})")
+    _launch(_RAGGED_LIB, "rpa_ragged_paged_attention", q, k_pool, v_pool,
+            layout, page_size, page_tables.data_ptr(), max_pages,
+            starts.data_ptr(), lens.data_ptr(), kv_lens.data_ptr(),
+            out.data_ptr(), t, s_n, h, d, scale=scale)
     ragged_paged_attention_kernel.launches += 1
     return out
 
@@ -192,17 +282,105 @@ def ragged_paged_attention_kernel(q, k_pool, v_pool, page_tables, starts,
 ragged_paged_attention_kernel.launches = 0
 
 
-def _load():
-    first = not _build.loaded(_LIB)
-    lib = _build.load(_LIB)
+def paged_decode_attention_kernel(q, k_pool, v_pool, page_tables, seq_lens,
+                                  scale=None, layout="token"):
+    """The paged decode kernel's wrapper: same contract as
+    `paged_decode_attention_torch`.  CUDA tensors launch the CUDA kernel
+    (built on first use) on the current stream; every output row is
+    written (length-0 sequences as exact zeros).  CPU tensors run the
+    plain version.  Anything else raises."""
+    if page_tables.dim() != 2 or seq_lens.shape != (page_tables.shape[0],) \
+            or q.shape[0] != page_tables.shape[0]:
+        raise ValueError(
+            f"paged decode takes q [B, H, D], page_tables [B, MP] and "
+            f"seq_lens [B]: got {tuple(q.shape)}, "
+            f"{tuple(page_tables.shape)}, {tuple(seq_lens.shape)}")
+    _refuse_int8(k_pool)
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    if q.device.type == "cpu":
+        return paged_decode_attention_torch(q, k_pool, v_pool, page_tables,
+                                            seq_lens, scale=scale,
+                                            layout=layout)
+    if q.device.type != "cuda":
+        raise ValueError(f"no kernel for device {q.device}")
+    page_size = _check_kernel_args(q, k_pool, v_pool, layout,
+                                   page_tables=page_tables,
+                                   seq_lens=seq_lens)
+    b, h, d = q.shape
+    out = torch.empty_like(q)
+    if b == 0:
+        return out
+    _launch(_DECODE_LIB, "pda_paged_decode_attention", q, k_pool, v_pool,
+            layout, page_size, page_tables.data_ptr(), page_tables.shape[1],
+            seq_lens.data_ptr(), out.data_ptr(), b, h, d, scale=scale)
+    paged_decode_attention_kernel.launches += 1
+    return out
+
+
+paged_decode_attention_kernel.launches = 0
+
+
+def chunk_prefill_attention_kernel(q, k_pool, v_pool, page_table, start,
+                                   scale=None, layout="token"):
+    """The chunk-prefill kernel's wrapper: same contract as
+    `chunk_prefill_attention_torch`; `start` is a host int, passed to the
+    kernel by value.  CUDA tensors launch the CUDA kernel (built on first
+    use) on the current stream; CPU tensors run the plain version.
+    Anything else raises."""
+    start = int(start)
+    if page_table.dim() != 1 or page_table.shape[0] < 1 or start < 0:
+        raise ValueError(
+            f"chunk prefill takes a [max_pages >= 1] page table and a "
+            f"start >= 0: got {tuple(page_table.shape)} and {start}")
+    _refuse_int8(k_pool)
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    if q.device.type == "cpu":
+        return chunk_prefill_attention_torch(q, k_pool, v_pool, page_table,
+                                             start, scale=scale,
+                                             layout=layout)
+    if q.device.type != "cuda":
+        raise ValueError(f"no kernel for device {q.device}")
+    page_size = _check_kernel_args(q, k_pool, v_pool, layout,
+                                   page_table=page_table)
+    n, h, d = q.shape
+    out = torch.empty_like(q)
+    if n == 0:
+        return out
+    _launch(_CHUNK_LIB, "cpa_chunk_prefill_attention", q, k_pool, v_pool,
+            layout, page_size, page_table.data_ptr(), page_table.shape[0],
+            start, out.data_ptr(), n, h, d, scale=scale)
+    chunk_prefill_attention_kernel.launches += 1
+    return out
+
+
+chunk_prefill_attention_kernel.launches = 0
+
+# each library's entry point: its ctypes argument types after the common
+# (q, k_pool, v_pool, kv_bf16, s_page, s_row, s_head) head, before the
+# common (page_size, scale, stream) tail
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_ENTRIES = {
+    _RAGGED_LIB: ("rpa_ragged_paged_attention",
+                  [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I]),
+    _DECODE_LIB: ("pda_paged_decode_attention", [_P, _I, _P, _P, _I, _I, _I]),
+    _CHUNK_LIB: ("cpa_chunk_prefill_attention", [_P, _I, _I, _P, _I, _I, _I]),
+}
+
+
+def _load(name):
+    first = not _build.loaded(name)
+    lib = _build.load(name)
     if first:
-        p, i, ll, f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
-                       ctypes.c_float)
-        lib.rpa_ragged_paged_attention.argtypes = [
-            p, p, p, i, ll, ll, ll, p, i, p, p, p, p, i, i, i, i, i, f, p]
-        lib.rpa_ragged_paged_attention.restype = i
-        lib.rpa_error_string.argtypes = [i]
-        lib.rpa_error_string.restype = ctypes.c_char_p
+        entry, mid = _ENTRIES[name]
+        ll = ctypes.c_longlong
+        fn = getattr(lib, entry)
+        fn.argtypes = [_P, _P, _P, _I, ll, ll, ll, *mid, _I,
+                       ctypes.c_float, _P]
+        fn.restype = _I
+        lib.pa_error_string.argtypes = [_I]
+        lib.pa_error_string.restype = ctypes.c_char_p
     return lib
 
 

@@ -12,6 +12,8 @@
 """
 import threading
 
+import numpy as np
+
 from .admission import RequestTooLargeError
 from .metrics import ServingMetrics
 
@@ -52,6 +54,19 @@ class ShapeBucketer:
             menu.append(menu[-1] * 2)
         return tuple(menu)
 
+    @classmethod
+    def for_prefill(cls, batch_buckets, max_tokens, max_positions=None):
+        """The one-shot prefill's (batch, length) menu: `batch_buckets`,
+        and a geometric length menu covering every admissible prompt up
+        to ``min(max_tokens, max_positions)`` (the pool's tokens, capped
+        so no padded bucket exceeds what the model can embed)."""
+        limit = int(max_tokens)
+        if max_positions is not None:
+            limit = min(limit, int(max_positions))
+        menu = [x for x in cls.geometric_menu(limit) if x < limit]
+        return cls(batch_buckets=tuple(sorted(set(batch_buckets))),
+                   length_buckets=tuple(menu) + (limit,))
+
     @property
     def max_batch(self):
         return self.batch_buckets[-1]
@@ -74,6 +89,21 @@ class ShapeBucketer:
         raise RequestTooLargeError(
             f"sequence length {length} exceeds the largest length bucket "
             f"{self.length_buckets[-1]}")
+
+
+    def pad_token_batch(self, seqs, dtype=np.int32):
+        """Pad ragged token-id sequences into one bucketed batch: returns
+        ``(tokens [batch_bucket, length_bucket], lengths [B])`` — the
+        one-shot prefill's entry point."""
+        if len(seqs) == 0:
+            raise ValueError("pad_token_batch needs at least one sequence")
+        lens = np.asarray([len(s) for s in seqs], np.int32)
+        out = np.full((self.batch_bucket(len(seqs)),
+                       self.length_bucket(int(lens.max()))),
+                      self.pad_value, dtype)
+        for i, s in enumerate(seqs):
+            out[i, :len(s)] = s
+        return out, lens
 
 
 class SignatureCache:

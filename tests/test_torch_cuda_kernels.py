@@ -88,15 +88,132 @@ def test_ragged_kernel_on_misaligned_pools(layout, kv_dtype):
     torch.testing.assert_close(ker, plain, atol=TOL, rtol=TOL)
 
 
-def test_engine_on_card_matches_cpu_engine_tokens():
+def _pools(rng, h, d, ps, layout, kv_dtype, num_pages):
+    shape = ((h, num_pages + 1, ps, d) if layout == "kernel"
+             else (num_pages + 1, ps, h, d))
+    return [torch.as_tensor(rng.standard_normal(shape), dtype=torch.float32,
+                            device="cuda").to(kv_dtype) for _ in range(2)]
+
+
+def _decode_case(rng, h, d, ps, layout, kv_dtype, lens, num_pages=64):
+    """Sequences of `lens` (0 included) over distinct random pages; the
+    page-table axis is padded past the longest with page 0."""
+    need = [math.ceil(n / ps) for n in lens]
+    perm = rng.permutation(num_pages)
+    pt = np.zeros((len(lens), max(need) + 2), np.int32)
+    for i, n in enumerate(need):
+        pt[i, :n] = perm[sum(need[:i]):sum(need[:i]) + n]
+    k_pool, v_pool = _pools(rng, h, d, ps, layout, kv_dtype, num_pages)
+    return [torch.as_tensor(rng.standard_normal((len(lens), h, d)),
+                            dtype=torch.float32, device="cuda"),
+            k_pool, v_pool, torch.as_tensor(pt, device="cuda"),
+            torch.as_tensor(np.asarray(lens, np.int32), device="cuda")]
+
+
+@pytest.mark.parametrize("layout", ["token", "kernel"])
+@pytest.mark.parametrize("kv_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,d,ps", [(2, 8, 4), (12, 64, 16), (2, 128, 64),
+                                    (2, 6, 4), (3, 30, 16), (2, 100, 5)])
+def test_decode_kernel_matches_plain_version(layout, kv_dtype, h, d, ps):
+    """Lengths 0 (exact zeros), exactly one page, a ragged tail and a long
+    context, over page tables padded with page 0."""
     _need_card()
-    model = pgen.TinyCausalLM(vocab_size=48, num_layers=2, num_heads=2,
-                              head_dim=8, seed=3)
+    args = _decode_case(np.random.default_rng(2), h, d, ps, layout,
+                        kv_dtype, [0, ps, 3 * ps + 1, 1, 40 * ps - 3])
+    before = pa.paged_decode_attention_kernel.launches
+    ker = pa.paged_decode_attention_kernel(*args, layout=layout)
+    plain = pa.paged_decode_attention_torch(*args, layout=layout)
+    torch.cuda.synchronize()
+    assert pa.paged_decode_attention_kernel.launches == before + 1
+    torch.testing.assert_close(ker, plain, atol=TOL, rtol=TOL)
+    assert bool((ker[0] == 0).all())
+
+
+def _chunk_case(rng, h, d, ps, layout, kv_dtype, n, start):
+    """One sequence holding start + n keys (and two spare table slots of
+    page 0), its chunk's n query rows."""
+    pages = math.ceil((start + n) / ps)
+    num_pages = pages + 8
+    pt = np.zeros((pages + 2,), np.int32)
+    pt[:pages] = rng.permutation(num_pages)[:pages]
+    k_pool, v_pool = _pools(rng, h, d, ps, layout, kv_dtype, num_pages)
+    return [torch.as_tensor(rng.standard_normal((n, h, d)),
+                            dtype=torch.float32, device="cuda"),
+            k_pool, v_pool, torch.as_tensor(pt, device="cuda")]
+
+
+@pytest.mark.parametrize("layout", ["token", "kernel"])
+@pytest.mark.parametrize("kv_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,d,ps", [(2, 8, 4), (12, 64, 16), (2, 128, 64),
+                                    (2, 6, 4), (3, 30, 16), (2, 100, 5)])
+@pytest.mark.parametrize("n,start", [(8, 0), (13, 21), (64, 536)])
+def test_chunk_kernel_matches_plain_version(layout, kv_dtype, h, d, ps, n,
+                                            start):
+    """Start 0, a chunk ending mid-page, the main path's 64-row chunk at
+    position 536; every row (padding rows compute at their nominal
+    positions in both versions)."""
+    _need_card()
+    args = _chunk_case(np.random.default_rng(3), h, d, ps, layout, kv_dtype,
+                       n, start)
+    before = pa.chunk_prefill_attention_kernel.launches
+    ker = pa.chunk_prefill_attention_kernel(*args, start, layout=layout)
+    plain = pa.chunk_prefill_attention_torch(*args, start, layout=layout)
+    torch.cuda.synchronize()
+    assert pa.chunk_prefill_attention_kernel.launches == before + 1
+    torch.testing.assert_close(ker, plain, atol=TOL, rtol=TOL)
+
+
+@pytest.mark.parametrize("layout", ["token", "kernel"])
+@pytest.mark.parametrize("kv_dtype", [torch.float32, torch.bfloat16])
+def test_decode_and_chunk_kernels_on_misaligned_pools(layout, kv_dtype):
+    _need_card()
+    rng = np.random.default_rng(4)
+    dec = _decode_case(rng, 2, 64, 16, layout, kv_dtype, [0, 50, 16, 33])
+    chunk = _chunk_case(rng, 2, 64, 16, layout, kv_dtype, 12, 21)
+    for args in (dec, chunk):
+        args[1], args[2] = _misalign(args[1]), _misalign(args[2])
+    torch.testing.assert_close(
+        pa.paged_decode_attention_kernel(*dec, layout=layout),
+        pa.paged_decode_attention_torch(*dec, layout=layout),
+        atol=TOL, rtol=TOL)
+    torch.testing.assert_close(
+        pa.chunk_prefill_attention_kernel(*chunk, 21, layout=layout),
+        pa.chunk_prefill_attention_torch(*chunk, 21, layout=layout),
+        atol=TOL, rtol=TOL)
+
+
+def test_launch_counters_move_only_on_cuda_tensors():
+    _need_card()
+    rng = np.random.default_rng(6)
+    dec = _decode_case(rng, 2, 8, 4, "token", torch.float32, [5, 0])
+    chunk = _chunk_case(rng, 2, 8, 4, "token", torch.float32, 6, 3)
+    before = (pa.paged_decode_attention_kernel.launches,
+              pa.chunk_prefill_attention_kernel.launches)
+    pa.paged_decode_attention_kernel(*[a.cpu() for a in dec])
+    pa.chunk_prefill_attention_kernel(*[a.cpu() for a in chunk], 3)
+    assert (pa.paged_decode_attention_kernel.launches,
+            pa.chunk_prefill_attention_kernel.launches) == before
+    pa.paged_decode_attention_kernel(*dec)
+    pa.chunk_prefill_attention_kernel(*chunk, 3)
+    assert (pa.paged_decode_attention_kernel.launches,
+            pa.chunk_prefill_attention_kernel.launches) == (before[0] + 1,
+                                                            before[1] + 1)
+
+
+@pytest.mark.parametrize("settings", [
+    dict(), dict(step_mode="legacy"), dict(step_mode="legacy", decode="eager"),
+    dict(step_mode="legacy", prefill_chunk_tokens=0)],
+    ids=["ragged", "legacy_fused", "legacy_eager", "legacy_one_shot"])
+def test_engine_on_card_matches_cpu_engine_tokens(settings):
+    _need_card()
     outs = []
     for device in ("cuda", "cpu"):
+        model = pgen.TinyCausalLM(vocab_size=48, num_layers=2, num_heads=2,
+                                  head_dim=8, seed=3, device=device)
         eng = pgen.GenerationEngine(model, pgen.GenerationConfig(
-            max_decode_slots=4, num_pages=64, page_size=4,
-            prefill_chunk_tokens=3, device=device), start=False)
+            **{"max_decode_slots": 4, "num_pages": 64, "page_size": 4,
+               "prefill_chunk_tokens": 3, "device": device, **settings}),
+            start=False)
         hs = [eng.submit(p, max_new_tokens=10)
               for p in ([1, 2, 3], [7, 5], [9, 9, 9, 4, 2], [11])]
         eng.run_until_idle()

@@ -129,3 +129,38 @@ def test_failed_step_resets_pools_and_engine_keeps_serving():
     assert h2.result(timeout=5).token_ids == model.greedy_reference(
         [4, 5], 6)
     eng.shutdown()
+
+
+@pytest.mark.parametrize("layout", ["token", "kernel"])
+def test_legacy_write_paths_match_jax_device_pool(layout):
+    """write_prefill_batch (two padded batches) then write_decode_tokens:
+    the same pool contents as the JAX DeviceKVPool (padding positions
+    land in the port's sink page, never a mapped one)."""
+    rng = np.random.default_rng(3)
+    l, h, d = 2, 2, 8
+    jax_pool = JaxDeviceKVPool(l, h, d, num_pages=12, page_size=4,
+                               pool_layout=layout)
+    port = pgen.DeviceKVPool(l, h, d, num_pages=12, page_size=4,
+                             pool_layout=layout, device="cpu")
+
+    def f32(*shape):
+        return rng.standard_normal(shape).astype(np.float32)
+
+    single = f32(1, l, 8, h, d)          # one prompt of 6, padded to 8
+    batch = f32(2, l, 8, h, d)           # prompts of 7 and 3, padded to 8
+    step = f32(3, h, d)
+    for cache, t in ((jax_pool, np.asarray), (port, torch.from_numpy)):
+        for sid in "abc":
+            cache.allocate(sid)
+        cache.write_prefill_batch(["a"], [cache.reserve("a", 6)], [6],
+                                  t(single), t(-single))
+        starts = [cache.reserve("b", 7), cache.reserve("c", 3)]
+        cache.write_prefill_batch(["b", "c"], starts, [7, 3], t(batch),
+                                  t(-batch))
+        positions = [cache.reserve(sid, 1) for sid in "abc"]
+        cache.write_decode_tokens(list("abc"), positions, 0, t(step),
+                                  t(-step))
+    np.testing.assert_array_equal(port.k_pool, np.asarray(jax_pool.k_pool))
+    np.testing.assert_array_equal(port.v_pool, np.asarray(jax_pool.v_pool))
+    with pytest.raises(IndexError, match="not reserved"):
+        port.check_span_writable("a", port.seq_len("a"), 1)

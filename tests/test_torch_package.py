@@ -72,14 +72,34 @@ def test_default_device_is_the_card_and_never_falls_back(build):
 
 
 @pytest.mark.parametrize("setting", [
-    dict(step_mode="legacy"), dict(spec_mode="ngram"), dict(loop_steps=4),
-    dict(prefix_cache=True), dict(kv_dtype="int8"), dict(mesh=object()),
-    dict(prefill_chunk_tokens=0)])
+    dict(spec_mode="ngram"), dict(loop_steps=4), dict(prefix_cache=True),
+    dict(kv_dtype="int8"), dict(mesh=object())])
 def test_unported_settings_raise_at_build(setting):
     cfg = pgen.GenerationConfig(device="cpu", **setting)
     with pytest.raises(NotImplementedError, match="not supported"):
         pgen.GenerationEngine(pgen.TinyCausalLM(device="cpu"), cfg,
                               start=False)
+
+
+@pytest.mark.parametrize("setting", [
+    dict(step_mode="legacy"), dict(prefill_chunk_tokens=0)])
+def test_legacy_settings_build_on_cpu(setting):
+    """The legacy step and the one-shot prefill are ported: the engine
+    builds and serves a request token-identically to the oracle."""
+    model = pgen.TinyCausalLM(device="cpu")
+    eng = pgen.GenerationEngine(model, pgen.GenerationConfig(
+        device="cpu", num_pages=32, page_size=4, **setting), start=False)
+    h = eng.submit([1, 2, 3, 4, 5], max_new_tokens=4)
+    eng.run_until_idle()
+    assert h.result(timeout=5).token_ids == model.greedy_reference(
+        [1, 2, 3, 4, 5], 4)
+    eng.shutdown()
+
+
+def test_decode_setting_with_the_ragged_step_raises():
+    with pytest.raises(ValueError, match="step_mode='ragged'"):
+        pgen.GenerationConfig(device="cpu", step_mode="ragged",
+                              decode="fused")
 
 
 def test_step_token_budget_must_hold_every_slot_plus_a_chunk_row():
@@ -88,3 +108,49 @@ def test_step_token_budget_must_hold_every_slot_plus_a_chunk_row():
             pgen.TinyCausalLM(device="cpu"), pgen.GenerationConfig(
                 max_decode_slots=4, prefill_chunk_tokens=2,
                 step_token_budget=4, device="cpu"), start=False)
+
+
+def test_library_path_hashes_every_csrc_header(tmp_path, monkeypatch):
+    """A kernel's library is named by its source AND every header under
+    csrc/, so editing a shared header alone rebuilds the kernel instead
+    of loading a stale library."""
+    from paddle_tpu_torch.ops import _build
+
+    (tmp_path / "k.cu").write_text('#include "common.cuh"\n')
+    header = tmp_path / "common.cuh"
+    header.write_text("#define X 1\n")
+    monkeypatch.setattr(_build, "CSRC_DIR", tmp_path)
+    before = _build.library_path("k")
+    assert _build.library_path("k") == before
+    header.write_text("#define X 2\n")
+    edited = _build.library_path("k")
+    assert edited != before
+    (tmp_path / "other.h").write_text("\n")      # a new .h counts too
+    assert _build.library_path("k") not in (before, edited)
+    assert _build.library_path("k").parent == _build.BUILD_DIR
+
+
+def test_chip_smoke_imports_no_jax_and_fails_without_a_card():
+    """chip_smoke.py imports neither JAX nor the JAX package, and without
+    a card it exits non-zero before printing any result line."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the no-CUDA refusal cannot show")
+    code = textwrap.dedent("""
+        import sys
+        import chip_smoke
+        try:
+            chip_smoke.main()
+            rc = 0
+        except SystemExit as e:
+            rc = e.code
+        bad = sorted(m for m in sys.modules
+                     if m == "jax" or m.startswith("jax.")
+                     or m == "paddle_tpu" or m.startswith("paddle_tpu."))
+        print("RC", rc, bad)
+    """)
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "RC 1 []" in proc.stdout, proc.stdout
+    assert '"ok"' not in proc.stdout

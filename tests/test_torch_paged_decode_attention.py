@@ -1,0 +1,158 @@
+"""Port parity: paged decode attention.
+
+The port's plain PyTorch version (the CPU path of the CUDA kernel's
+wrapper) against the JAX package's Pallas decode kernel run in interpret
+mode and against its jnp reference, on the same seeded numpy inputs, in
+both pool layouts.  Tolerance atol = rtol = 2e-5 in fp32: the online-
+softmax kernel and the two frameworks' einsums sum in different orders.
+A sequence of length 0 (the fused step's dummy rows) must come back as
+exact zeros.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from paddle_tpu.generation.decode_attention import (
+    paged_decode_attention as jax_decode,
+    paged_decode_attention_reference as jax_decode_reference)
+from paddle_tpu_torch.generation import PagedKVCache
+from paddle_tpu_torch.generation.decode_attention import (
+    paged_decode_attention, paged_decode_attention_reference)
+from paddle_tpu_torch.ops import _build
+from paddle_tpu_torch.ops import paged_attention as pa
+
+TOL = dict(atol=2e-5, rtol=2e-5)
+# lengths: a ragged tail over 4 pages, a dummy row, exactly one page, two
+# pages; page_size 4
+LENS = (13, 0, 4, 6)
+
+
+def _fixture(rng, layout="token", h=2, d=8, page_size=4, num_pages=32):
+    """Sequences of LENS over pages the host bookkeeping hands out, in a
+    pool whose every page holds random values (stale contents included);
+    the page-table axis is padded past the longest sequence with page 0."""
+    book = PagedKVCache(1, h, d, num_pages=num_pages, page_size=page_size)
+    for i, n in enumerate(LENS):
+        book.allocate(i)
+        book.reserve(i, n)
+    pt, lens = book.gather_block_tables(list(range(len(LENS))))
+    pools = [rng.standard_normal((num_pages, page_size, h, d))
+             .astype(np.float32) for _ in range(2)]
+    if layout == "kernel":   # [P, ps, H, D] -> [H, P, ps, D]
+        pools = [np.ascontiguousarray(p.transpose(2, 0, 1, 3))
+                 for p in pools]
+    return {"q": rng.standard_normal((len(LENS), h, d)).astype(np.float32),
+            "k_pool": pools[0], "v_pool": pools[1],
+            "page_tables": np.pad(pt, ((0, 0), (0, 2))), "seq_lens": lens}
+
+
+def _args(fx):
+    return [fx[k] for k in ("q", "k_pool", "v_pool", "page_tables",
+                            "seq_lens")]
+
+
+def _port(fx, layout, kv_dtype=torch.float32):
+    args = [torch.from_numpy(np.asarray(a)) for a in _args(fx)]
+    args[1], args[2] = args[1].to(kv_dtype), args[2].to(kv_dtype)
+    return paged_decode_attention(*args, layout=layout).numpy()
+
+
+@pytest.mark.parametrize("layout", ["token", "kernel"])
+def test_plain_version_matches_pallas_interpret_and_reference(layout):
+    fx = _fixture(np.random.default_rng(11), layout)
+    ours = _port(fx, layout)
+    pallas = np.asarray(jax_decode(*_args(fx), use_kernel=True,
+                                   interpret=True, layout=layout))
+    ref = np.asarray(jax_decode_reference(*_args(fx), layout=layout))
+    np.testing.assert_allclose(ours, pallas, **TOL)
+    np.testing.assert_allclose(ours, ref, **TOL)
+    assert np.all(ours[1] == 0.0)          # seq_len 0: exact zeros
+    # the exported reference IS the plain version
+    direct = paged_decode_attention_reference(
+        *[torch.from_numpy(np.asarray(a)) for a in _args(fx)],
+        layout=layout).numpy()
+    np.testing.assert_array_equal(direct, ours)
+
+
+@pytest.mark.parametrize("layout", ["token", "kernel"])
+def test_bf16_pool_matches_jax(layout):
+    """bf16 pools upcast on the gathered view: the port and the JAX
+    reference read the same bf16 values and compute in fp32, so the fp32
+    tolerance holds.  The Pallas kernel rounds its softmax weights to the
+    pool dtype before P.V (``p.astype(v.dtype)``), about 2**-8 relative,
+    so against it the bound is 1e-2."""
+    fx = _fixture(np.random.default_rng(12), layout)
+    for key in ("k_pool", "v_pool"):
+        fx[key] = np.array(jnp.asarray(fx[key], jnp.bfloat16)
+                           .astype(jnp.float32))
+    ours = _port(fx, layout, kv_dtype=torch.bfloat16)
+    jargs = _args(fx)
+    jargs[1] = jnp.asarray(fx["k_pool"], jnp.bfloat16)
+    jargs[2] = jnp.asarray(fx["v_pool"], jnp.bfloat16)
+    ref = np.asarray(jax_decode_reference(*jargs, layout=layout))
+    pallas = np.asarray(jax_decode(*jargs, use_kernel=True, interpret=True,
+                                   layout=layout))
+    np.testing.assert_allclose(ours, ref, **TOL)
+    np.testing.assert_allclose(ours, pallas, atol=1e-2, rtol=1e-2)
+    assert np.all(ours[1] == 0.0)
+
+
+def test_cpu_call_never_builds_or_loads_the_cuda_library(monkeypatch):
+    def refuse(name):
+        raise AssertionError(f"tried to build/load {name} for CPU tensors")
+
+    monkeypatch.setattr(_build, "build", refuse)
+    monkeypatch.setattr(_build, "build_all", refuse)
+    monkeypatch.setattr(_build, "load", refuse)
+    fx = _fixture(np.random.default_rng(13))
+    before = pa.paged_decode_attention_kernel.launches
+    out = pa.paged_decode_attention_kernel(
+        *[torch.from_numpy(np.asarray(a)) for a in _args(fx)])
+    assert out.shape == fx["q"].shape
+    assert pa.paged_decode_attention_kernel.launches == before
+    assert not _build.loaded("paged_decode_attention")
+
+
+def test_shapes_and_int8_checked_before_the_device_is_chosen():
+    """The wrapper refuses mismatched shapes and int8 pools for CPU
+    tensors too, before it picks the plain version or the kernel."""
+    q = torch.zeros(3, 2, 8)
+    pool = torch.zeros(5, 4, 2, 8)
+    pt = torch.zeros(3, 2, dtype=torch.int32)
+    lens = torch.zeros(3, dtype=torch.int32)
+    with pytest.raises(ValueError, match="paged decode"):
+        pa.paged_decode_attention_kernel(q, pool, pool, pt, lens[:2])
+    with pytest.raises(ValueError, match="paged decode"):
+        pa.paged_decode_attention_kernel(q[:2], pool, pool, pt, lens)
+    with pytest.raises(ValueError, match="paged decode"):
+        pa.paged_decode_attention_kernel(q, pool, pool, pt[0], lens)
+    with pytest.raises(NotImplementedError, match="int8"):
+        pa.paged_decode_attention_kernel(q, pool.to(torch.int8),
+                                         pool.to(torch.int8), pt, lens)
+
+
+@pytest.mark.parametrize("bad", ["head_dim", "page_size", "contiguous",
+                                 "dtype", "int32", "device_mix"])
+def test_kernel_argument_checks_raise(bad):
+    """What the CUDA kernel does not take is refused before launch (the
+    checks themselves need no card)."""
+    q = torch.zeros(3, 2, 16)
+    pool = torch.zeros(5, 4, 2, 16)
+    pt = torch.zeros(3, 2, dtype=torch.int32)
+    lens = torch.zeros(3, dtype=torch.int32)
+    if bad == "head_dim":
+        q, pool = torch.zeros(3, 2, 160), torch.zeros(5, 4, 2, 160)
+    elif bad == "page_size":
+        pool = torch.zeros(5, 128, 2, 16)
+    elif bad == "contiguous":
+        q = torch.zeros(2, 3, 16).transpose(0, 1)
+    elif bad == "dtype":
+        pool = pool.to(torch.float16)
+    elif bad == "int32":
+        lens = lens.long()
+    else:
+        lens = lens.to("meta")
+    with pytest.raises(ValueError):
+        pa._check_kernel_args(q, pool, pool, "token", page_tables=pt,
+                              seq_lens=lens)

@@ -198,4 +198,5 @@ def test_kernel_argument_checks_raise(bad):
     else:
         desc = desc.long()
     with pytest.raises(ValueError):
-        pa._check_cuda_args(q, pool, pool, pt, desc, desc, desc, "token")
+        pa._check_kernel_args(q, pool, pool, "token", page_tables=pt,
+                              starts=desc, lens=desc, kv_lens=desc)
