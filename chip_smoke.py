@@ -9,7 +9,9 @@ carries on:
    of the port from the sources in this checkout, one nvcc (sm_90a) per
    source, all at once;
 2. every kernel against its plain PyTorch version, on CUDA tensors, at
-   small edge shapes and at the main paths' shapes, max |diff| <= 2e-5;
+   small edge shapes and at the main paths' shapes: the paged kernels
+   within max |diff| 2e-5; the flash kernels elementwise within atol =
+   rtol = 2e-5 (out, lse) and 1e-4 (dq, dk, dv) in fp32, 2e-2 in bf16;
 3. the engine at GPT-2-small width on the card: 8 requests (6 greedy, 2
    seeded stochastic) served through the ragged step; the ragged
    kernel's launch count over that run must equal num_layers x steps;
@@ -21,10 +23,21 @@ carries on:
    must equal num_layers x their step calls; then on the CPU, held to
    phase 4's rule; then a short one-shot-prefill run with the eager
    decode (4 prompts, 8 new tokens) on card and CPU, held to it too;
-6. numbers: each kernel's and its plain version's times at its main
-   path's shape beside its bound, and each engine's tokens/s, ms per
-   step and time to first token;
-7. the result line.
+6. training at GPT-2-small width (the JAX package's ``bench_gpt_zero``
+   configuration: vocab 50257, 12 layers of 768, 12 heads, 512
+   positions, flash attention, AdamW lr 1e-4, bf16 amp): at dropout 0,
+   the card's first two steps against the same weights and batch on the
+   CPU (B=2, L=512): losses within 1e-4 relative, the step-1 gradient
+   norm within 1e-3 relative; then at the bench's dropout 0.1 on the
+   card, B=8, L=512, 3 warm-up and 10 timed steps on one batch: the
+   loss finite and falling, and each flash kernel's launches equal to
+   num_layers x steps;
+7. numbers: each kernel's and its plain version's times at its main
+   path's shape beside its bound (and, for the flash kernels, PyTorch's
+   scaled_dot_product_attention forward and backward at that shape),
+   each engine's tokens/s, ms per step and time to first token, and the
+   trainer's tokens/s, ms per step, peak memory and device idle share;
+8. the result line.
 
 It imports neither jax nor paddle_tpu.  It needs one CUDA card, and
 fails without one.
@@ -43,6 +56,10 @@ LOGIT_TOL = 1e-3        # first-token logits, card vs CPU
 NEAR_TIE = 1e-4         # CPU top-2 logit gap under which greedy may differ
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM published peaks
 FP32_FLOPS_PER_S = 67e12
+BF16_FLOPS_PER_S = 989e12      # tensor cores, dense
+FLASH_TOL = 2e-5        # flash out and lse, fp32
+FLASH_GRAD_TOL = 1e-4   # dq, dk, dv, fp32: sums of up to Lq products
+FLASH_BF16_TOL = 2e-2   # bf16 outputs, p rounded against another max
 
 # GPT-2-small widths in the architecture the engine serves
 MODEL = dict(vocab_size=50304, num_layers=12, num_heads=12, head_dim=64,
@@ -55,6 +72,16 @@ ONE_SHOT = dict(step_mode="legacy", decode="eager", prefill_chunk_tokens=0)
 ONE_SHOT_PROMPTS, ONE_SHOT_NEW = (0, 2, 5, 7), 8
 # the kernels' main-path case: the engine's widths, pool and pages bucket
 MAIN = dict(h=12, d=64, ps=16, num_pages=512, pages_bucket=64)
+# the trainer: bench.py's bench_gpt_zero configuration on the accelerator
+TRAIN_MODEL = dict(vocab_size=50257, hidden_size=768, num_layers=12,
+                   num_heads=12, max_seq_len=512, attn_dropout=0.0,
+                   use_flash=True)
+TRAIN = dict(lr=1e-4, batch=8, seq=512, warmup=3, iters=10, profiled=3,
+             dropout=0.1, held_batch=2, held_steps=2)
+TRAIN_LOSS_TOL = 1e-4   # card vs CPU losses, relative (bf16 amp on both)
+TRAIN_GNORM_TOL = 1e-3  # card vs CPU step-1 gradient norm, relative
+# the flash kernels' main-path case: the trainer's attention
+FLASH_MAIN = dict(bh=96, heads=12, lq=512, lk=512, d=64, causal=True)
 
 KERNELS = [
     dict(name="ragged_paged_attention", lib="ragged_paged_attention",
@@ -67,6 +94,35 @@ KERNELS = [
          wrapper="chunk_prefill_attention_kernel",
          replaces="paddle_tpu/ops/pallas/paged_attention.py:546"),
 ]
+FLASH_KERNELS = [
+    dict(name="flash_attention_fwd", lib="flash_attention",
+         wrapper="flash_attention_fwd_kernel",
+         replaces="paddle_tpu/ops/pallas/flash_attention.py:144"),
+    dict(name="flash_attention_bwd_dkdv", lib="flash_attention",
+         wrapper="flash_attention_bwd_dkdv_kernel",
+         replaces="paddle_tpu/ops/pallas/flash_attention.py:192"),
+    dict(name="flash_attention_bwd_dq", lib="flash_attention",
+         wrapper="flash_attention_bwd_dq_kernel",
+         replaces="paddle_tpu/ops/pallas/flash_attention.py:238"),
+]
+
+
+def wrappers():
+    """Every kernel's wrapper by name: each counts its launches."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import paged_attention as pa
+
+    return {**{k["name"]: getattr(pa, k["wrapper"]) for k in KERNELS},
+            **{k["name"]: getattr(fa, k["wrapper"]) for k in FLASH_KERNELS}}
+
+
+def reset_launches():
+    for w in wrappers().values():
+        w.launches = 0
+
+
+def read_launches():
+    return {name: w.launches for name, w in wrappers().items()}
 
 
 def log(*args):
@@ -560,14 +616,13 @@ def spy_legacy(eng, first_seq):
     return rec
 
 
-def run_engine(pgen, pa, model, prompts, device, settings=None,
+def run_engine(pgen, model, prompts, device, settings=None,
                max_new=MAX_NEW, stochastic=STOCHASTIC):
     """One measured run.  Every kernel's launch count is set to 0 just
     before it and read just after."""
     eng, handles, records, first_seq = serve(
         pgen, model, prompts, device, settings, max_new, stochastic)
-    for k in KERNELS:
-        getattr(pa, k["wrapper"]).launches = 0
+    reset_launches()
     if device == "cuda":
         torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -575,8 +630,9 @@ def run_engine(pgen, pa, model, prompts, device, settings=None,
     if device == "cuda":
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {k["name"]: getattr(pa, k["wrapper"]).launches
-                for k in KERNELS}
+    launches = read_launches()
+    if any(launches[k["name"]] for k in FLASH_KERNELS):
+        fail(f"a serving run launched a flash kernel: {launches}")
     results = [h.result(timeout=60) for h in handles]
     ttft = sorted(h.first_token_s - h.submitted_s for h in handles)
     stats = eng.stats()
@@ -691,17 +747,17 @@ def check_legacy_launches(label, run, want_chunk):
         fail(f"{label}: the legacy step launched the ragged kernel")
 
 
-def phase_legacy(pgen, pa, model, cpu_model, prompts, ragged_gpu):
+def phase_legacy(pgen, model, cpu_model, prompts, ragged_gpu):
     """The legacy step on card and CPU, then the short one-shot run."""
     n_layers = MODEL["num_layers"]
-    gpu = run_engine(pgen, pa, model, prompts, "cuda", LEGACY)
+    gpu = run_engine(pgen, model, prompts, "cuda", LEGACY)
     for i, r in enumerate(gpu["results"]):
         if r.finish_reason != "length" or len(r.token_ids) != MAX_NEW:
             fail(f"legacy request {i} finished {r.finish_reason!r} with "
                  f"{len(r.token_ids)} tokens, want {MAX_NEW}")
     check_legacy_launches("legacy on the card", gpu, want_chunk=True)
     log("  the same legacy engine on the CPU (plain versions)")
-    cpu = run_engine(pgen, pa, cpu_model, prompts, "cpu", LEGACY)
+    cpu = run_engine(pgen, cpu_model, prompts, "cpu", LEGACY)
     if any(cpu["launches"].values()):
         fail("the CPU legacy engine launched a CUDA kernel")
     worst, _ = hold_to_rule("legacy card vs CPU", gpu, cpu, prompts,
@@ -714,16 +770,341 @@ def phase_legacy(pgen, pa, model, cpu_model, prompts, ragged_gpu):
     stoch = [j for j, i in enumerate(ONE_SHOT_PROMPTS) if i in STOCHASTIC]
     log(f"  one-shot prefill, eager decode: {len(short)} prompts, "
         f"{ONE_SHOT_NEW} new tokens each")
-    one = run_engine(pgen, pa, model, short, "cuda", ONE_SHOT, ONE_SHOT_NEW,
+    one = run_engine(pgen, model, short, "cuda", ONE_SHOT, ONE_SHOT_NEW,
                      stoch)
     check_legacy_launches("one-shot on the card", one, want_chunk=False)
-    one_cpu = run_engine(pgen, pa, cpu_model, short, "cpu", ONE_SHOT,
+    one_cpu = run_engine(pgen, cpu_model, short, "cpu", ONE_SHOT,
                          ONE_SHOT_NEW, stoch)
     worst_one, _ = hold_to_rule("one-shot card vs CPU", one, one_cpu, short,
                                 cpu_model, stoch)
     log(f"  first-token logits card vs CPU max|diff|: legacy {worst:.3e}, "
         f"one-shot {worst_one:.3e} (n_layers {n_layers})")
     return gpu, one
+
+
+# ------------------------ flash attention cases -------------------------
+
+
+def make_flash_case(rng, *, bh, heads, lq, lk, d, causal, mask=False,
+                    dtype=torch.float32, device="cuda"):
+    """qs (scale folded), k, v and dO [BH, L, D]; with `mask`, a key mask
+    that masks every key of batch row 0 (its rows see nothing) and the
+    last three keys of the last batch row."""
+    def t(shape, scale=1.0):
+        return torch.as_tensor(rng.standard_normal(shape) * scale,
+                               dtype=torch.float32, device=device).to(dtype)
+
+    km = None
+    if mask:
+        km_np = np.zeros((bh // heads, 1, lk), np.float32)
+        km_np[0] = -1e30
+        km_np[-1, 0, -3:] = -1e30
+        km = torch.as_tensor(km_np, device=device)
+    return dict(qs=t((bh, lq, d), 1.0 / math.sqrt(d)), k=t((bh, lk, d)),
+                v=t((bh, lk, d)), do=t((bh, lq, d)), km=km, causal=causal,
+                heads=heads)
+
+
+def flash_cases():
+    """The CPU tests' edge cases at D 16, 64 and 128 (one tile; ragged
+    tiles at L 48, 130, 200; Lq < Lk and Lq > Lk causal; a key mask with
+    fully masked rows; several tiles at L 1024), in fp32 and bf16, and
+    the trainer's case."""
+    shapes = [
+        ("d16_l64", dict(bh=4, heads=2, lq=64, lk=64, d=16, causal=False)),
+        ("d64_l48_causal", dict(bh=4, heads=2, lq=48, lk=48, d=64,
+                                causal=True)),
+        ("d128_lq8_lk64_causal", dict(bh=4, heads=2, lq=8, lk=64, d=128,
+                                      causal=True)),
+        ("d128_lq130_lk70_causal", dict(bh=4, heads=2, lq=130, lk=70,
+                                        d=128, causal=True)),
+        ("d64_l200_causal_mask", dict(bh=4, heads=2, lq=200, lk=200, d=64,
+                                      causal=True, mask=True)),
+        ("d16_l1024_causal", dict(bh=2, heads=1, lq=1024, lk=1024, d=16,
+                                  causal=True)),
+    ]
+    cases = []
+    for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        cases += [(f"{name}_{tag}", dict(spec, dtype=dtype))
+                  for name, spec in shapes]
+    cases.append(("main_b8_h12_l512_d64_causal_f32", dict(FLASH_MAIN)))
+    cases.append(("main_b8_h12_l512_d64_causal_bf16",
+                  dict(FLASH_MAIN, dtype=torch.bfloat16)))
+    return cases
+
+
+def flash_args(case):
+    return [case[n] for n in ("qs", "k", "v")]
+
+
+def flash_bwd_args(case, lse, delta):
+    return [case["qs"], case["k"], case["v"], case["do"], lse, delta]
+
+
+def flash_opts(case):
+    return dict(km=case["km"], causal=case["causal"], heads=case["heads"])
+
+
+def phase_flash(fa, rng):
+    """The three flash kernels against their plain versions over
+    `flash_cases`; the backward kernels take the plain forward's lse and
+    delta.  Returns the worst max |diff| of each kernel."""
+    worst = dict.fromkeys([k["name"] for k in FLASH_KERNELS], 0.0)
+    for case_name, spec in flash_cases():
+        case = make_flash_case(rng, **spec)
+        f32 = case["qs"].dtype == torch.float32
+        opts = flash_opts(case)
+        out, lse = fa.flash_attention_fwd_kernel(*flash_args(case), **opts)
+        out_p, lse_p = fa.flash_attention_fwd_torch(*flash_args(case),
+                                                    **opts)
+        delta = (case["do"].float() * out_p.float()).sum(-1)
+        bwd = flash_bwd_args(case, lse_p, delta)
+        dk, dv = fa.flash_attention_bwd_dkdv_kernel(*bwd, **opts)
+        dk_p, dv_p = fa.flash_attention_bwd_dkdv_torch(*bwd, **opts)
+        dq = fa.flash_attention_bwd_dq_kernel(*bwd, **opts)
+        dq_p = fa.flash_attention_bwd_dq_torch(*bwd, **opts)
+        torch.cuda.synchronize()
+        checks = [
+            ("flash_attention_fwd", "out", out, out_p,
+             FLASH_TOL if f32 else FLASH_BF16_TOL),
+            ("flash_attention_fwd", "lse", lse, lse_p, FLASH_TOL),
+            ("flash_attention_bwd_dkdv", "dk", dk, dk_p,
+             FLASH_GRAD_TOL if f32 else FLASH_BF16_TOL),
+            ("flash_attention_bwd_dkdv", "dv", dv, dv_p,
+             FLASH_GRAD_TOL if f32 else FLASH_BF16_TOL),
+            ("flash_attention_bwd_dq", "dq", dq, dq_p,
+             FLASH_GRAD_TOL if f32 else FLASH_BF16_TOL)]
+        notes = []
+        for kname, what, got, want, tol in checks:
+            got, want = got.float(), want.float()
+            err = float((got - want).abs().max())
+            # atol + rtol * |want|, the tests' assert_close rule
+            bad = (got - want).abs() > tol + tol * want.abs()
+            if not math.isfinite(err) or bool(bad.any()):
+                fail(f"{kname} disagrees with its plain version on "
+                     f"{case_name}: {what} max|diff| {err:.3e} past "
+                     f"atol = rtol = {tol}")
+            worst[kname] = max(worst[kname], err)
+            notes.append(f"{what} {err:.2e}")
+        if case["km"] is not None and not (
+                bool((out[:case["heads"]] == 0).all())
+                and bool((lse[:case["heads"]] == -1e30).all())):
+            fail(f"flash forward: fully masked rows of {case_name} are not "
+                 f"out 0, lse NEG_INF")
+        log(f"  flash vs plain  {case_name:34s} max|diff| "
+            f"{', '.join(notes)}")
+    return worst
+
+
+def flash_bound(case, name):
+    """Least time for one flash kernel on these inputs: each input read
+    once and each output written once; fp32 FMAs (or bf16 tensor-core
+    operations) of 2*D flops per visible (row, key) pair per product:
+    forward 2 products (q.k, p.v), dK/dV 4 (q.k, dO.v, p.dO, dS.q), dQ 3
+    (q.k, dO.v, dS.k), each pair counted once."""
+    bh, lq, d = case["qs"].shape
+    lk = case["k"].shape[1]
+    item = case["qs"].element_size()
+    off = lk - lq if case["causal"] else lk
+    pairs = bh * sum(min(max(i + off + 1, 0), lk) if case["causal"] else lk
+                     for i in range(lq))
+    rows, mat = bh * lq * 4, bh * lq * d * item    # an lse row, a q tile
+    kv = bh * lk * d * item
+    km = 0 if case["km"] is None else case["km"].numel() * 4
+    work = {"flash_attention_fwd": (mat + 2 * kv + mat + rows + km, 2),
+            "flash_attention_bwd_dkdv": (2 * mat + 2 * kv + 2 * rows + km
+                                         + 2 * kv, 4),
+            "flash_attention_bwd_dq": (2 * mat + 2 * kv + 2 * rows + km
+                                       + mat, 3)}
+    nbytes, products = work[name]
+    flops = 2 * d * pairs * products
+    peak = FP32_FLOPS_PER_S if item == 4 else BF16_FLOPS_PER_S
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_flops = flops / peak * 1e3
+    return max(t_bytes, t_flops), ("bytes" if t_bytes >= t_flops
+                                   else "operations"), nbytes, flops
+
+
+def flash_numbers(fa, card):
+    """Each flash kernel, its plain version and PyTorch's sdpa at the
+    trainer's attention shape.  Returns name -> (ms, plain_ms, bound_ms,
+    bound_by, library_ms)."""
+    case = make_flash_case(np.random.default_rng(5), **FLASH_MAIN)
+    opts = flash_opts(case)
+    out, lse = fa.flash_attention_fwd_kernel(*flash_args(case), **opts)
+    delta = (case["do"].float() * out.float()).sum(-1)
+    bwd = flash_bwd_args(case, lse, delta)
+    # the library call: sdpa on [B, H, L, D] (Lq = Lk, so its top-left
+    # causal alignment is the JAX kernel's bottom-right one)
+    b, h = FLASH_MAIN["bh"] // FLASH_MAIN["heads"], FLASH_MAIN["heads"]
+    q4, k4, v4, do4 = (case[n].reshape(b, h, *case[n].shape[1:])
+                       .detach().clone().requires_grad_(n != "do")
+                       for n in ("qs", "k", "v", "do"))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib_out = sdpa(q4, k4, v4, is_causal=True, scale=1.0)
+    lib_fwd = time_ms(lambda: sdpa(q4, k4, v4, is_causal=True, scale=1.0),
+                      100)
+    lib_bwd = time_ms(lambda: torch.autograd.grad(
+        lib_out, (q4, k4, v4), do4, retain_graph=True), 100)
+    runs = {"flash_attention_fwd": (
+                lambda: fa.flash_attention_fwd_kernel(*flash_args(case),
+                                                      **opts),
+                lambda: fa.flash_attention_fwd_torch(*flash_args(case),
+                                                     **opts), lib_fwd),
+            "flash_attention_bwd_dkdv": (
+                lambda: fa.flash_attention_bwd_dkdv_kernel(*bwd, **opts),
+                lambda: fa.flash_attention_bwd_dkdv_torch(*bwd, **opts),
+                lib_bwd),
+            "flash_attention_bwd_dq": (
+                lambda: fa.flash_attention_bwd_dq_kernel(*bwd, **opts),
+                lambda: fa.flash_attention_bwd_dq_torch(*bwd, **opts),
+                lib_bwd)}
+    numbers = {}
+    for name, (kernel, plain, lib_ms) in runs.items():
+        ms = time_ms(kernel, 100)
+        paced = time_ms(kernel, 100, queued=False)
+        plain_ms = time_ms(plain, 20)
+        bound_ms, bound_by, nbytes, flops = flash_bound(case, name)
+        numbers[name] = (ms, plain_ms, bound_ms, bound_by, lib_ms)
+        log(f"  [{card}] {name} at the trainer's shape (BH=96: B=8 x H=12, "
+            f"L=512, D=64, f32, causal): {ms * 1e3:.1f} us (launch-paced "
+            f"{paced * 1e3:.1f} us); plain version {plain_ms * 1e3:.1f} us; "
+            f"bound {bound_ms * 1e3:.2f} us by {bound_by} ({nbytes} B, "
+            f"{flops} flop) = {bound_ms / ms:.1%} of bound")
+    log(f"  [{card}] library call, torch scaled_dot_product_attention at "
+        f"that shape (is_causal, f32): forward {lib_fwd * 1e3:.1f} us, "
+        f"backward (torch.autograd.grad: dq, dk, dv in one call) "
+        f"{lib_bwd * 1e3:.1f} us")
+    return numbers
+
+
+# ------------------------------ training ---------------------------------
+
+
+def train_batch(batch, seq, vocab):
+    """Random token ids and labels as bench.py makes them
+    (RandomState(0))."""
+    rng = np.random.RandomState(0)
+    ids = rng.randint(0, vocab, (batch, seq)).astype(np.int64)
+    lbl = rng.randint(0, vocab, (batch, seq)).astype(np.int64)
+    return torch.from_numpy(ids), torch.from_numpy(lbl)
+
+
+def grad_norm(model):
+    return math.sqrt(sum(float(p.grad.double().square().sum())
+                         for p in model.parameters()))
+
+
+def make_trainer(model, device, seed=0):
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel import TrainStep
+
+    return TrainStep(model, lambda m, i, l, generator: m.loss(
+        i, l, generator=generator), AdamW(learning_rate=TRAIN["lr"]),
+        amp_dtype=torch.bfloat16, seed=seed, device=device)
+
+
+def phase_training_held():
+    """At dropout 0: the card's first two steps against the same weights
+    and batch on the CPU (plain versions).  Returns the card's and the
+    CPU's losses and step-1 gradient norms."""
+    from paddle_tpu_torch.models import GPTConfig, GPTForPretraining
+
+    cfg = GPTConfig(dropout=0.0, **TRAIN_MODEL)
+    ids, lbl = train_batch(TRAIN["held_batch"], TRAIN["seq"],
+                           cfg.vocab_size)
+    runs = {}
+    cpu_model = GPTForPretraining(cfg, seed=0, device="cpu")
+    for device in ("cuda", "cpu"):
+        model = (cpu_model if device == "cpu" else
+                 GPTForPretraining.from_numpy_params(
+                     cpu_model.numpy_params(), cfg, device="cuda"))
+        tr = make_trainer(model, device)
+        t0 = time.perf_counter()
+        losses, gnorm = [], None
+        for _ in range(TRAIN["held_steps"]):
+            losses.append(float(tr.step(ids, lbl)))
+            if gnorm is None:
+                gnorm = grad_norm(model)
+        runs[device] = (losses, gnorm)
+        log(f"  {device}: B={TRAIN['held_batch']}, L={TRAIN['seq']}, "
+            f"dropout 0: losses {losses}, step-1 gradient norm {gnorm:.6f} "
+            f"({time.perf_counter() - t0:.1f} s)")
+        del tr, model
+    (card_l, card_g), (cpu_l, cpu_g) = runs["cuda"], runs["cpu"]
+    for i, (a, b) in enumerate(zip(card_l, cpu_l)):
+        if not math.isfinite(a) or abs(a - b) > TRAIN_LOSS_TOL * abs(b):
+            fail(f"training step {i + 1}: card loss {a} vs CPU {b}, past "
+                 f"{TRAIN_LOSS_TOL} relative")
+    if abs(card_g - cpu_g) > TRAIN_GNORM_TOL * cpu_g:
+        fail(f"step-1 gradient norm: card {card_g} vs CPU {cpu_g}, past "
+             f"{TRAIN_GNORM_TOL} relative")
+    return runs
+
+
+def phase_training_run():
+    """The bench's run on the card at dropout 0.1: warm-up and timed
+    steps on one batch, every count set to 0 just before and read just
+    after; then TRAIN["profiled"] more steps under torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddle_tpu_torch.models import GPTConfig, GPTForPretraining
+
+    cfg = GPTConfig(dropout=TRAIN["dropout"], **TRAIN_MODEL)
+    model = GPTForPretraining(cfg, seed=0, device="cuda")
+    n_params = sum(p.numel() for p in model.parameters())
+    tr = make_trainer(model, "cuda")
+    ids, lbl = (x.cuda() for x in train_batch(TRAIN["batch"], TRAIN["seq"],
+                                               cfg.vocab_size))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    losses = []
+    for _ in range(TRAIN["warmup"]):
+        losses.append(tr.step(ids, lbl))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(TRAIN["iters"]):
+        losses.append(tr.step(ids, lbl))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    losses = [float(x) for x in losses]
+    steps = TRAIN["warmup"] + TRAIN["iters"]
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  {n_params / 1e6:.1f} M parameters; {steps} steps at "
+        f"B={TRAIN['batch']}, L={TRAIN['seq']}, dropout "
+        f"{TRAIN['dropout']}: losses {losses[0]:.4f} -> {losses[-1]:.4f}; "
+        f"launches {launches}")
+    if not all(math.isfinite(x) for x in losses) or losses[-1] >= losses[0]:
+        fail(f"training loss not finite and falling: {losses}")
+    want = cfg.num_layers * steps
+    for k in FLASH_KERNELS:
+        if launches[k["name"]] != want:
+            fail(f"{k['name']} launched {launches[k['name']]} times, want "
+                 f"num_layers x steps = {want}")
+    if any(launches[k["name"]] for k in KERNELS):
+        fail("the train step launched a paged-attention kernel")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        p0 = time.perf_counter()
+        for _ in range(TRAIN["profiled"]):
+            tr.step(ids, lbl)
+        torch.cuda.synchronize()
+        p_wall = time.perf_counter() - p0
+    per_kernel = {}
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "self_device_time_total",
+                         getattr(ev, "self_cuda_time_total", 0))
+        if dev_us > 0 and ev.device_type != DeviceType.CPU:
+            per_kernel[ev.key] = (dev_us, ev.count)
+    busy = sum(us for us, _ in per_kernel.values()) / 1e6
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:10]
+    return dict(wall=wall, iters=TRAIN["iters"], launches=launches,
+                peak=peak, losses=losses, p_wall=p_wall, busy=busy, top=top,
+                tokens=TRAIN["batch"] * TRAIN["seq"], n_params=n_params)
 
 
 # ------------------------------ main ------------------------------------
@@ -734,6 +1115,7 @@ def main():
         fail("torch.cuda.is_available() is False: this run needs a card")
     from paddle_tpu_torch import generation as pgen
     from paddle_tpu_torch.ops import _build
+    from paddle_tpu_torch.ops import flash_attention as fa
     from paddle_tpu_torch.ops import paged_attention as pa
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -743,17 +1125,19 @@ def main():
         f"(torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)})")
     t0 = time.perf_counter()
-    libs = _build.build_all([k["lib"] for k in KERNELS])
+    lib_names = list(dict.fromkeys(k["lib"] for k in KERNELS + FLASH_KERNELS))
+    libs = _build.build_all(lib_names)
     log(f"  built {', '.join(lib.name for lib in libs)} with nvcc in "
         f"{time.perf_counter() - t0:.1f} s")
-    for k in KERNELS:
-        for line in _build.build_logs.get(k["lib"], "").splitlines():
+    for name in lib_names:
+        for line in _build.build_logs.get(name, "").splitlines():
             if "registers" in line or "spill" in line:
-                log(f"    ptxas {k['lib']}: {line.strip()}")
+                log(f"    ptxas {name}: {line.strip()}")
 
     rng = np.random.default_rng(0)
     log("phase 2: kernels against their plain versions")
     max_err = phase_kernels(pa, rng)
+    max_err.update(phase_flash(fa, rng))
 
     log("phase 3: engine at GPT-2-small width on the card")
     t0 = time.perf_counter()
@@ -763,7 +1147,7 @@ def main():
         f"parameters)")
     prompts = traffic(np.random.default_rng(1))
     torch.cuda.reset_peak_memory_stats()
-    gpu = run_engine(pgen, pa, model, prompts, "cuda")
+    gpu = run_engine(pgen, model, prompts, "cuda")
     n_tok = sum(len(r.token_ids) for r in gpu["results"])
     for i, r in enumerate(gpu["results"]):
         if r.finish_reason != "length" or len(r.token_ids) != MAX_NEW:
@@ -780,7 +1164,7 @@ def main():
         fail(f"ragged kernel launched {gpu['launches']} times, want {want}")
 
     log("phase 4: the same engine on the CPU (plain version)")
-    cpu = run_engine(pgen, pa, model, prompts, "cpu")
+    cpu = run_engine(pgen, model, prompts, "cpu")
     if cpu["launches"] != 0:
         fail("the CPU engine launched the CUDA kernel")
     worst_logit = 0.0
@@ -814,10 +1198,18 @@ def main():
     cpu_model = pgen.TinyCausalLM.from_numpy_params(
         model.decode_params("cpu"), num_heads=MODEL["num_heads"],
         seed=MODEL["seed"], device="cpu")
-    legacy, one_shot = phase_legacy(pgen, pa, model, cpu_model, prompts,
+    legacy, one_shot = phase_legacy(pgen, model, cpu_model, prompts,
                                     gpu)
 
-    log("phase 6: numbers")
+    log("phase 6: training at GPT-2-small width (bench_gpt_zero's "
+        "configuration, bf16 amp, AdamW)")
+    log("  held check: the card's first two steps against the CPU's "
+        "(plain versions)")
+    phase_training_held()
+    log("  the bench's run on the card")
+    train = phase_training_run()
+
+    log("phase 7: numbers")
     numbers = {}
     main_rng = np.random.default_rng(4)
     main_cases = [
@@ -840,7 +1232,7 @@ def main():
         paced = time_ms(lambda: kernel(*args), 200, queued=False)
         plain_ms = time_ms(lambda: plain(*args), 50)
         bound_ms, bound_by, nbytes, flops = bound_fn(case)
-        numbers[name] = (ms, plain_ms, bound_ms, bound_by)
+        numbers[name] = (ms, plain_ms, bound_ms, bound_by, None)
         log(f"  [{card}] {name} at the main-path shape ({shape}, H=12, "
             f"D=64, page_size=16, pages bucket 64): {ms * 1e3:.1f} us "
             f"(launch-paced {paced * 1e3:.1f} us); plain version "
@@ -849,6 +1241,7 @@ def main():
             f"of bound")
     log(f"  [{card}] library call: none for all three — no single PyTorch "
         f"call reads a paged KV cache through page tables")
+    numbers.update(flash_numbers(fa, card))
     for label, run in (("ragged engine", gpu), ("legacy engine", legacy),
                        ("one-shot engine", one_shot)):
         toks = sum(len(r.token_ids) for r in run["results"])
@@ -871,11 +1264,44 @@ def main():
         else:
             log(f"  [{card}] {label}: torch.profiler recorded no device "
                 f"time: device idle share not measured")
+    step_ms = train["wall"] / train["iters"] * 1e3
+    # bench.py's analytic model flops of a step: 3 x (2 N tokens + 4
+    # tokens L h layers), forward plus a backward of twice its cost
+    m = TRAIN_MODEL
+    flops = 3 * (2 * train["n_params"] * train["tokens"]
+                 + 4 * train["tokens"] * TRAIN["seq"] * m["hidden_size"]
+                 * m["num_layers"])
+    rate = flops / (step_ms * 1e-3)
+    log(f"  [{card}] trainer (GPT-2 small, {train['n_params'] / 1e6:.1f} M "
+        f"parameters, B={TRAIN['batch']}, L={TRAIN['seq']}, bf16 amp, "
+        f"flash attention, dropout {TRAIN['dropout']}): "
+        f"{train['tokens'] / step_ms * 1e3:.1f} tokens/s, {step_ms:.2f} ms "
+        f"per step over {train['iters']} steps; peak memory "
+        f"{train['peak'] / 2**30:.2f} GiB; {flops / 1e12:.3f} TFLOP of "
+        f"model flops per step (bench.py's formula) -> "
+        f"{rate / 1e12:.1f} TFLOP/s = {rate / FP32_FLOPS_PER_S:.1%} of the "
+        f"fp32 CUDA-core peak")
+    if train["busy"] > 0:
+        busy_ms = train["busy"] / TRAIN["profiled"] * 1e3
+        log(f"  [{card}] trainer under torch.profiler "
+            f"({TRAIN['profiled']} steps): wall "
+            f"{train['p_wall']:.3f} s, kernels busy {train['busy']:.3f} s "
+            f"on the device, idle share "
+            f"{1 - train['busy'] / train['p_wall']:.1%}; kernel time per "
+            f"step {busy_ms:.2f} ms = {busy_ms / step_ms:.1%} of the "
+            f"unprofiled step")
+        for key, (us, count) in train["top"]:
+            log(f"    {us / 1e3:9.2f} ms  {count:6d} calls  {key[:90]}")
+    else:
+        log(f"  [{card}] trainer: torch.profiler recorded no device time: "
+            f"device idle share not measured")
     launches = {"ragged_paged_attention": gpu["launches"],
                 "paged_decode_attention":
                     legacy["launches"]["paged_decode_attention"],
                 "chunk_prefill_attention":
-                    legacy["launches"]["chunk_prefill_attention"]}
+                    legacy["launches"]["chunk_prefill_attention"],
+                **{k["name"]: train["launches"][k["name"]]
+                   for k in FLASH_KERNELS}}
     print(json.dumps({"kernels": [{
         "name": k["name"], "route": "cuda",
         "source": f"paddle_tpu_torch/csrc/{k['lib']}.cu",
@@ -883,8 +1309,9 @@ def main():
         "max_abs_err": max_err[k["name"]], "ms": numbers[k["name"]][0],
         "plain_ms": numbers[k["name"]][1],
         "bound_ms": numbers[k["name"]][2],
-        "bound_by": numbers[k["name"]][3], "library_ms": None}
-        for k in KERNELS]}), flush=True)
+        "bound_by": numbers[k["name"]][3],
+        "library_ms": numbers[k["name"]][4]}
+        for k in KERNELS + FLASH_KERNELS]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

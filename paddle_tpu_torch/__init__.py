@@ -1,15 +1,20 @@
 """paddle_tpu_torch: the PyTorch/CUDA port of paddle_tpu.
 
 It serves the generation engine's ragged and legacy steps on an NVIDIA
-GPU, with the ragged, paged-decode and chunk-prefill attention kernels
-written by hand in CUDA C++ for sm_90a (ops/, csrc/).  It imports torch and numpy, never jax and never
-paddle_tpu.  Entry points run on the card unless the caller asks for
-the CPU (``GenerationConfig(device="cpu")``), where every kernel call
-takes the kernel's plain PyTorch version.
+GPU, with the ragged, paged-decode and chunk-prefill attention kernels,
+and trains GPT (``models.GPTForPretraining``, ``optimizer.AdamW``,
+``parallel.TrainStep``) through the flash-attention forward, dK/dV and
+dQ kernels, all written by hand in CUDA C++ for sm_90a (ops/, csrc/).
+It imports torch and numpy, never jax and never paddle_tpu.  Entry
+points run on the card unless the caller asks for the CPU
+(``device="cpu"``), where every kernel call takes the kernel's plain
+PyTorch version.
 """
-from . import generation, ops, profiler, serving
+from . import generation, models, nn, ops, optimizer, parallel, profiler, \
+    serving
 from .generation import (GenerationConfig, GenerationEngine,
                          SamplingParams, TinyCausalLM)
 
 __all__ = ["GenerationConfig", "GenerationEngine", "SamplingParams",
-           "TinyCausalLM", "generation", "ops", "profiler", "serving"]
+           "TinyCausalLM", "generation", "models", "nn", "ops", "optimizer",
+           "parallel", "profiler", "serving"]

@@ -220,3 +220,164 @@ def test_engine_on_card_matches_cpu_engine_tokens(settings):
         outs.append([h.result(timeout=30).token_ids for h in hs])
         eng.shutdown()
     assert outs[0] == outs[1]
+
+
+# ------------------------- flash attention ------------------------------
+
+FLASH_TOL = dict(atol=2e-5, rtol=2e-5)    # out, lse: fp32, other sum order
+FLASH_GRAD_TOL = dict(atol=1e-4, rtol=1e-4)  # sums of up to Lq products
+FLASH_BF16_TOL = dict(atol=2e-2, rtol=2e-2)  # bf16 outputs; p rounded
+                                             # against another running max
+
+
+def _flash_case(rng, bh, lq, lk, d, dtype, heads=2, mask=False):
+    """qs (scale folded), k, v, dO on the card; a key mask that masks
+    every key of batch row 0 (its rows see nothing) and the last three
+    keys of the last row."""
+    def cuda(shape, scale=1.0):
+        return torch.as_tensor(rng.standard_normal(shape) * scale,
+                               dtype=torch.float32, device="cuda").to(dtype)
+
+    qs = cuda((bh, lq, d), 1.0 / math.sqrt(d))
+    k, v, do = cuda((bh, lk, d)), cuda((bh, lk, d)), cuda((bh, lq, d))
+    km = None
+    if mask:
+        km_np = np.zeros((bh // heads, 1, lk), np.float32)
+        km_np[0] = -1e30
+        km_np[-1, 0, -3:] = -1e30
+        km = torch.as_tensor(km_np, device="cuda")
+    return qs, k, v, do, km
+
+
+def _check_flash(qs, k, v, do, km, causal, heads):
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    tol = FLASH_TOL if qs.dtype == torch.float32 else FLASH_BF16_TOL
+    gtol = FLASH_GRAD_TOL if qs.dtype == torch.float32 else FLASH_BF16_TOL
+    before = (fa.flash_attention_fwd_kernel.launches,
+              fa.flash_attention_bwd_dkdv_kernel.launches,
+              fa.flash_attention_bwd_dq_kernel.launches)
+    out, lse = fa.flash_attention_fwd_kernel(qs, k, v, km, causal, heads)
+    out_p, lse_p = fa.flash_attention_fwd_torch(qs, k, v, km, causal, heads)
+    delta = (do.float() * out_p.float()).sum(-1)
+    dk, dv = fa.flash_attention_bwd_dkdv_kernel(qs, k, v, do, lse_p, delta,
+                                                km, causal, heads)
+    dq = fa.flash_attention_bwd_dq_kernel(qs, k, v, do, lse_p, delta, km,
+                                          causal, heads)
+    dk_p, dv_p = fa.flash_attention_bwd_dkdv_torch(qs, k, v, do, lse_p,
+                                                   delta, km, causal, heads)
+    dq_p = fa.flash_attention_bwd_dq_torch(qs, k, v, do, lse_p, delta, km,
+                                           causal, heads)
+    torch.cuda.synchronize()
+    assert (fa.flash_attention_fwd_kernel.launches,
+            fa.flash_attention_bwd_dkdv_kernel.launches,
+            fa.flash_attention_bwd_dq_kernel.launches) == tuple(
+                n + 1 for n in before)
+    assert out.dtype == qs.dtype and dk.dtype == dv.dtype == dq.dtype \
+        == qs.dtype and lse.dtype == torch.float32
+    torch.testing.assert_close(out.float(), out_p.float(), **tol)
+    torch.testing.assert_close(lse, lse_p, **FLASH_TOL)
+    for got, want in ((dq, dq_p), (dk, dk_p), (dv, dv_p)):
+        torch.testing.assert_close(got.float(), want.float(), **gtol)
+    return out, lse
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [16, 64, 128, 30])
+@pytest.mark.parametrize("lq,lk,causal,mask", [
+    (64, 64, False, False), (64, 64, True, False), (48, 48, True, False),
+    (8, 64, True, False), (130, 70, True, False), (200, 200, True, True),
+    (130, 70, False, True)])
+def test_flash_kernels_match_plain_versions(dtype, d, lq, lk, causal, mask):
+    """One tile, several tiles with ragged edges (L 48, 130, 200), Lq < Lk
+    and Lq > Lk causal (bottom-right: the first Lq - Lk rows see no key),
+    a key mask with fully masked rows (out 0, lse NEG_INF)."""
+    _need_card()
+    case = _flash_case(np.random.default_rng(7), 4, lq, lk, d, dtype,
+                       mask=mask)
+    out, lse = _check_flash(*case, causal, 2)
+    if mask:   # batch row 0 (heads 0, 1) masks every key
+        assert bool((out[:2] == 0).all()) and bool((lse[:2] == -1e30).all())
+    if causal and lq > lk:
+        assert bool((out[:, :lq - lk] == 0).all())
+
+
+def test_flash_kernels_at_the_training_shape():
+    """The train step's case: BH 96 (B 8 x H 12), L 512, D 64, f32,
+    causal, no mask."""
+    _need_card()
+    case = _flash_case(np.random.default_rng(8), 96, 512, 512, 64,
+                       torch.float32)
+    _check_flash(*case, True, 12)
+
+
+def test_flash_kernels_refuse_what_they_do_not_take():
+    _need_card()
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    qs, k, v, _, _ = _flash_case(np.random.default_rng(9), 2, 16, 16, 8,
+                                 torch.float32)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_attention_fwd_kernel(qs.transpose(1, 2).contiguous()
+                                      .transpose(1, 2), k, v)
+    with pytest.raises(ValueError, match="float32 or all"):
+        fa.flash_attention_fwd_kernel(qs.half(), k.half(), v.half())
+    with pytest.raises(ValueError, match="head_dim"):
+        big = torch.zeros(1, 4, 160, device="cuda")
+        fa.flash_attention_fwd_kernel(big, big, big)
+
+
+def test_flash_autograd_on_card_matches_cpu():
+    """The public flash_attention through autograd: the card's kernels
+    against the CPU's plain versions, forward and grads."""
+    _need_card()
+    from paddle_tpu_torch.ops.flash_attention import flash_attention
+
+    rng = np.random.default_rng(10)
+    q, k, v = (rng.standard_normal((2, 3, 70, 32)).astype(np.float32)
+               for _ in range(3))
+    mask = np.zeros((2, 1, 1, 70), np.float32)
+    mask[1, ..., -5:] = -1e30
+    res = []
+    for dev in ("cuda", "cpu"):
+        ts = [torch.tensor(x, device=dev, requires_grad=True)
+              for x in (q, k, v)]
+        out = flash_attention(*ts, torch.tensor(mask, device=dev),
+                              causal=True)
+        out.square().sum().backward()
+        res.append([out.detach().cpu()] + [t.grad.cpu() for t in ts])
+    torch.testing.assert_close(res[0][0], res[1][0], **FLASH_TOL)
+    for a, b in zip(res[0][1:], res[1][1:]):
+        torch.testing.assert_close(a, b, **FLASH_GRAD_TOL)
+
+
+def test_train_step_launches_each_flash_kernel_once_per_layer():
+    """One GPT train step on the card moves each flash kernel's counter
+    by num_layers (the backward included); a CPU step moves none; and
+    the card's loss matches the CPU's on the same weights."""
+    _need_card()
+    from paddle_tpu_torch.models import GPTConfig, GPTForPretraining
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel import TrainStep
+
+    cfg = GPTConfig(vocab_size=256, hidden_size=64, num_layers=3,
+                    num_heads=2, max_seq_len=96, dropout=0.0,
+                    use_flash=True)
+    wrappers = (fa.flash_attention_fwd_kernel,
+                fa.flash_attention_bwd_dkdv_kernel,
+                fa.flash_attention_bwd_dq_kernel)
+    rng = np.random.default_rng(11)
+    ids, lbl = (torch.as_tensor(rng.integers(0, 256, (2, 96)))
+                for _ in range(2))
+    losses = []
+    for device in ("cuda", "cpu"):
+        model = GPTForPretraining(cfg, seed=1, device=device)
+        tr = TrainStep(model, lambda m, i, l, generator: m.loss(i, l),
+                       AdamW(1e-3), amp_dtype=torch.bfloat16, device=device)
+        before = [w.launches for w in wrappers]
+        losses.append(float(tr.step(ids, lbl)))
+        moved = [w.launches - b for w, b in zip(wrappers, before)]
+        assert moved == ([cfg.num_layers] * 3 if device == "cuda"
+                         else [0, 0, 0]), (device, moved)
+    assert abs(losses[0] - losses[1]) <= 1e-3 * abs(losses[1])

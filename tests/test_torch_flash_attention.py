@@ -1,0 +1,240 @@
+"""Port parity: flash attention (``paddle_tpu_torch.ops.flash_attention``
+and the gate in ``ops.attention``).
+
+The port's plain versions (the CPU path of the CUDA kernels' wrappers)
+against the JAX package's Pallas kernels in interpret mode
+(``_flash_fwd_call``, ``_flash_bwd_call``, ``_flash``), on the same
+seeded numpy inputs.  Tolerances: out and lse atol = rtol = 2e-5 in fp32
+(dense vs online softmax, other summation orders); dq, dk, dv 5e-4, the
+JAX package's own tolerance for its kernel's grads; bf16 2e-2 (bf16
+outputs, and p rounded to bf16 against the running max on the TPU side
+and the row max here).
+"""
+import math
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import paddle_tpu.ops.pallas.flash_attention  # noqa: F401
+from paddle_tpu.ops.attention import (
+    scaled_dot_product_attention as jax_sdpa)
+from paddle_tpu_torch.ops import attention as pattn
+from paddle_tpu_torch.ops import flash_attention as fa
+
+J = sys.modules["paddle_tpu.ops.pallas.flash_attention"]
+TOL = dict(atol=2e-5, rtol=2e-5)
+GRAD_TOL = dict(atol=5e-4, rtol=5e-4)
+BF16_TOL = dict(atol=2e-2, rtol=2e-2)
+
+# (bh, heads, lq, lk, d, causal, mask)
+CASES = {
+    "plain": (4, 2, 64, 64, 32, False, False),
+    "causal": (4, 2, 64, 64, 32, True, False),
+    "key_mask_full_row": (4, 2, 32, 32, 16, False, True),
+    "causal_key_mask": (4, 2, 32, 32, 16, True, True),
+    "causal_lq8_lk64": (2, 1, 8, 64, 16, True, False),
+    "causal_l48": (2, 1, 48, 48, 16, True, False),
+    "multiblock_l1024": (2, 1, 1024, 1024, 16, True, False),
+}
+
+
+def _inputs(bh, heads, lq, lk, d, mask, seed=0):
+    rng = np.random.default_rng(seed)
+    qs = (rng.standard_normal((bh, lq, d)) / math.sqrt(d)).astype(np.float32)
+    k, v = (rng.standard_normal((bh, lk, d)).astype(np.float32)
+            for _ in range(2))
+    do = rng.standard_normal((bh, lq, d)).astype(np.float32)
+    km = None
+    if mask:   # batch row 0 masks every key, the last row its last three
+        km = np.zeros((bh // heads, 1, lk), np.float32)
+        km[0] = -1e30
+        km[-1, 0, -3:] = -1e30
+    return qs, k, v, do, km
+
+
+def _jax(qs, k, v, do, km, causal, heads, dtype=jnp.float32):
+    jq, jk, jv, jdo = (jnp.asarray(x).astype(dtype) for x in (qs, k, v, do))
+    jkm = (jnp.asarray(km) if km is not None
+           else jnp.zeros((1, 1, k.shape[1]), jnp.float32))
+    out, lse = J._flash_fwd_call(jq, jk, jv, jkm, causal, heads,
+                                 km is not None)
+    grads = J._flash_bwd_call(jq, jk, jv, jkm, out, lse, jdo, causal, heads,
+                              km is not None)
+    return [np.asarray(x, np.float32) for x in (out, lse[..., 0], *grads)]
+
+
+def _port(qs, k, v, do, km, causal, heads, dtype=torch.float32):
+    tq, tk, tv, tdo = (torch.from_numpy(x).to(dtype) for x in (qs, k, v, do))
+    tkm = None if km is None else torch.from_numpy(km)
+    out, lse = fa.flash_attention_fwd_kernel(tq, tk, tv, tkm, causal, heads)
+    delta = (tdo.float() * out.float()).sum(-1)
+    dk, dv = fa.flash_attention_bwd_dkdv_kernel(tq, tk, tv, tdo, lse, delta,
+                                                tkm, causal, heads)
+    dq = fa.flash_attention_bwd_dq_kernel(tq, tk, tv, tdo, lse, delta, tkm,
+                                          causal, heads)
+    assert out.dtype == dq.dtype == dk.dtype == dv.dtype == dtype
+    return [x.float().numpy() for x in (out, lse, dq, dk, dv)]
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_plain_versions_match_the_pallas_kernels(case):
+    bh, heads, lq, lk, d, causal, mask = CASES[case]
+    args = _inputs(bh, heads, lq, lk, d, mask)
+    want = _jax(*args, causal, heads)
+    got = _port(*args, causal, heads)
+    for name, g, w, tol in zip(("out", "lse", "dq", "dk", "dv"), got, want,
+                               (TOL, TOL, GRAD_TOL, GRAD_TOL, GRAD_TOL)):
+        np.testing.assert_allclose(g, w, err_msg=name, **tol)
+    if mask:   # batch row 0 sees no key: out 0, lse NEG_INF, no grads
+        assert (got[0][:heads] == 0).all()
+        assert (got[1][:heads] == fa.NEG_INF).all()
+        assert (got[2][:heads] == 0).all()
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_bf16_inputs_match_the_pallas_kernels(causal):
+    args = _inputs(2, 1, 32, 32, 16, False, seed=3)
+    want = _jax(*args, causal, 1, jnp.bfloat16)
+    got = _port(*args, causal, 1, torch.bfloat16)
+    for name, g, w in zip(("out", "lse", "dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(g, w, err_msg=name, **BF16_TOL)
+
+
+@pytest.mark.parametrize("mask", [False, True])
+def test_autograd_function_matches_jax_grad_of_flash(mask):
+    """`FlashAttention.apply` (CPU route) against ``jax.grad`` of the
+    custom_vjp ``_flash``, through a weighted sum of the output."""
+    qs, k, v, do, km = _inputs(4, 2, 40, 40, 16, mask, seed=5)
+    jkm = jnp.asarray(km) if mask else jnp.zeros((1, 1, 40), jnp.float32)
+
+    def loss(a, b, c):
+        return (J._flash(a, b, c, jkm, True, 2, mask) * jnp.asarray(do)).sum()
+
+    want = jax.grad(loss, argnums=(0, 1, 2))(*map(jnp.asarray, (qs, k, v)))
+    ts = [torch.tensor(x, requires_grad=True) for x in (qs, k, v)]
+    out = fa.FlashAttention.apply(*ts, None if km is None
+                                  else torch.from_numpy(km), True, 2)
+    (out * torch.from_numpy(do)).sum().backward()
+    for t, w in zip(ts, want):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(w),
+                                   **GRAD_TOL)
+
+
+@pytest.mark.parametrize("mask_shape", [None, (2, 1, 1, 24), (1, 1, 1, 24)])
+@pytest.mark.parametrize("lq", [24, 9])
+def test_public_flash_matches_the_composite_with_grads(mask_shape, lq):
+    """``flash_attention`` (scale folded into q, mask broadcast to the
+    batch and its last Lk keys taken) against the composite path of the
+    port's sdpa and the JAX package's, forward and q/k/v grads."""
+    rng = np.random.default_rng(6)
+    q = rng.standard_normal((2, 3, lq, 8)).astype(np.float32)
+    k, v = (rng.standard_normal((2, 3, 24, 8)).astype(np.float32)
+            for _ in range(2))
+    mask = None
+    if mask_shape is not None:
+        mask = np.zeros(mask_shape, np.float32)
+        mask[..., -4:] = -1e30
+    ts = [torch.tensor(x, requires_grad=True) for x in (q, k, v)]
+    tmask = None if mask is None else torch.from_numpy(mask)
+    out = fa.flash_attention(*ts, tmask, causal=True)
+    out.square().sum().backward()
+    flash_grads = [t.grad.clone() for t in ts]
+    for t in ts:
+        t.grad = None
+    ref, _ = pattn.scaled_dot_product_attention(*ts, attn_mask=tmask,
+                                                is_causal=True)
+    ref.square().sum().backward()
+    np.testing.assert_allclose(out.detach().numpy(), ref.detach().numpy(),
+                               **TOL)
+    for g, t in zip(flash_grads, ts):
+        np.testing.assert_allclose(g.numpy(), t.grad.numpy(), **GRAD_TOL)
+    jout, _ = jax_sdpa(*map(jnp.asarray, (q, k, v)),
+                       attn_mask=None if mask is None else jnp.asarray(mask),
+                       is_causal=True, use_flash=False)
+    np.testing.assert_allclose(ref.detach().numpy(),
+                               np.asarray(jout._data), **TOL)
+
+
+def test_mask_gate_matches_jax():
+    shapes = [None, (2, 1, 1, 16), (1, 1, 1, 16), (2, 16), (2, 2, 1, 16),
+              (2, 1, 4, 16), (16, 16)]
+    for shape in shapes:
+        mask = None if shape is None else np.zeros(shape, np.float32)
+        want = J.mask_is_flash_compatible(mask)
+        got = fa.mask_is_flash_compatible(
+            None if mask is None else torch.from_numpy(mask))
+        assert got == want, shape
+
+
+def test_shape_gate_reads_head_dims_and_shared_memory_only():
+    assert fa.shapes_fit_kernels(512, 512, 64)
+    assert fa.shapes_fit_kernels(2000, 5000, 128)     # lengths are free
+    assert fa.shapes_fit_kernels(48, 48, 1)
+    assert not fa.shapes_fit_kernels(512, 512, 129)
+    assert not fa.shapes_fit_kernels(0, 512, 64)
+    assert fa.kernel_smem_bytes(128) <= fa.SMEM_PER_BLOCK
+    # the dK/dV kernel is the largest: k, v, q, dO tiles, p^T, dS^T
+    assert fa.kernel_smem_bytes(64) == 4 * (4 * 64 * 65 + 2 * 64 * 65
+                                            + 2 * 64)
+
+
+def test_sdpa_takes_flash_only_through_its_gate(monkeypatch):
+    """use_flash=None is off; Lq == 1 always takes the composite (its
+    causal mask is all visible); dropout, return_weights, a [B, H, Lq,
+    Lk] mask or a head dim past the kernels' also take the composite."""
+    calls = []
+    real = pattn.flash_attention
+    monkeypatch.setattr(pattn, "flash_attention",
+                        lambda *a, **kw: calls.append(1) or real(*a, **kw))
+    rng = np.random.default_rng(8)
+
+    def t(*shape):
+        return torch.from_numpy(rng.standard_normal(shape)
+                                .astype(np.float32))
+
+    q, k, v = t(1, 2, 6, 8), t(1, 2, 6, 8), t(1, 2, 6, 8)
+    gen = torch.Generator().manual_seed(0)
+    pattn.scaled_dot_product_attention(q, k, v, is_causal=True)
+    pattn.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                       use_flash=True, dropout_p=0.1,
+                                       generator=gen)
+    pattn.scaled_dot_product_attention(q, k, v, use_flash=True,
+                                       return_weights=True)
+    pattn.scaled_dot_product_attention(q, k, v, t(1, 2, 6, 6),
+                                       use_flash=True)
+    big = t(1, 1, 4, 160)
+    pattn.scaled_dot_product_attention(big, big, big, use_flash=True)
+    assert calls == []
+    pattn.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                       use_flash=True)
+    assert calls == [1]
+    # one decode row: the composite, causal ignored, as JAX does
+    q1 = t(1, 2, 1, 8)
+    out, _ = pattn.scaled_dot_product_attention(q1, k, v, is_causal=True,
+                                                use_flash=True)
+    assert calls == [1]
+    jout, _ = jax_sdpa(*(jnp.asarray(x.numpy()) for x in (q1, k, v)),
+                       is_causal=True, use_flash=True)
+    np.testing.assert_allclose(out.numpy(), np.asarray(jout._data), **TOL)
+
+
+def test_attention_dropout_needs_a_generator():
+    x = torch.zeros(1, 1, 4, 8)
+    with pytest.raises(ValueError, match="torch.Generator"):
+        pattn.scaled_dot_product_attention(x, x, x, dropout_p=0.1)
+
+
+def test_wrappers_refuse_shapes_no_version_takes():
+    x = torch.zeros(2, 8, 4)
+    with pytest.raises(ValueError, match="BH, Lq, D"):
+        fa.flash_attention_fwd_kernel(x, torch.zeros(2, 8, 5), x)
+    with pytest.raises(ValueError, match="key mask"):
+        fa.flash_attention_fwd_kernel(x, x, x, torch.zeros(1, 1, 8),
+                                      heads=1)
+    with pytest.raises(ValueError, match="lse must be"):
+        fa.flash_attention_bwd_dq_kernel(x, x, x, x, torch.zeros(2, 7),
+                                         torch.zeros(2, 8))

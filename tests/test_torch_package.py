@@ -12,6 +12,9 @@ import pytest
 import torch
 
 from paddle_tpu_torch import generation as pgen
+from paddle_tpu_torch.models import GPTConfig, GPTForPretraining
+from paddle_tpu_torch.optimizer import AdamW
+from paddle_tpu_torch.parallel import TrainStep
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -35,7 +38,8 @@ def test_import_pulls_in_neither_jax_nor_paddle_tpu():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     n_modules = int(proc.stdout.split()[0])
-    assert n_modules >= 15     # every module of the slice was imported
+    # every module of the serving and training slices was imported
+    assert n_modules >= 25
 
 
 def test_default_config_resolves_to_cuda_and_never_falls_back():
@@ -66,6 +70,41 @@ def test_default_device_is_the_card_and_never_falls_back(build):
                   else built["tok_emb"] if isinstance(built, dict)
                   else built.layer_pools(0)[0])
         assert tensor.device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="needs CUDA"):
+        build()
+
+
+def _gpt_config():
+    return GPTConfig(vocab_size=32, hidden_size=16, num_layers=1,
+                     num_heads=2, max_seq_len=8)
+
+
+def _train_step(device):
+    model = GPTForPretraining(_gpt_config(), device="cpu")
+    return TrainStep(model, lambda m, i, l, generator: m.loss(i, l), AdamW(),
+                     device=device)
+
+
+@pytest.mark.parametrize("build", [
+    lambda: GPTForPretraining(_gpt_config()),
+    lambda: GPTForPretraining.from_numpy_params(
+        GPTForPretraining(_gpt_config(), device="cpu").numpy_params(),
+        _gpt_config()),
+    lambda: _train_step(None)],
+    ids=["gpt", "gpt_from_numpy_params", "train_step"])
+def test_training_entry_points_default_to_the_card(build):
+    """GPTForPretraining and TrainStep put their tensors on the card
+    unless asked for the CPU (a TrainStep on the card refuses a CPU
+    model); without a card they raise rather than carry on on the
+    CPU."""
+    if torch.cuda.is_available():
+        try:
+            built = build()
+        except ValueError as e:          # the CPU model under a card step
+            assert "is on cpu" in str(e)
+            return
+        assert next(built.parameters()).device.type == "cuda"
         return
     with pytest.raises(RuntimeError, match="needs CUDA"):
         build()
