@@ -10,8 +10,11 @@ carries on:
    source, all at once;
 2. every kernel against its plain PyTorch version, on CUDA tensors, at
    small edge shapes and at the main paths' shapes: the paged kernels
-   within max |diff| 2e-5; the flash kernels elementwise within atol =
-   rtol = 2e-5 (out, lse) and 1e-4 (dq, dk, dv) in fp32, 2e-2 in bf16;
+   within max |diff| 2e-5 on float32, bfloat16 and int8 pools (int8:
+   zero-scale pages, misaligned pools, both layouts; and an int8 pool
+   without its scales must raise); the flash kernels elementwise within
+   atol = rtol = 2e-5 (out, lse) and 1e-4 (dq, dk, dv) in fp32, 2e-2 in
+   bf16;
 3. the engine at GPT-2-small width on the card: 8 requests (6 greedy, 2
    seeded stochastic) served through the ragged step; the ragged
    kernel's launch count over that run must equal num_layers x steps;
@@ -23,7 +26,18 @@ carries on:
    must equal num_layers x their step calls; then on the CPU, held to
    phase 4's rule; then a short one-shot-prefill run with the eager
    decode (4 prompts, 8 new tokens) on card and CPU, held to it too;
-6. training at GPT-2-small width (the JAX package's ``bench_gpt_zero``
+6. int8 KV pools at GPT-2-small width, the same model, pool (512 pages
+   of 16) and traffic with ``kv_dtype="int8"``: (a) the ragged step on
+   the card, the int8 ragged kernel's launches equal to num_layers x
+   steps and no float launch; (b) the same on the CPU, held to phase 4's
+   rule with int8's bounds (first-token logits within 3e-2, near ties
+   below 6e-2: a K/V value that differs in its last bits between the
+   devices may quantize one step apart); (c) the legacy step on the card,
+   the int8 decode and chunk kernels' launches equal to num_layers x
+   their calls, held to (a) by the same rule; printed, not gated: greedy
+   agreement and first-token logit drift against phase 3's float32 run,
+   and the pool bytes of int8 against float32;
+7. training at GPT-2-small width (the JAX package's ``bench_gpt_zero``
    configuration: vocab 50257, 12 layers of 768, 12 heads, 512
    positions, flash attention, AdamW lr 1e-4, bf16 amp): at dropout 0,
    the card's first two steps against the same weights and batch on the
@@ -32,12 +46,16 @@ carries on:
    card, B=8, L=512, 3 warm-up and 10 timed steps on one batch: the
    loss finite and falling, and each flash kernel's launches equal to
    num_layers x steps;
-7. numbers: each kernel's and its plain version's times at its main
-   path's shape beside its bound (and, for the flash kernels, PyTorch's
-   scaled_dot_product_attention forward and backward at that shape),
-   each engine's tokens/s, ms per step and time to first token, and the
-   trainer's tokens/s, ms per step, peak memory and device idle share;
-8. the result line.
+8. numbers: each kernel's and its plain version's times at its main
+   path's shape beside its bound (the paged kernels on float32 and on
+   int8 pools; for the flash kernels, PyTorch's
+   scaled_dot_product_attention forward and backward at that shape), the
+   int8 write's time per layer, each engine's tokens/s, ms per step and
+   time to first token (float32 and int8), and the trainer's tokens/s,
+   ms per step, peak memory and device idle share;
+9. the result line.
+
+Each phase prints its wall seconds.
 
 It imports neither jax nor paddle_tpu.  It needs one CUDA card, and
 fails without one.
@@ -54,6 +72,16 @@ import torch
 KERNEL_TOL = 2e-5       # fp32 with f32 accumulation; summation order differs
 LOGIT_TOL = 1e-3        # first-token logits, card vs CPU
 NEAR_TIE = 1e-4         # CPU top-2 logit gap under which greedy may differ
+# int8 pools, card vs CPU: K/V that differ in their last bits (fp32 sums
+# in other orders) can fall on the two sides of a rounding boundary and
+# quantize one step (1/127 of the page's abs-max) apart, so int8 logits
+# move about 2000x more than float32 ones between the devices (phases 4
+# and 6 on an NVIDIA H100 80GB HBM3 at 700 W: float32 first-token logits
+# within 4.1e-6, int8 up to 7.6e-3); the bound keeps 4x room over that,
+# far below what a dropped or misapplied scale does (a factor of 127 on
+# every K/V value)
+INT8_LOGIT_TOL = 3e-2
+INT8_NEAR_TIE = 2 * INT8_LOGIT_TOL  # each of the top two may move that far
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM published peaks
 FP32_FLOPS_PER_S = 67e12
 BF16_FLOPS_PER_S = 989e12      # tensor cores, dense
@@ -68,6 +96,7 @@ ENGINE = dict(max_decode_slots=8, num_pages=512, page_size=16)
 N_REQUESTS, MAX_NEW, STOCHASTIC = 8, 32, (2, 5)
 # the legacy step's configuration, and the short one-shot run's
 LEGACY = dict(step_mode="legacy", decode="fused", prefill_chunk_tokens=64)
+INT8 = dict(kv_dtype="int8")
 ONE_SHOT = dict(step_mode="legacy", decode="eager", prefill_chunk_tokens=0)
 ONE_SHOT_PROMPTS, ONE_SHOT_NEW = (0, 2, 5, 7), 8
 # the kernels' main-path case: the engine's widths, pool and pages bucket
@@ -83,17 +112,17 @@ TRAIN_GNORM_TOL = 1e-3  # card vs CPU step-1 gradient norm, relative
 # the flash kernels' main-path case: the trainer's attention
 FLASH_MAIN = dict(bh=96, heads=12, lq=512, lk=512, d=64, causal=True)
 
+# the paged kernels' rows: each kernel's float (float32 and bfloat16) and
+# int8 instantiations, counted apart by the wrapper's launches_by_dtype
+FLOAT_KV, INT8_KV = ("float32", "bfloat16"), ("int8",)
 KERNELS = [
-    dict(name="ragged_paged_attention", lib="ragged_paged_attention",
-         wrapper="ragged_paged_attention_kernel",
-         replaces="paddle_tpu/ops/pallas/paged_attention.py:428"),
-    dict(name="paged_decode_attention", lib="paged_decode_attention",
-         wrapper="paged_decode_attention_kernel",
-         replaces="paddle_tpu/ops/pallas/paged_attention.py:629"),
-    dict(name="chunk_prefill_attention", lib="chunk_prefill_attention",
-         wrapper="chunk_prefill_attention_kernel",
-         replaces="paddle_tpu/ops/pallas/paged_attention.py:546"),
-]
+    dict(name=name + tag, lib=name, wrapper=name + "_kernel",
+         replaces=f"paddle_tpu/ops/pallas/paged_attention.py:{line}",
+         dtypes=dtypes)
+    for tag, dtypes in (("", FLOAT_KV), ("_int8", INT8_KV))
+    for name, line in (("ragged_paged_attention", 428),
+                       ("paged_decode_attention", 629),
+                       ("chunk_prefill_attention", 546))]
 FLASH_KERNELS = [
     dict(name="flash_attention_fwd", lib="flash_attention",
          wrapper="flash_attention_fwd_kernel",
@@ -108,21 +137,28 @@ FLASH_KERNELS = [
 
 
 def wrappers():
-    """Every kernel's wrapper by name: each counts its launches."""
+    """Every kernel row's wrapper and the pool dtypes it counts (None:
+    all of the wrapper's launches)."""
     from paddle_tpu_torch.ops import flash_attention as fa
     from paddle_tpu_torch.ops import paged_attention as pa
 
-    return {**{k["name"]: getattr(pa, k["wrapper"]) for k in KERNELS},
-            **{k["name"]: getattr(fa, k["wrapper"]) for k in FLASH_KERNELS}}
+    return {**{k["name"]: (getattr(pa, k["wrapper"]), k["dtypes"])
+               for k in KERNELS},
+            **{k["name"]: (getattr(fa, k["wrapper"]), None)
+               for k in FLASH_KERNELS}}
 
 
 def reset_launches():
-    for w in wrappers().values():
+    for w, dtypes in wrappers().values():
         w.launches = 0
+        if dtypes is not None:
+            w.launches_by_dtype = dict.fromkeys(w.launches_by_dtype, 0)
 
 
 def read_launches():
-    return {name: w.launches for name, w in wrappers().items()}
+    return {name: (w.launches if dtypes is None
+                   else sum(w.launches_by_dtype[d] for d in dtypes))
+            for name, (w, dtypes) in wrappers().items()}
 
 
 def log(*args):
@@ -154,15 +190,29 @@ def misalign(x):
 
 
 def _pools(rng, h, d, ps, num_pages, layout, kv_dtype, misaligned, device):
-    """A random K and V pool pair (sink page included)."""
+    """A random K and V pool pair (sink page included) and, for int8 pools
+    (random codes), their scales as ``{"k_scale", "v_scale"}`` [pages, H]:
+    every third page's are 0, a freshly handed-out page's."""
     shape = ((h, num_pages + 1, ps, d) if layout == "kernel"
              else (num_pages + 1, ps, h, d))
     out = []
     for _ in range(2):
-        p = torch.as_tensor(rng.standard_normal(shape), dtype=torch.float32,
-                            device=device).to(kv_dtype)
+        if kv_dtype == torch.int8:
+            p = torch.as_tensor(rng.integers(-127, 128, shape),
+                                dtype=torch.int8, device=device)
+        else:
+            p = torch.as_tensor(rng.standard_normal(shape),
+                                dtype=torch.float32, device=device
+                                ).to(kv_dtype)
         out.append(misalign(p) if misaligned else p)
-    return out
+    scales = {}
+    if kv_dtype == torch.int8:
+        for key in ("k_scale", "v_scale"):
+            sc = rng.uniform(0.5, 4.0, (num_pages + 1, h))
+            sc[::3] = 0.0
+            scales[key] = torch.as_tensor(sc, dtype=torch.float32,
+                                          device=device)
+    return out, scales
 
 
 def make_case(rng, *, h, d, ps, num_pages, desc, layout="token",
@@ -193,8 +243,8 @@ def make_case(rng, *, h, d, ps, num_pages, desc, layout="token",
     starts += list(rng.integers(0, t, n_padding))
     lens += [0] * n_padding
     kvs += list(rng.integers(1, mp * ps, n_padding))
-    k_pool, v_pool = _pools(rng, h, d, ps, num_pages, layout, kv_dtype,
-                            misaligned, device)
+    (k_pool, v_pool), scales = _pools(rng, h, d, ps, num_pages, layout,
+                                      kv_dtype, misaligned, device)
 
     def dev(a, dtype=None):
         return torch.as_tensor(np.asarray(a), device=device, dtype=dtype)
@@ -204,7 +254,7 @@ def make_case(rng, *, h, d, ps, num_pages, desc, layout="token",
         k_pool=k_pool, v_pool=v_pool,
         page_tables=dev(pt, torch.int32),
         starts=dev(starts, torch.int32), lens=dev(lens, torch.int32),
-        kv_lens=dev(kvs, torch.int32), layout=layout)
+        kv_lens=dev(kvs, torch.int32), layout=layout, scales=scales)
 
 
 def main_path_desc(rng):
@@ -218,7 +268,7 @@ def main_path_desc(rng):
 def kernel_cases(rng):
     small = dict(num_pages=40)
     mixed = main_path_desc(rng)
-    return [
+    cases = [
         ("d8_ps4_token", dict(h=2, d=8, ps=4, desc=[(1, 13), (1, 6),
                                                    (5, 12)], n_padding=1,
                               **small)),
@@ -259,6 +309,19 @@ def kernel_cases(rng):
         ("main_bf16_kernel", dict(desc=mixed, kv_dtype=torch.bfloat16,
                                   layout="kernel", **MAIN)),
     ]
+    return cases + int8_variants(cases, [
+        "d8_ps4_token", "d8_ps4_kernel", "d128_ps64", "d100_ps5_odd",
+        "d6_ps4_token", "d30_ps16_kernel", "misaligned_token",
+        "misaligned_kernel_bf16", "main_mixed_token", "main_mixed_kernel",
+        "main_padding_desc"])
+
+
+def int8_variants(cases, names):
+    """int8 copies of the named cases: the same shapes, layout and
+    alignment over int8 pools with their scales."""
+    by_name = dict(cases)
+    return [(f"{n.replace('_bf16', '')}_int8",
+             dict(by_name[n], kv_dtype=torch.int8)) for n in names]
 
 
 def attn_args(case):
@@ -283,14 +346,15 @@ def make_decode_case(rng, *, h, d, ps, lens, num_pages, layout="token",
     for i, n in enumerate(need):
         pt[i, :n] = perm[used:used + n]
         used += n
-    k_pool, v_pool = _pools(rng, h, d, ps, num_pages, layout, kv_dtype,
-                            misaligned, device)
+    (k_pool, v_pool), scales = _pools(rng, h, d, ps, num_pages, layout,
+                                      kv_dtype, misaligned, device)
     return dict(q=torch.as_tensor(rng.standard_normal((len(lens), h, d)),
                                   dtype=torch.float32, device=device),
                 k_pool=k_pool, v_pool=v_pool,
                 page_tables=torch.as_tensor(pt, device=device),
                 seq_lens=torch.as_tensor(np.asarray(lens, np.int32),
-                                         device=device), layout=layout)
+                                         device=device), layout=layout,
+                scales=scales)
 
 
 def make_chunk_case(rng, *, h, d, ps, start, n, num_pages, length=None,
@@ -304,13 +368,13 @@ def make_chunk_case(rng, *, h, d, ps, start, n, num_pages, length=None,
     mp = pages_bucket or (start + n - 1) // ps + 2
     pt = np.zeros((mp,), np.int32)
     pt[:pages] = rng.permutation(num_pages)[:pages]
-    k_pool, v_pool = _pools(rng, h, d, ps, num_pages, layout, kv_dtype,
-                            misaligned, device)
+    (k_pool, v_pool), scales = _pools(rng, h, d, ps, num_pages, layout,
+                                      kv_dtype, misaligned, device)
     return dict(q=torch.as_tensor(rng.standard_normal((n, h, d)),
                                   dtype=torch.float32, device=device),
                 k_pool=k_pool, v_pool=v_pool,
                 page_table=torch.as_tensor(pt, device=device), start=start,
-                layout=layout)
+                layout=layout, scales=scales)
 
 
 def main_decode_lens(rng):
@@ -323,7 +387,7 @@ def main_decode_lens(rng):
 def decode_cases(rng):
     small = dict(num_pages=60)
     main_lens = main_decode_lens(rng)
-    return [
+    cases = [
         ("d8_ps4_token", dict(h=2, d=8, ps=4, lens=[0, 4, 13, 6, 1],
                               **small)),
         ("d8_ps4_kernel", dict(h=2, d=8, ps=4, lens=[0, 4, 13, 6, 1],
@@ -352,11 +416,16 @@ def decode_cases(rng):
         ("main_decode_dummy_rows", dict(lens=main_lens[:5] + [0, 0, 0],
                                         **MAIN)),
     ]
+    return cases + int8_variants(cases, [
+        "d8_ps4_token", "d8_ps4_kernel", "d128_ps64", "d100_ps5",
+        "d6_ps4_token", "d30_ps16_kernel", "misaligned_token",
+        "misaligned_kernel_bf16", "main_decode_token", "main_decode_kernel",
+        "main_decode_dummy_rows"])
 
 
 def chunk_cases():
     small = dict(num_pages=60)
-    return [
+    cases = [
         ("d8_ps4_start0", dict(h=2, d=8, ps=4, start=0, n=8, **small)),
         ("d8_ps4_kernel_mid_page", dict(h=2, d=8, ps=4, start=5, n=6,
                                         layout="kernel", **small)),
@@ -385,6 +454,11 @@ def chunk_cases():
         ("main_chunk_last_padded", dict(start=576, n=64, length=24,
                                         **MAIN)),
     ]
+    return cases + int8_variants(cases, [
+        "d8_ps4_start0", "d8_ps4_kernel_mid_page", "d128_ps64_padding",
+        "d100_ps5", "d6_ps4_token_padding", "d30_ps16_kernel",
+        "misaligned_token", "misaligned_kernel_bf16", "main_chunk_token",
+        "main_chunk_kernel", "main_chunk_last_padded"])
 
 
 def decode_args(case):
@@ -399,21 +473,23 @@ def chunk_args(case):
 
 def check_cases(name, cases, make, args_of, kernel, plain, extra=None):
     """Each case through `kernel` and `plain` on CUDA tensors; fails past
-    KERNEL_TOL.  Returns the worst max |diff|."""
-    worst = 0.0
+    KERNEL_TOL.  Returns the worst max |diff| over the float pools and
+    over the int8 pools, as ``{"": float, "_int8": int8}``."""
+    worst = {"": 0.0, "_int8": 0.0}
     for case_name, spec in cases:
         case = make(**spec)
-        ker = kernel(*args_of(case), layout=case["layout"])
-        ref = plain(*args_of(case), layout=case["layout"])
+        ker = kernel(*args_of(case), layout=case["layout"], **case["scales"])
+        ref = plain(*args_of(case), layout=case["layout"], **case["scales"])
         torch.cuda.synchronize()
         err = float((ker - ref).abs().max())
         note = extra(case, ker) if extra else ""
-        log(f"  {name} vs plain  {case_name:24s} "
+        log(f"  {name} vs plain  {case_name:29s} "
             f"rows={case['q'].shape[0]:3d} max|diff|={err:.3e}{note}")
         if not math.isfinite(err) or err > KERNEL_TOL:
             fail(f"{name} kernel disagrees with its plain version on "
                  f"{case_name}: {err:.3e} > {KERNEL_TOL}")
-        worst = max(worst, err)
+        tag = "_int8" if case["scales"] else ""
+        worst[tag] = max(worst[tag], err)
     return worst
 
 
@@ -450,23 +526,41 @@ def phase_kernels(pa, rng):
         "chunk ", chunk_cases(),
         lambda **spec: make_chunk_case(rng, **spec), chunk_args,
         pa.chunk_prefill_attention_kernel, pa.chunk_prefill_attention_torch)
-    return {"ragged_paged_attention": ragged, "paged_decode_attention": dec,
-            "chunk_prefill_attention": chunk}
+    # an int8 pool without its scales must raise, never decode raw codes
+    case = make_decode_case(rng, h=2, d=8, ps=4, lens=[5, 3], num_pages=8,
+                            kv_dtype=torch.int8)
+    try:
+        pa.paged_decode_attention_kernel(*decode_args(case))
+    except ValueError as e:
+        log(f"  int8 pool without scales refused: {e}")
+    else:
+        fail("an int8 pool without its scales did not raise")
+    worst = {}
+    for name, got in (("ragged_paged_attention", ragged),
+                      ("paged_decode_attention", dec),
+                      ("chunk_prefill_attention", chunk)):
+        for tag, err in got.items():
+            worst[name + tag] = err
+    return worst
 
 
 def attention_bound(case, seqs, meta_bytes):
     """Least time for the work these inputs need: q read and out written
-    once, K and V of each key a live sequence sees (each key once), the
-    page-table entries it walks, and `meta_bytes` of other inputs; fp32
-    FMAs of every visible (row, key) pair, QK and PV, on every head.
-    `seqs` holds (rows, keys) of each live sequence: its last row sees
-    all `keys` keys, row r of `rows` sees keys - rows + r + 1."""
+    once, K and V of each key a live sequence sees (each key once, at the
+    pool's element size: 1 byte for int8), the page-table entries it
+    walks, an int8 pool's K and V scale of each page it walks and head,
+    and `meta_bytes` of other inputs; fp32 FMAs of every visible (row,
+    key) pair, QK and PV, on every head.  `seqs` holds (rows, keys) of
+    each live sequence: its last row sees all `keys` keys, row r of
+    `rows` sees keys - rows + r + 1."""
     t, h, d = case["q"].shape
     item = case["k_pool"].element_size()
     ps = case["k_pool"].shape[2 if case["layout"] == "kernel" else 1]
+    scale_bytes = 2 * 4 * h if case["scales"] else 0   # per page walked
     nbytes, flops = 2 * t * h * d * 4 + meta_bytes, 0
     for rows, keys in seqs:
-        nbytes += 2 * keys * h * d * item + 4 * math.ceil(keys / ps)
+        pages = math.ceil(keys / ps)
+        nbytes += 2 * keys * h * d * item + (4 + scale_bytes) * pages
         flops += 4 * d * h * sum(keys - rows + r + 1 for r in range(rows))
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_flops = flops / FP32_FLOPS_PER_S * 1e3
@@ -633,22 +727,47 @@ def run_engine(pgen, model, prompts, device, settings=None,
     launches = read_launches()
     if any(launches[k["name"]] for k in FLASH_KERNELS):
         fail(f"a serving run launched a flash kernel: {launches}")
+    # an int8 run launches only the int8 instantiations, a float run only
+    # the float ones: one cannot stand in for the other
+    tag = "_int8" if (settings or {}).get("kv_dtype") == "int8" else ""
+    if any(launches[k["name"]] for k in KERNELS
+           if k["name"].endswith("_int8") != bool(tag)):
+        fail(f"a {'int8' if tag else 'float'} run launched another "
+             f"dtype's paged kernel: {launches}")
     results = [h.result(timeout=60) for h in handles]
     ttft = sorted(h.first_token_s - h.submitted_s for h in handles)
     stats = eng.stats()
+    pool_bytes = sum(t.numel() * t.element_size()
+                     for t in eng.cache.take_pool_state())
     eng.shutdown()
     ragged = eng._ragged is not None
     return dict(results=results, records=records, first_seq=first_seq,
-                wall=wall, launches=launches["ragged_paged_attention"]
-                if ragged else launches, all_launches=launches,
+                wall=wall, launches=launches["ragged_paged_attention" + tag]
+                if ragged else launches, all_launches=launches, tag=tag,
                 steps=len(records) if ragged else steps, stats=stats,
-                ttft=ttft)
+                ttft=ttft, pool_bytes=pool_bytes)
+
+
+def device_kernels(prof):
+    """Kernel time on the device by kernel name from a torch.profiler
+    run, ``{name: (us, calls)}``: kernels only, since a CPU op (aten::mm)
+    also carries its kernels' time and a RecordEvent span
+    ("generation::...") the time it encloses."""
+    from torch.autograd import DeviceType
+
+    per_kernel = {}
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "self_device_time_total",
+                         getattr(ev, "self_cuda_time_total", 0))
+        if (dev_us > 0 and ev.device_type != DeviceType.CPU
+                and not ev.key.startswith("generation::")):
+            per_kernel[ev.key] = (dev_us, ev.count)
+    return per_kernel
 
 
 def profile_engine(pgen, model, prompts, settings=None):
     """The card's run again under torch.profiler: wall seconds, the sum
     of kernel time on the device, and the kernels that took the most."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     eng, handles, _, _ = serve(pgen, model, prompts, "cuda", settings)
@@ -662,15 +781,7 @@ def profile_engine(pgen, model, prompts, settings=None):
     for h in handles:
         h.result(timeout=60)
     eng.shutdown()
-    # kernels only: a CPU op (aten::mm) also carries its kernels' time,
-    # and a RecordEvent span ("generation::...") the time it encloses
-    per_kernel = {}
-    for ev in prof.key_averages():
-        dev_us = getattr(ev, "self_device_time_total",
-                         getattr(ev, "self_cuda_time_total", 0))
-        if (dev_us > 0 and ev.device_type != DeviceType.CPU
-                and not ev.key.startswith("generation::")):
-            per_kernel[ev.key] = (dev_us, ev.count)
+    per_kernel = device_kernels(prof)
     busy = sum(us for us, _ in per_kernel.values()) / 1e6
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:8]
     return wall, busy, top
@@ -694,11 +805,49 @@ def top2_gap(cpu_model, tokens):
     return float(top2[1] - top2[0])
 
 
-def hold_to_rule(label, a, b, prompts, cpu_model, stochastic, logits=True):
+def hold_ragged(label, gpu, cpu, prompts, logit_tol=LOGIT_TOL,
+                near_tie=NEAR_TIE):
+    """Phase 4's rule between two ragged runs, card and CPU: first-token
+    logits within `logit_tol`, greedy streams identical or diverging only
+    where the CPU run's own top-2 logit gap is < `near_tie`.  Returns the
+    worst first-token logit difference."""
+    worst = 0.0
+    for i, p in enumerate(prompts):
+        g0 = logits_at(gpu, i, 0, len(p))
+        c0 = logits_at(cpu, i, 0, len(p))
+        diff = float(np.abs(g0 - c0).max())
+        worst = max(worst, diff)
+        if not np.isfinite(g0).all() or diff > logit_tol:
+            fail(f"{label} request {i}: first-token logits differ by "
+                 f"{diff:.3e} > {logit_tol}")
+        gt = gpu["results"][i].token_ids
+        ct = cpu["results"][i].token_ids
+        kind = "stochastic" if i in STOCHASTIC else "greedy"
+        if gt == ct:
+            log(f"  {label} request {i} ({kind}, prompt {len(p)}): "
+                f"first-token logits max|diff| {diff:.2e}; streams "
+                f"identical")
+            continue
+        k = next(j for j, (a, b) in enumerate(zip(gt, ct)) if a != b)
+        top2 = np.sort(logits_at(cpu, i, k, len(p)))[-2:]
+        gap = float(top2[1] - top2[0])
+        log(f"  {label} request {i} ({kind}, prompt {len(p)}): streams "
+            f"diverge at token {k} (card {gt[k]}, CPU {ct[k]}); CPU top-2 "
+            f"gap {gap:.3e}")
+        if kind == "greedy" and gap >= near_tie:
+            fail(f"{label}: greedy request {i} diverges at token {k} where "
+                 f"the CPU run's top-2 gap is {gap:.3e} >= {near_tie}")
+    return worst
+
+
+def hold_to_rule(label, a, b, prompts, cpu_model, stochastic, logits=True,
+                 gap_of=None, near_tie=NEAR_TIE):
     """Phase 4's rule between runs `a` (card) and `b`: first-token logits
     within LOGIT_TOL (when `logits`), greedy streams identical or
-    diverging only at a near tie (CPU top-2 gap < NEAR_TIE).  Returns the
-    worst first-token logit difference and the identical-stream count."""
+    diverging only at a near tie: a top-2 logit gap < `near_tie` after
+    the shared prefix, from ``gap_of(request, k)`` where given, else from
+    the CPU full recompute.  Returns the worst first-token logit
+    difference and the identical-stream count."""
     worst, same = 0.0, 0
     for i, p in enumerate(prompts):
         kind = "stochastic" if i in stochastic else "greedy"
@@ -719,12 +868,14 @@ def hold_to_rule(label, a, b, prompts, cpu_model, stochastic, logits=True):
             continue
         k = next((j for j, (x, y) in enumerate(zip(at, bt)) if x != y),
                  min(len(at), len(bt)))
-        gap = top2_gap(cpu_model, list(p) + list(bt[:k]))
+        gap = (gap_of(i, k) if gap_of
+               else top2_gap(cpu_model, list(p) + list(bt[:k])))
         log(f"  {label} request {i} ({kind}, prompt {len(p)}): {note}"
-            f"streams diverge at token {k}; CPU top-2 gap {gap:.3e}")
-        if kind == "greedy" and gap >= NEAR_TIE:
+            f"streams diverge at token {k}; "
+            f"{'top-2 gap' if gap_of else 'CPU top-2 gap'} {gap:.3e}")
+        if kind == "greedy" and gap >= near_tie:
             fail(f"{label}: greedy request {i} diverges at token {k} where "
-                 f"the CPU top-2 gap is {gap:.3e} >= {NEAR_TIE}")
+                 f"the top-2 gap is {gap:.3e} >= {near_tie}")
     return worst, same
 
 
@@ -732,18 +883,20 @@ def check_legacy_launches(label, run, want_chunk):
     n_layers = MODEL["num_layers"]
     calls = run["records"]
     got = run["launches"]
-    dec, chunk = got["paged_decode_attention"], got["chunk_prefill_attention"]
+    tag = run["tag"]
+    dec = got["paged_decode_attention" + tag]
+    chunk = got["chunk_prefill_attention" + tag]
     log(f"  {label}: {run['steps']} steps, {calls['decode']} decode calls, "
-        f"{calls['chunk']} chunk calls; launches: decode {dec}, chunk "
-        f"{chunk}, ragged {got['ragged_paged_attention']}; kernel path "
-        f"{run['stats']['generation.kernel_path']}")
+        f"{calls['chunk']} chunk calls; launches{tag}: decode {dec}, chunk "
+        f"{chunk}, ragged {got['ragged_paged_attention' + tag]}; kernel "
+        f"path {run['stats']['generation.kernel_path']}")
     if dec != n_layers * calls["decode"] or dec == 0:
         fail(f"{label}: decode kernel launched {dec} times, want "
              f"{n_layers} x {calls['decode']} decode calls")
     if chunk != n_layers * calls["chunk"] or (chunk == 0) == want_chunk:
         fail(f"{label}: chunk kernel launched {chunk} times, want "
              f"{n_layers} x {calls['chunk']} chunk calls")
-    if got["ragged_paged_attention"]:
+    if got["ragged_paged_attention" + tag]:
         fail(f"{label}: the legacy step launched the ragged kernel")
 
 
@@ -780,6 +933,74 @@ def phase_legacy(pgen, model, cpu_model, prompts, ragged_gpu):
     log(f"  first-token logits card vs CPU max|diff|: legacy {worst:.3e}, "
         f"one-shot {worst_one:.3e} (n_layers {n_layers})")
     return gpu, one
+
+
+def phase_int8(pgen, model, cpu_model, prompts, gpu_f32):
+    """int8 pools at GPT-2-small width: (a) the ragged step on the card,
+    (b) on the CPU held to phase 4's rule, (c) the legacy step on the card
+    held to (a); then, not gated, the int8 card run against the float32
+    one.  Returns the card's ragged and legacy runs."""
+    n_layers = MODEL["num_layers"]
+
+    def full_length(label, run):
+        for i, r in enumerate(run["results"]):
+            if r.finish_reason != "length" or len(r.token_ids) != MAX_NEW:
+                fail(f"{label} request {i} finished {r.finish_reason!r} "
+                     f"with {len(r.token_ids)} tokens, want {MAX_NEW}")
+
+    gpu = run_engine(pgen, model, prompts, "cuda", INT8)
+    full_length("int8 ragged", gpu)
+    want = n_layers * gpu["steps"]
+    log(f"  (a) int8 ragged on the card: {gpu['steps']} steps, "
+        f"{gpu['wall']:.3f} s; int8 ragged kernel launches "
+        f"{gpu['launches']} (num_layers x steps = {want}); kernel path "
+        f"{gpu['stats']['generation.kernel_path']}, kv dtype "
+        f"{gpu['stats']['generation.kv_quant_dtype']}, scale bytes "
+        f"{gpu['stats']['generation.kv_scale_bytes']}")
+    if gpu["launches"] != want or gpu["launches"] == 0:
+        fail(f"int8 ragged kernel launched {gpu['launches']} times, want "
+             f"{want}")
+    log("  (b) the same int8 engine on the CPU (plain versions)")
+    cpu = run_engine(pgen, model, prompts, "cpu", INT8)
+    if any(cpu["all_launches"].values()):
+        fail("the CPU int8 engine launched a CUDA kernel")
+    worst = hold_ragged("int8 card vs CPU", gpu, cpu, prompts,
+                        INT8_LOGIT_TOL, INT8_NEAR_TIE)
+    log("  (c) the int8 legacy step on the card")
+    legacy = run_engine(pgen, model, prompts, "cuda", {**LEGACY, **INT8})
+    full_length("int8 legacy", legacy)
+    check_legacy_launches("int8 legacy on the card", legacy,
+                          want_chunk=True)
+
+    def ragged_gap(i, k):
+        top2 = np.sort(logits_at(gpu, i, k, len(prompts[i])))[-2:]
+        return float(top2[1] - top2[0])
+
+    _, same = hold_to_rule("int8 card legacy vs ragged", legacy, gpu,
+                           prompts, cpu_model, STOCHASTIC, logits=False,
+                           gap_of=ragged_gap, near_tie=INT8_NEAR_TIE)
+    log(f"  int8 card legacy vs int8 card ragged: {same} of {len(prompts)} "
+        f"streams identical; first-token logits card vs CPU max|diff| "
+        f"{worst:.3e}")
+    # not gated: int8 against the float32 card run of phase 3
+    match = total = 0
+    drift = 0.0
+    for i, p in enumerate(prompts):
+        drift = max(drift, float(np.abs(
+            logits_at(gpu, i, 0, len(p))
+            - logits_at(gpu_f32, i, 0, len(p))).max()))
+        if i in STOCHASTIC:
+            continue
+        a = gpu_f32["results"][i].token_ids
+        b = gpu["results"][i].token_ids
+        total += max(len(a), len(b))
+        match += sum(x == y for x, y in zip(a, b))
+    log(f"  int8 vs float32 (card, ragged): greedy token agreement "
+        f"{match}/{total} = {match / total:.4f}; first-token logit drift "
+        f"max|diff| {drift:.3e}; pool bytes at {ENGINE['num_pages']} pages "
+        f"(scales included): int8 {gpu['pool_bytes']} vs float32 "
+        f"{gpu_f32['pool_bytes']} = {gpu['pool_bytes'] / gpu_f32['pool_bytes']:.3f}")
+    return gpu, legacy
 
 
 # ------------------------ flash attention cases -------------------------
@@ -1046,7 +1267,6 @@ def phase_training_run():
     """The bench's run on the card at dropout 0.1: warm-up and timed
     steps on one batch, every count set to 0 just before and read just
     after; then TRAIN["profiled"] more steps under torch.profiler."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from paddle_tpu_torch.models import GPTConfig, GPTForPretraining
@@ -1094,12 +1314,7 @@ def phase_training_run():
             tr.step(ids, lbl)
         torch.cuda.synchronize()
         p_wall = time.perf_counter() - p0
-    per_kernel = {}
-    for ev in prof.key_averages():
-        dev_us = getattr(ev, "self_device_time_total",
-                         getattr(ev, "self_cuda_time_total", 0))
-        if dev_us > 0 and ev.device_type != DeviceType.CPU:
-            per_kernel[ev.key] = (dev_us, ev.count)
+    per_kernel = device_kernels(prof)
     busy = sum(us for us, _ in per_kernel.values()) / 1e6
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:10]
     return dict(wall=wall, iters=TRAIN["iters"], launches=launches,
@@ -1108,6 +1323,93 @@ def phase_training_run():
 
 
 # ------------------------------ main ------------------------------------
+
+
+def paged_numbers(pa, card, kv_dtype, tag):
+    """Each paged kernel and its plain version at its main path's shape
+    over `kv_dtype` pools, beside its bound.  Returns name + tag ->
+    (ms, plain_ms, bound_ms, bound_by, None)."""
+    main_rng = np.random.default_rng(4)
+    main_cases = [
+        ("ragged_paged_attention", "T=72, S=9",
+         make_case(np.random.default_rng(2), unowned=False,
+                   desc=main_path_desc(np.random.default_rng(3)),
+                   kv_dtype=kv_dtype, **MAIN),
+         attn_args, bound_of, pa.ragged_paged_attention_kernel,
+         pa.ragged_paged_attention_torch),
+        ("paged_decode_attention", "B=8, contexts 16..632",
+         make_decode_case(main_rng, lens=main_decode_lens(main_rng),
+                          kv_dtype=kv_dtype, **MAIN), decode_args,
+         decode_bound_of, pa.paged_decode_attention_kernel,
+         pa.paged_decode_attention_torch),
+        ("chunk_prefill_attention", "n=64, start=536",
+         make_chunk_case(main_rng, start=536, n=64, kv_dtype=kv_dtype,
+                         **MAIN), chunk_args, chunk_bound_of,
+         pa.chunk_prefill_attention_kernel,
+         pa.chunk_prefill_attention_torch)]
+    numbers = {}
+    dtype = str(kv_dtype).replace("torch.", "")
+    for name, shape, case, args_of, bound_fn, kernel, plain in main_cases:
+        args, kw = args_of(case), case["scales"]
+        ms = time_ms(lambda: kernel(*args, **kw), 200)
+        paced = time_ms(lambda: kernel(*args, **kw), 200, queued=False)
+        plain_ms = time_ms(lambda: plain(*args, **kw), 50)
+        bound_ms, bound_by, nbytes, flops = bound_fn(case)
+        numbers[name + tag] = (ms, plain_ms, bound_ms, bound_by, None)
+        log(f"  [{card}] {name} ({dtype} pools) at the main-path shape "
+            f"({shape}, H=12, D=64, page_size=16, pages bucket 64): "
+            f"{ms * 1e3:.1f} us (launch-paced {paced * 1e3:.1f} us); plain "
+            f"version {plain_ms * 1e3:.1f} us; bound {bound_ms * 1e3:.2f} us "
+            f"by {bound_by} ({nbytes} B, {flops} flop) = "
+            f"{bound_ms / ms:.1%} of bound")
+    return numbers
+
+
+def write_numbers(card):
+    """The int8 write (plain torch ops) of one layer's K and V at the
+    ragged step's shape: 72 packed rows into int8 pools of 512 pages of
+    16 with their scales.  Its kernels' device time comes from
+    torch.profiler: the write issues a few dozen small kernels from
+    Python, so a run of calls is paced by the host's launches, which the
+    launch-paced time shows."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddle_tpu_torch.generation.quantized_kv import quantized_pool_write
+
+    rng = np.random.default_rng(6)
+    h, d, ps, n_pages = MAIN["h"], MAIN["d"], MAIN["ps"], MAIN["num_pages"]
+    pools = [torch.zeros((n_pages + 1, ps, h, d), dtype=torch.int8,
+                         device="cuda") for _ in range(2)]
+    scales = [torch.zeros((n_pages + 1, h), device="cuda")
+              for _ in range(2)]
+    slots = rng.permutation(n_pages * ps)[:72]
+    pages = torch.as_tensor(slots // ps, dtype=torch.int32, device="cuda")
+    rows = torch.as_tensor(slots % ps, dtype=torch.int32, device="cuda")
+    x = [torch.as_tensor(rng.standard_normal((72, h, d)),
+                         dtype=torch.float32, device="cuda")
+         for _ in range(2)]
+
+    def write():
+        for pool, sc, xx in zip(pools, scales, x):
+            quantized_pool_write(pool, sc, pages, rows, xx, "token")
+
+    paced = time_ms(write, 100, queued=False)
+    calls = 20
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            write()
+        torch.cuda.synchronize()
+    per_kernel = device_kernels(prof)
+    n_kernels = sum(n for _, n in per_kernel.values()) / calls
+    dev_us = sum(us for us, _ in per_kernel.values()) / calls
+    what = (f"device time {dev_us:.1f} us in {n_kernels:.0f} kernels "
+            f"(torch.profiler), {MODEL['num_layers'] * dev_us / 1e3:.3f} "
+            f"ms per step of {MODEL['num_layers']} layers" if dev_us > 0
+            else "device time not measured (no device events)")
+    log(f"  [{card}] int8 write of one layer's K and V (72 rows into 512 "
+        f"pages of 16, H=12, D=64; plain torch ops): {what}; launch-paced "
+        f"{paced * 1e3:.1f} us per layer on this host")
 
 
 def main():
@@ -1120,6 +1422,18 @@ def main():
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+    current = ["phase 1", t_start]
+
+    def phase(title):
+        """Print the wall seconds of the phase that ends here, then start
+        the one titled `title` (None: the last one ended)."""
+        now = time.perf_counter()
+        log(f"  ({current[0]}: {now - current[1]:.1f} s wall)")
+        current[:] = [title.split(":")[0] if title else None, now]
+        if title:
+            log(title)
+
     card = card_line()
     log(f"phase 1: environment\n  card: {card}  "
         f"(torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -1131,15 +1445,16 @@ def main():
         f"{time.perf_counter() - t0:.1f} s")
     for name in lib_names:
         for line in _build.build_logs.get(name, "").splitlines():
-            if "registers" in line or "spill" in line:
+            if ("registers" in line or "spill" in line
+                    or "Compiling entry" in line):
                 log(f"    ptxas {name}: {line.strip()}")
 
     rng = np.random.default_rng(0)
-    log("phase 2: kernels against their plain versions")
+    phase("phase 2: kernels against their plain versions")
     max_err = phase_kernels(pa, rng)
     max_err.update(phase_flash(fa, rng))
 
-    log("phase 3: engine at GPT-2-small width on the card")
+    phase("phase 3: engine at GPT-2-small width on the card")
     t0 = time.perf_counter()
     model = pgen.TinyCausalLM(**MODEL)
     log(f"  model built in {time.perf_counter() - t0:.1f} s "
@@ -1163,87 +1478,43 @@ def main():
     if gpu["launches"] != want or gpu["launches"] == 0:
         fail(f"ragged kernel launched {gpu['launches']} times, want {want}")
 
-    log("phase 4: the same engine on the CPU (plain version)")
+    phase("phase 4: the same engine on the CPU (plain version)")
     cpu = run_engine(pgen, model, prompts, "cpu")
-    if cpu["launches"] != 0:
-        fail("the CPU engine launched the CUDA kernel")
-    worst_logit = 0.0
-    for i, p in enumerate(prompts):
-        g0 = logits_at(gpu, i, 0, len(p))
-        c0 = logits_at(cpu, i, 0, len(p))
-        diff = float(np.abs(g0 - c0).max())
-        worst_logit = max(worst_logit, diff)
-        if not np.isfinite(g0).all() or diff > LOGIT_TOL:
-            fail(f"request {i}: first-token logits differ by {diff:.3e} "
-                 f"> {LOGIT_TOL} between card and CPU")
-        gt = gpu["results"][i].token_ids
-        ct = cpu["results"][i].token_ids
-        kind = "stochastic" if i in STOCHASTIC else "greedy"
-        if gt == ct:
-            log(f"  request {i} ({kind}, prompt {len(p)}): first-token "
-                f"logits max|diff| {diff:.2e}; streams identical")
-            continue
-        k = next(j for j, (a, b) in enumerate(zip(gt, ct)) if a != b)
-        top2 = np.sort(logits_at(cpu, i, k, len(p)))[-2:]
-        gap = float(top2[1] - top2[0])
-        log(f"  request {i} ({kind}, prompt {len(p)}): streams diverge "
-            f"at token {k} (card {gt[k]}, CPU {ct[k]}); CPU top-2 gap "
-            f"{gap:.3e}")
-        if kind == "greedy" and gap >= NEAR_TIE:
-            fail(f"greedy request {i} diverges at token {k} where the "
-                 f"CPU run's top-2 gap is {gap:.3e} >= {NEAR_TIE}")
+    if any(cpu["all_launches"].values()):
+        fail("the CPU engine launched a CUDA kernel")
+    worst_logit = hold_ragged("card vs CPU", gpu, cpu, prompts)
 
-    log("phase 5: the legacy step at GPT-2-small width (fused decode, "
-        "chunked prefill of 64), card then CPU; then one-shot prefill")
+    phase("phase 5: the legacy step at GPT-2-small width (fused decode, "
+          "chunked prefill of 64), card then CPU; then one-shot prefill")
     cpu_model = pgen.TinyCausalLM.from_numpy_params(
         model.decode_params("cpu"), num_heads=MODEL["num_heads"],
         seed=MODEL["seed"], device="cpu")
     legacy, one_shot = phase_legacy(pgen, model, cpu_model, prompts,
                                     gpu)
 
-    log("phase 6: training at GPT-2-small width (bench_gpt_zero's "
-        "configuration, bf16 amp, AdamW)")
+    phase("phase 6: int8 KV pools at GPT-2-small width (ragged card, "
+          "ragged CPU, legacy card)")
+    q_ragged, q_legacy = phase_int8(pgen, model, cpu_model, prompts, gpu)
+
+    phase("phase 7: training at GPT-2-small width (bench_gpt_zero's "
+          "configuration, bf16 amp, AdamW)")
     log("  held check: the card's first two steps against the CPU's "
         "(plain versions)")
     phase_training_held()
     log("  the bench's run on the card")
     train = phase_training_run()
 
-    log("phase 7: numbers")
-    numbers = {}
-    main_rng = np.random.default_rng(4)
-    main_cases = [
-        ("ragged_paged_attention", "T=72, S=9",
-         make_case(np.random.default_rng(2), unowned=False,
-                   desc=main_path_desc(np.random.default_rng(3)), **MAIN),
-         attn_args, bound_of, pa.ragged_paged_attention_kernel,
-         pa.ragged_paged_attention_torch),
-        ("paged_decode_attention", "B=8, contexts 16..632",
-         make_decode_case(main_rng, lens=main_decode_lens(main_rng),
-                          **MAIN), decode_args, decode_bound_of,
-         pa.paged_decode_attention_kernel, pa.paged_decode_attention_torch),
-        ("chunk_prefill_attention", "n=64, start=536",
-         make_chunk_case(main_rng, start=536, n=64, **MAIN), chunk_args,
-         chunk_bound_of, pa.chunk_prefill_attention_kernel,
-         pa.chunk_prefill_attention_torch)]
-    for name, shape, case, args_of, bound_fn, kernel, plain in main_cases:
-        args = args_of(case)
-        ms = time_ms(lambda: kernel(*args), 200)
-        paced = time_ms(lambda: kernel(*args), 200, queued=False)
-        plain_ms = time_ms(lambda: plain(*args), 50)
-        bound_ms, bound_by, nbytes, flops = bound_fn(case)
-        numbers[name] = (ms, plain_ms, bound_ms, bound_by, None)
-        log(f"  [{card}] {name} at the main-path shape ({shape}, H=12, "
-            f"D=64, page_size=16, pages bucket 64): {ms * 1e3:.1f} us "
-            f"(launch-paced {paced * 1e3:.1f} us); plain version "
-            f"{plain_ms * 1e3:.1f} us; bound {bound_ms * 1e3:.2f} us by "
-            f"{bound_by} ({nbytes} B, {flops} flop) = {bound_ms / ms:.1%} "
-            f"of bound")
-    log(f"  [{card}] library call: none for all three — no single PyTorch "
-        f"call reads a paged KV cache through page tables")
+    phase("phase 8: numbers")
+    numbers = paged_numbers(pa, card, torch.float32, "")
+    numbers.update(paged_numbers(pa, card, torch.int8, "_int8"))
+    log(f"  [{card}] library call: none for the paged kernels — no single "
+        f"PyTorch call reads a paged KV cache through page tables")
+    write_numbers(card)
     numbers.update(flash_numbers(fa, card))
     for label, run in (("ragged engine", gpu), ("legacy engine", legacy),
-                       ("one-shot engine", one_shot)):
+                       ("one-shot engine", one_shot),
+                       ("int8 ragged engine", q_ragged),
+                       ("int8 legacy engine", q_legacy)):
         toks = sum(len(r.token_ids) for r in run["results"])
         ttft = run["ttft"]
         log(f"  [{card}] {label}: {toks / run['wall']:.1f} tokens/s over "
@@ -1253,7 +1524,9 @@ def main():
             f"{ttft[-1] * 1e3:.1f} ms")
     log(f"  ragged prefill {sum(len(p) for p in prompts)} tokens; "
         f"first-token logits card vs CPU max|diff| {worst_logit:.3e}")
-    for label, settings in (("ragged", None), ("legacy", LEGACY)):
+    for label, settings in (("ragged", None), ("legacy", LEGACY),
+                            ("int8 ragged", INT8),
+                            ("int8 legacy", {**LEGACY, **INT8})):
         wall, busy, top = profile_engine(pgen, model, prompts, settings)
         if busy > 0:
             log(f"  [{card}] {label} under torch.profiler: wall "
@@ -1295,11 +1568,14 @@ def main():
     else:
         log(f"  [{card}] trainer: torch.profiler recorded no device time: "
             f"device idle share not measured")
+    phase(None)
+    log(f"  whole run {time.perf_counter() - t_start:.1f} s wall")
     launches = {"ragged_paged_attention": gpu["launches"],
-                "paged_decode_attention":
-                    legacy["launches"]["paged_decode_attention"],
-                "chunk_prefill_attention":
-                    legacy["launches"]["chunk_prefill_attention"],
+                "ragged_paged_attention_int8": q_ragged["launches"],
+                **{name + tag: run["launches"][name + tag]
+                   for tag, run in (("", legacy), ("_int8", q_legacy))
+                   for name in ("paged_decode_attention",
+                                "chunk_prefill_attention")},
                 **{k["name"]: train["launches"][k["name"]]
                    for k in FLASH_KERNELS}}
     print(json.dumps({"kernels": [{

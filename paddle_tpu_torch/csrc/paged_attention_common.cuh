@@ -1,26 +1,66 @@
 // Device code shared by the paged-attention kernels (ragged, paged decode,
-// chunk prefill): pool element loads with the bf16 upcast, staging one
-// [page_size, D] K/V page into shared memory through the pool's strides,
-// warp reductions, the online-softmax update of one query row over one
-// staged page, and the whole walk of a tile of query rows over its pages
-// (the ragged and chunk-prefill kernels' body).  Every kernel computes in fp32 with f32 accumulation on
-// the CUDA cores; TF32 tensor cores would break the 2e-5 parity with the
-// fp32 plain versions.
+// chunk prefill): pool element loads with the bf16 upcast and the int8
+// dequant, staging one [page_size, D] K/V page into shared memory through
+// the pool's strides, warp reductions, the online-softmax update of one
+// query row over one staged page, and the whole walk of a tile of query
+// rows over its pages (the ragged and chunk-prefill kernels' body).  Every
+// kernel computes in fp32 with f32 accumulation on the CUDA cores; TF32
+// tensor cores would break the 2e-5 parity with the fp32 plain versions.
+//
+// Pools are float, __nv_bfloat16 or int8_t (the KV template parameter).
+// An int8 pool comes with [P, H] float32 scales for K and V: element x of
+// page p, head h decodes as float(x) * (scale[p * H + h] * (1/127)), the
+// factor computed first in f32, exactly the Pallas bodies' and the plain
+// versions' expression, so the operands entering the products are bitwise
+// equal to theirs.  Pages are dequantized as they are read; no pool is
+// ever dequantized as a whole.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <type_traits>
 
 #define PA_MAX_D 128
 #define PA_MAX_PS 64
 #define PA_NEG_INF (-1e30f)
+#define PA_INV_QMAX (1.0f / 127.0f)  // == float32(1/127)
 
 __device__ __forceinline__ float pa_to_f32(float x) { return x; }
 __device__ __forceinline__ float pa_to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float pa_to_f32(int8_t x) { return (float)x; }
 
-// four consecutive elements as f32 (16 bytes of f32, 8 bytes of bf16)
+// The dequant factor of page `page`, head h: scale * (1/127) for an int8
+// pool, 1 (never applied) for a float one, whose scale is NULL.
+template <typename KV>
+__device__ __forceinline__ float pa_page_factor(const float* scale,
+                                                long long page, int H,
+                                                int h) {
+  if constexpr (std::is_same<KV, int8_t>::value)
+    return scale[page * H + h] * PA_INV_QMAX;
+  else
+    return 1.f;
+}
+
+// A loaded element as the products see it: int8 times its page factor,
+// float and bf16 as they are.
+template <typename KV>
+__device__ __forceinline__ float pa_dq(float x, float factor) {
+  if constexpr (std::is_same<KV, int8_t>::value)
+    return x * factor;
+  else
+    return x;
+}
+template <typename KV>
+__device__ __forceinline__ float4 pa_dq4(float4 x, float factor) {
+  return make_float4(pa_dq<KV>(x.x, factor), pa_dq<KV>(x.y, factor),
+                     pa_dq<KV>(x.z, factor), pa_dq<KV>(x.w, factor));
+}
+
+// four consecutive elements as f32 (16 bytes of f32, 8 of bf16, 4 of int8)
 __device__ __forceinline__ float4 pa_load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
@@ -32,10 +72,15 @@ __device__ __forceinline__ float4 pa_load4(const __nv_bfloat16* p) {
   const float2 b = __bfloat1622float2(hi);
   return make_float4(a.x, a.y, b.x, b.y);
 }
+__device__ __forceinline__ float4 pa_load4(const int8_t* p) {
+  const char4 c = *reinterpret_cast<const char4*>(p);
+  return make_float4((float)c.x, (float)c.y, (float)c.z, (float)c.w);
+}
 
 // Whether a pool pair takes 4-wide loads: D % 4 == 0 (then every page, row
 // and head stride is a multiple of 4 elements too) and both pools aligned
-// to 4 elements.
+// to 4 elements.  Otherwise (a pool that starts off such an address, or an
+// odd D) every load is scalar.
 template <typename KV>
 inline bool pa_vec4(const void* k_pool, const void* v_pool, int D) {
   const size_t align = 4 * sizeof(KV);
@@ -43,24 +88,26 @@ inline bool pa_vec4(const void* k_pool, const void* v_pool, int D) {
          reinterpret_cast<size_t>(v_pool) % align == 0;
 }
 
-// Stage one [page_size, D] K and V page into shared memory (K rows with
-// stride kst, V rows with stride D), the whole block cooperating.  With
-// vec4 every thread first issues up to PA_STAGE 4-wide loads of K and of
-// V, and only then stores them, so a page costs about one global-memory
-// latency rather than one per element a thread copies.
+// Stage one [page_size, D] K and V page into shared memory as f32 (K rows
+// with stride kst, V rows with stride D; int8 elements times their page
+// factors kf, vf), the whole block cooperating.  With vec4 every thread
+// first issues up to PA_STAGE 4-wide loads of K and of V, and only then
+// stores them, so a page costs about one global-memory latency rather than
+// one per element a thread copies.
 #define PA_STAGE 4
 template <typename KV>
 __device__ __forceinline__ void pa_stage_page(
     const KV* __restrict__ kp, const KV* __restrict__ vp, long long s_row,
-    float* k_s, float* v_s, int kst, int D, int page_size, bool vec4) {
+    float* k_s, float* v_s, int kst, int D, int page_size, bool vec4,
+    float kf, float vf) {
   const int nt = blockDim.x;
   if (!vec4) {
     for (int e = threadIdx.x; e < page_size * D; e += nt) {
       const int j = e / D;
       const int d = e - j * D;
       const long long off = j * s_row + d;
-      k_s[j * kst + d] = pa_to_f32(kp[off]);
-      v_s[j * D + d] = pa_to_f32(vp[off]);
+      k_s[j * kst + d] = pa_dq<KV>(pa_to_f32(kp[off]), kf);
+      v_s[j * D + d] = pa_dq<KV>(pa_to_f32(vp[off]), vf);
     }
     return;
   }
@@ -73,8 +120,8 @@ __device__ __forceinline__ void pa_stage_page(
       if (e < 4 * n4) {
         const int j = e / D;
         const long long off = j * s_row + (e - j * D);
-        kr[u] = pa_load4(kp + off);
-        vr[u] = pa_load4(vp + off);
+        kr[u] = pa_dq4<KV>(pa_load4(kp + off), kf);
+        vr[u] = pa_dq4<KV>(pa_load4(vp + off), vf);
       }
     }
 #pragma unroll
@@ -163,7 +210,8 @@ __device__ __forceinline__ void pa_row_page_update(
 
 // One block's tile of n_rows (<= QB) consecutive query rows of one head h:
 // rows row0 .. row0 + n_rows - 1 of q/out [*, H, D] sit at positions
-// qpos0, qpos0 + 1, ... and attend causally through the page table pt.
+// qpos0, qpos0 + 1, ... and attend causally through the page table pt
+// (k_scale/v_scale: an int8 pool's [P, H] scales, NULL otherwise).
 // The block walks pages 0 .. (last row's position) / page_size, at most
 // max_pages: the whole block stages each K/V page into shared memory, then
 // each of the WARPS warps updates the online-softmax state (m, l, acc) of
@@ -174,7 +222,8 @@ __device__ __forceinline__ void pa_row_page_update(
 template <typename KV, int QB, int WARPS>
 __device__ __forceinline__ void pa_attend_tile(
     const float* __restrict__ q, const KV* __restrict__ k_pool,
-    const KV* __restrict__ v_pool, long long s_page, long long s_row,
+    const KV* __restrict__ v_pool, const float* __restrict__ k_scale,
+    const float* __restrict__ v_scale, long long s_page, long long s_row,
     long long s_head, const int* __restrict__ pt, int max_pages, int row0,
     int qpos0, int n_rows, int h, float* __restrict__ out, int H, int D,
     int page_size, float scale, bool vec4, float* smem) {
@@ -211,7 +260,9 @@ __device__ __forceinline__ void pa_attend_tile(
     const long long page = pt[pi];
     __syncthreads();  // q_s written; the previous page consumed
     pa_stage_page(kb + page * s_page, vb + page * s_page, s_row, k_s, v_s,
-                  kst, D, page_size, vec4);
+                  kst, D, page_size, vec4,
+                  pa_page_factor<KV>(k_scale, page, H, h),
+                  pa_page_factor<KV>(v_scale, page, H, h));
     __syncthreads();
 #pragma unroll
     for (int r = 0; r < RPW; ++r) {
@@ -251,6 +302,9 @@ inline int pa_allow_smem(Kernel kernel, size_t smem) {
   return (int)cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
+
+// The pool dtype codes of the C entry points.
+enum PaKvDtype { PA_KV_F32 = 0, PA_KV_BF16 = 1, PA_KV_INT8 = 2 };
 
 extern "C" const char* pa_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

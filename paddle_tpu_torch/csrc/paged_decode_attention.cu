@@ -16,7 +16,8 @@
 // sequence's PAGES instead: warp w walks pages w, w + WARPS, ..., reading
 // each page id itself (no scalar prefetch on a GPU) and each page's K and
 // V rows straight from the pool through its strides (both pool layouts;
-// bf16 upcast on load).  Within a page, lanes own keys for the scores
+// bf16 upcast on load; int8 dequantized on load with the page's [P, H]
+// scale, the Pallas body's int8 branch).  Within a page, lanes own keys for the scores
 // (lane j reads K row j, 4-wide where aligned) and D elements for the P.V
 // accumulate (coalesced V rows, loaded eight keys at a time before use).
 // Each warp keeps its own (m, l, acc); at the end the warps combine them
@@ -27,8 +28,10 @@
 // 3.35 TB/s bound it.  A decode batch of 8 sequences x 12 heads is 96
 // blocks on 132 SMs, and a 632-key context is 40 pages of 16 walked ten
 // to a warp: latency, not bandwidth, sets this first version's time.
-// Split-K over pages across blocks, cp.async/TMA staging and wgmma on bf16
-// pools are later work.
+// An int8 pool moves a quarter of the f32 bytes (plus one f32 scale per
+// page and head), so its bound is a quarter of the f32 one; the walk is the
+// same.  Split-K over pages across blocks, cp.async/TMA staging and wgmma on
+// bf16 pools are later work.
 
 #include "paged_attention_common.cuh"
 
@@ -38,7 +41,8 @@
 template <typename KV>
 __global__ void __launch_bounds__(PDA_WARPS * 32)
 pda_kernel(const float* __restrict__ q, const KV* __restrict__ k_pool,
-           const KV* __restrict__ v_pool, long long s_page, long long s_row,
+           const KV* __restrict__ v_pool, const float* __restrict__ k_scale,
+           const float* __restrict__ v_scale, long long s_page, long long s_row,
            long long s_head, const int* __restrict__ page_tables,
            int max_pages, const int* __restrict__ seq_lens,
            float* __restrict__ out, int H, int D, int page_size,
@@ -70,6 +74,8 @@ pda_kernel(const float* __restrict__ q, const KV* __restrict__ k_pool,
     const long long page = pt[pi];
     const KV* kp = kb + page * s_page;
     const KV* vp = vb + page * s_page;
+    const float kf = pa_page_factor<KV>(k_scale, page, H, h);
+    const float vf = pa_page_factor<KV>(v_scale, page, H, h);
     const int kn = min(page_size, seq_len - pi * page_size);  // live keys
     float p[PA_MAX_PS / 32];
     float mx = PA_NEG_INF;
@@ -83,7 +89,7 @@ pda_kernel(const float* __restrict__ q, const KV* __restrict__ k_pool,
         if (vec4) {
 #pragma unroll 8
           for (int d = 0; d < D; d += 4) {
-            const float4 k4 = pa_load4(kr + d);
+            const float4 k4 = pa_dq4<KV>(pa_load4(kr + d), kf);
             a = fmaf(q_s[d], k4.x, a);
             a = fmaf(q_s[d + 1], k4.y, a);
             a = fmaf(q_s[d + 2], k4.z, a);
@@ -91,7 +97,8 @@ pda_kernel(const float* __restrict__ q, const KV* __restrict__ k_pool,
           }
         } else {
 #pragma unroll 8
-          for (int d = 0; d < D; ++d) a = fmaf(q_s[d], pa_to_f32(kr[d]), a);
+          for (int d = 0; d < D; ++d)
+            a = fmaf(q_s[d], pa_dq<KV>(pa_to_f32(kr[d]), kf), a);
         }
         sc = a;
       }
@@ -125,7 +132,8 @@ pda_kernel(const float* __restrict__ q, const KV* __restrict__ k_pool,
 #pragma unroll
         for (int dc = 0; dc < PA_MAX_D / 32; ++dc) {
           const int d = lane + 32 * dc;
-          vv[u][dc] = (j0 + u < kn && d < D) ? pa_to_f32(vr[d]) : 0.f;
+          vv[u][dc] = (j0 + u < kn && d < D)
+                          ? pa_dq<KV>(pa_to_f32(vr[d]), vf) : 0.f;
         }
       }
 #pragma unroll
@@ -172,6 +180,7 @@ pda_kernel(const float* __restrict__ q, const KV* __restrict__ k_pool,
 
 template <typename KV>
 static int pda_launch(const void* q, const void* k_pool, const void* v_pool,
+                      const void* k_scale, const void* v_scale,
                       long long s_page, long long s_row, long long s_head,
                       const void* page_tables, int max_pages,
                       const void* seq_lens, void* out, int B, int H, int D,
@@ -179,33 +188,47 @@ static int pda_launch(const void* q, const void* k_pool, const void* v_pool,
   dim3 grid(B, H);
   pda_kernel<KV><<<grid, PDA_WARPS * 32, 0, stream>>>(
       static_cast<const float*>(q), static_cast<const KV*>(k_pool),
-      static_cast<const KV*>(v_pool), s_page, s_row, s_head,
+      static_cast<const KV*>(v_pool), static_cast<const float*>(k_scale),
+      static_cast<const float*>(v_scale), s_page, s_row, s_head,
       static_cast<const int*>(page_tables), max_pages,
       static_cast<const int*>(seq_lens), static_cast<float*>(out), H, D,
       page_size, scale, pa_vec4<KV>(k_pool, v_pool, D));
   return (int)cudaGetLastError();
 }
 
-// q/out [B, H, D] f32 contiguous; pools f32 (kv_bf16 == 0) or bf16, with
-// element strides s_page/s_row/s_head and a unit D stride; page_tables
+// q/out [B, H, D] f32 contiguous; pools f32, bf16 or int8 (kv_dtype 0, 1,
+// 2), with element strides s_page/s_row/s_head and a unit D stride; an int8
+// pool's k_scale/v_scale [P, H] f32 (NULL for float pools); page_tables
 // [B, max_pages] and seq_lens [B] int32.  Returns the CUDA error code of
 // the launch (0 on success).
 extern "C" int pda_paged_decode_attention(
-    const void* q, const void* k_pool, const void* v_pool, int kv_bf16,
-    long long s_page, long long s_row, long long s_head,
-    const void* page_tables, int max_pages, const void* seq_lens, void* out,
-    int B, int H, int D, int page_size, float scale, void* stream) {
+    const void* q, const void* k_pool, const void* v_pool, int kv_dtype,
+    const void* k_scale, const void* v_scale, long long s_page,
+    long long s_row, long long s_head, const void* page_tables,
+    int max_pages, const void* seq_lens, void* out, int B, int H, int D,
+    int page_size, float scale, void* stream) {
   if (B <= 0 || H <= 0) return 0;
   if (D < 1 || D > PA_MAX_D || page_size < 1 || page_size > PA_MAX_PS ||
-      max_pages < 1 || H > 65535)
+      max_pages < 1 || H > 65535 ||
+      (kv_dtype == PA_KV_INT8) != (k_scale != nullptr && v_scale != nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (kv_bf16)
-    return pda_launch<__nv_bfloat16>(q, k_pool, v_pool, s_page, s_row,
-                                     s_head, page_tables, max_pages,
-                                     seq_lens, out, B, H, D, page_size,
-                                     scale, st);
-  return pda_launch<float>(q, k_pool, v_pool, s_page, s_row, s_head,
-                           page_tables, max_pages, seq_lens, out, B, H, D,
-                           page_size, scale, st);
+  switch (kv_dtype) {
+    case PA_KV_F32:
+      return pda_launch<float>(q, k_pool, v_pool, k_scale, v_scale, s_page,
+                               s_row, s_head, page_tables, max_pages,
+                               seq_lens, out, B, H, D, page_size, scale, st);
+    case PA_KV_BF16:
+      return pda_launch<__nv_bfloat16>(q, k_pool, v_pool, k_scale, v_scale,
+                                       s_page, s_row, s_head, page_tables,
+                                       max_pages, seq_lens, out, B, H, D,
+                                       page_size, scale, st);
+    case PA_KV_INT8:
+      return pda_launch<int8_t>(q, k_pool, v_pool, k_scale, v_scale, s_page,
+                                s_row, s_head, page_tables, max_pages,
+                                seq_lens, out, B, H, D, page_size, scale,
+                                st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }

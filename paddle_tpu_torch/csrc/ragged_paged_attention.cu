@@ -23,8 +23,9 @@
 // (there is no scalar prefetch on a GPU), stages the [page_size, D] K and V
 // tiles in shared memory through the pool's strides (so the token layout
 // [P, ps, H, D] and the kernel layout [H, P, ps, D] both work; bf16 pools
-// are upcast to f32 on load; each thread issues its 4-wide loads of a
-// page before storing any), and runs an online softmax whose state
+// are upcast to f32 on load and int8 pools dequantized with their page's
+// [P, H] scale, the Pallas body's int8 branch; each thread issues its
+// 4-wide loads of a page before storing any), and runs an online softmax whose state
 // (m, l, acc) stays in registers: one warp per query row, lanes over the
 // page's keys for the scores and over D for the P.V accumulate.  That
 // walk (pa_attend_tile) lives in paged_attention_common.cuh, shared with
@@ -38,6 +39,8 @@
 // version keeps the arithmetic in fp32 FMA on the CUDA cores — TF32 tensor
 // cores would break the 2e-5 parity with the fp32 reference — and skips
 // the rows a tile does not hold and the pages past its causal horizon.
+// An int8 pool moves a quarter of the f32 bytes (plus one f32 scale per
+// page and head): the same walk, reading bytes.
 // Overlapping the page loads with compute (cp.async/TMA), wgmma on bf16
 // pools and split-K over pages for long contexts are later work.
 
@@ -49,7 +52,8 @@
 template <typename KV>
 __global__ void __launch_bounds__(RPA_WARPS * 32)
 rpa_kernel(const float* __restrict__ q, const KV* __restrict__ k_pool,
-           const KV* __restrict__ v_pool, long long s_page, long long s_row,
+           const KV* __restrict__ v_pool, const float* __restrict__ k_scale,
+           const float* __restrict__ v_scale, long long s_page, long long s_row,
            long long s_head, const int* __restrict__ page_tables,
            int max_pages, const int* __restrict__ starts,
            const int* __restrict__ lens, const int* __restrict__ kv_lens,
@@ -67,13 +71,14 @@ rpa_kernel(const float* __restrict__ q, const KV* __restrict__ k_pool,
   if (qpos0 + n_rows - 1 < 0) return;  // no row of the tile sees a key
   extern __shared__ float smem[];
   pa_attend_tile<KV, RPA_QB, RPA_WARPS>(
-      q, k_pool, v_pool, s_page, s_row, s_head,
+      q, k_pool, v_pool, k_scale, v_scale, s_page, s_row, s_head,
       page_tables + (long long)s * max_pages, max_pages, row0, qpos0, n_rows,
       h, out, H, D, page_size, scale, vec4, smem);
 }
 
 template <typename KV>
 static int rpa_launch(const void* q, const void* k_pool, const void* v_pool,
+                      const void* k_scale, const void* v_scale,
                       long long s_page, long long s_row, long long s_head,
                       const void* page_tables, int max_pages,
                       const void* starts, const void* lens,
@@ -86,7 +91,8 @@ static int rpa_launch(const void* q, const void* k_pool, const void* v_pool,
   dim3 grid((T + RPA_QB - 1) / RPA_QB, S, H);
   rpa_kernel<KV><<<grid, RPA_WARPS * 32, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const KV*>(k_pool),
-      static_cast<const KV*>(v_pool), s_page, s_row, s_head,
+      static_cast<const KV*>(v_pool), static_cast<const float*>(k_scale),
+      static_cast<const float*>(v_scale), s_page, s_row, s_head,
       static_cast<const int*>(page_tables), max_pages,
       static_cast<const int*>(starts), static_cast<const int*>(lens),
       static_cast<const int*>(kv_lens), static_cast<float*>(out), H, D,
@@ -94,26 +100,40 @@ static int rpa_launch(const void* q, const void* k_pool, const void* v_pool,
   return (int)cudaGetLastError();
 }
 
-// q/out [T, H, D] f32 contiguous; pools f32 (kv_bf16 == 0) or bf16, with
-// element strides s_page/s_row/s_head and a unit D stride; page_tables
+// q/out [T, H, D] f32 contiguous; pools f32, bf16 or int8 (kv_dtype 0, 1,
+// 2), with element strides s_page/s_row/s_head and a unit D stride; an int8
+// pool's k_scale/v_scale [P, H] f32 (NULL for float pools); page_tables
 // [S, max_pages] and starts/lens/kv_lens [S] int32.  Returns the CUDA error
 // code of the launch (0 on success).
 extern "C" int rpa_ragged_paged_attention(
-    const void* q, const void* k_pool, const void* v_pool, int kv_bf16,
-    long long s_page, long long s_row, long long s_head,
-    const void* page_tables, int max_pages, const void* starts,
-    const void* lens, const void* kv_lens, void* out, int T, int S, int H,
-    int D, int page_size, float scale, void* stream) {
+    const void* q, const void* k_pool, const void* v_pool, int kv_dtype,
+    const void* k_scale, const void* v_scale, long long s_page,
+    long long s_row, long long s_head, const void* page_tables,
+    int max_pages, const void* starts, const void* lens, const void* kv_lens,
+    void* out, int T, int S, int H, int D, int page_size, float scale,
+    void* stream) {
   if (T <= 0 || S <= 0 || H <= 0) return 0;
-  if (D < 1 || D > PA_MAX_D || page_size < 1 || page_size > PA_MAX_PS)
+  if (D < 1 || D > PA_MAX_D || page_size < 1 || page_size > PA_MAX_PS ||
+      (kv_dtype == PA_KV_INT8) != (k_scale != nullptr && v_scale != nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (kv_bf16)
-    return rpa_launch<__nv_bfloat16>(q, k_pool, v_pool, s_page, s_row,
-                                     s_head, page_tables, max_pages, starts,
-                                     lens, kv_lens, out, T, S, H, D,
-                                     page_size, scale, st);
-  return rpa_launch<float>(q, k_pool, v_pool, s_page, s_row, s_head,
-                           page_tables, max_pages, starts, lens, kv_lens,
-                           out, T, S, H, D, page_size, scale, st);
+  switch (kv_dtype) {
+    case PA_KV_F32:
+      return rpa_launch<float>(q, k_pool, v_pool, k_scale, v_scale, s_page,
+                               s_row, s_head, page_tables, max_pages, starts,
+                               lens, kv_lens, out, T, S, H, D, page_size,
+                               scale, st);
+    case PA_KV_BF16:
+      return rpa_launch<__nv_bfloat16>(q, k_pool, v_pool, k_scale, v_scale,
+                                       s_page, s_row, s_head, page_tables,
+                                       max_pages, starts, lens, kv_lens, out,
+                                       T, S, H, D, page_size, scale, st);
+    case PA_KV_INT8:
+      return rpa_launch<int8_t>(q, k_pool, v_pool, k_scale, v_scale, s_page,
+                                s_row, s_head, page_tables, max_pages,
+                                starts, lens, kv_lens, out, T, S, H, D,
+                                page_size, scale, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }

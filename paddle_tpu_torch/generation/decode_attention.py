@@ -14,6 +14,10 @@ PyTorch version (the ``*_reference`` names):
   its dense core over keys already gathered in position order, the JAX
   reference's signature.
 
+Each takes ``k_scale`` / ``v_scale``, the ``[P, H]`` scales of an int8
+pool (``DeviceKVPool.layer_scales``), and refuses an int8 pool without
+them or scales with a float pool.
+
 Their masking makes padded keys contribute exactly zero
 (``exp(NEG_INF - m)`` underflows to 0.0), so padding the key or
 descriptor axis never changes a live row beyond float reassociation.

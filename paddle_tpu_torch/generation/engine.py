@@ -22,6 +22,11 @@ through this engine is token-identical to naive full-recompute
 generation: continuous batching, chunking and paging change the cost of
 a token, never its value.
 
+With ``kv_dtype="int8"`` the pools store int8 bytes with per-page
+per-head float32 scales (quantized_kv.py): every write path quantizes,
+every attention call dequantizes inside the kernel (or the plain
+version's gathered view), on every step mode and decode path.
+
 The engine runs on the card unless the config asks for the CPU: a
 ``GenerationConfig()`` resolves its device to ``"cuda"`` and building an
 engine raises when CUDA is absent.  On the CPU every attention call
@@ -79,7 +84,9 @@ class GenerationConfig:
         means "cuda"; pass "cpu" to run every step on the CPU with the
         kernels' plain versions.  Never a silent fallback: an engine on
         "cuda" without a card refuses to build.
-    kv_dtype: pool storage dtype, float32 (default) or bfloat16.
+    kv_dtype: pool storage dtype: float32 (default), bfloat16, or int8
+        (per-page per-head scales beside the bytes; about 2x the resident
+        sequences per pool byte of bfloat16, 4x of float32).
     pool_layout: "token" ([P, page_size, H, D]) or "kernel"
         ([H, P, page_size, D]); None = "token".
     step_mode: "ragged" (one mixed-batch call per step) or "legacy" (a
@@ -100,9 +107,8 @@ class GenerationConfig:
         room (True) or one chunk per step (False).
 
     Settings the JAX engine has and this port does not support yet
-    (spec_mode, loop_steps > 1, prefix_cache=True, int8 kv_dtype, mesh)
-    are accepted here and refused with NotImplementedError when the
-    engine is built.
+    (spec_mode, loop_steps > 1, prefix_cache=True, mesh) are accepted
+    here and refused with NotImplementedError when the engine is built.
     """
 
     def __init__(self, max_decode_slots=8, num_pages=256, page_size=16,
@@ -173,15 +179,13 @@ def _refuse_unported(cfg):
         unported.append(f"loop_steps={cfg.loop_steps}")
     if cfg.prefix_cache:
         unported.append("prefix_cache=True")
-    if cfg.kv_dtype == torch.int8:
-        unported.append("kv_dtype=int8")
     if cfg.mesh is not None:
         unported.append("mesh")
     if unported:
         raise NotImplementedError(
             "not supported by the PyTorch port yet: " + ", ".join(unported)
-            + " (it serves the ragged and legacy steps on float pools of "
-            "one card)")
+            + " (it serves the ragged and legacy steps on float32, bfloat16 "
+            "and int8 pools of one card)")
 
 
 def _require(model, names, what):
@@ -286,6 +290,8 @@ class GenerationEngine:
             num_pages=cfg.num_pages, page_size=cfg.page_size,
             dtype=cfg.kv_dtype, pool_layout=cfg.pool_layout,
             device=self.device)
+        # int8 pools count their scale bytes apart, per step
+        self.kv_quant = bool(self.cache.quantized)
         self.scheduler = ContinuousBatchingScheduler(
             self.cache, num_slots=cfg.max_decode_slots,
             queue_depth=cfg.queue_depth, metrics=self.metrics)
@@ -580,8 +586,10 @@ class GenerationEngine:
             self.cache.write_decode_tokens(seq_ids, positions, layer,
                                            k_new, v_new)
             k_pool, v_pool = self.cache.layer_pools(layer)
+            k_scale, v_scale = self.cache.layer_scales(layer)
             return paged_decode_attention(q, k_pool, v_pool, pt_dev,
-                                          lens_dev, layout=layout)
+                                          lens_dev, layout=layout,
+                                          k_scale=k_scale, v_scale=v_scale)
 
         logits = self.model.decode(tokens, positions, attend)
         logits = logits.cpu().numpy()        # the [B, V] logits fetch
@@ -984,7 +992,12 @@ class GenerationEngine:
         self.metrics.count_finished()
 
     def _drain_kv_bytes(self):
+        """The cache's byte counters into generation.* once per step: the
+        bytes moved (scales included), and for int8 pools the scale bytes
+        apart."""
         self.metrics.count_kv_bytes(self.cache.take_bytes_moved())
+        if self.kv_quant:
+            self.metrics.count_kv_scale_bytes(self.cache.take_scale_bytes())
 
     def _observe_occupancy(self):
         self.metrics.observe_occupancy(

@@ -11,10 +11,13 @@ on the live pools, and counts what it dispatched.
 PyTorch runs eagerly: there is no jit and no donation.  A
 `SignatureCache` counts the padded signatures each owner dispatched
 (what a CUDA-graph capture would be keyed on).  The pools are written in
-place.  If a call fails part-way, the pools may hold a partial write, so
-the cache is reset to fresh storage and the error propagates — the
-engine's fail-the-batch-and-keep-serving recovery then keeps serving on
-clean pools.
+place; an int8 cache's scale arrays ride with them (the cache's pool
+state is four groups of per-layer tensors then, k and v pools and k and
+v scales, and the model's step functions are built with kv_quant).  If
+a call fails part-way, the pools may hold a partial write, so the cache
+is reset to fresh storage and the error propagates — the engine's
+fail-the-batch-and-keep-serving recovery then keeps serving on clean
+pools.
 
 In the ragged step the decode batch's single-token rows AND the step's
 prefill chunks ride one PACKED token axis of fixed size `max_tokens`,
@@ -41,16 +44,19 @@ from .metrics import DecodeCacheMetrics
 
 
 def _dispatch_in_place(cache, call):
-    """Run ONE pool-writing step call: ``call(k_pools, v_pools)`` gets
-    the cache's pool state and returns ``(out, k_pools, v_pools)``; the
-    returned pools are installed.  On ANY failure the pools may be half
+    """Run ONE pool-writing step call: ``call(*groups)`` gets the cache's
+    pool state as its per-layer groups (k_pools, v_pools, then k_scales,
+    v_scales for an int8 cache) and returns ``(out, *groups)``; the
+    returned groups are installed.  On ANY failure the pools may be half
     written — leave the cache on fresh storage and re-raise.  Returns the
     non-pool output, still on the device."""
     state = cache.take_pool_state()
     ll = cache.num_layers
+    groups = [state[i * ll:(i + 1) * ll]
+              for i in range(cache.n_state_groups)]
     try:
-        out, k_out, v_out = call(state[:ll], state[ll:])
-        cache.put_pool_state(list(k_out) + list(v_out))
+        out, *new = call(*groups)
+        cache.put_pool_state([t for g in new for t in g])
     except BaseException:
         cache.reset_pools()
         raise
@@ -96,8 +102,8 @@ class FusedDecodeStep:
         self._bucketer = _pages_bucketer(cache, tuple(batch_buckets))
         self._fns = {greedy: model.decode_step_fn(
             cache.page_size, cache.num_pages,
-            pool_layout=cache.pool_layout, greedy=greedy)
-            for greedy in (False, True)}
+            pool_layout=cache.pool_layout, greedy=greedy,
+            kv_quant=cache.quantized) for greedy in (False, True)}
         self._signatures = SignatureCache(DecodeCacheMetrics(metrics))
         self.last_dispatches = 0
         self.last_syncs = 0
@@ -148,7 +154,7 @@ class FusedDecodeStep:
         fn = self._fns[greedy]
         out = _dispatch_in_place(
             self._cache,
-            lambda kp, vp: fn(self._params, tok, pos, kp, vp, pt, ln))
+            lambda *state: fn(self._params, tok, pos, *state, pt, ln))
         host = out[:b_real].cpu().numpy()      # the single host sync
         self.last_dispatches = 1
         self.last_syncs = 1
@@ -178,7 +184,8 @@ class ChunkedPrefillStep:
         self._params = model.decode_params(self.device)
         self._bucketer = _pages_bucketer(cache)
         self._fn = model.prefill_chunk_fn(cache.page_size, cache.num_pages,
-                                          pool_layout=cache.pool_layout)
+                                          pool_layout=cache.pool_layout,
+                                          kv_quant=cache.quantized)
         self._signatures = SignatureCache(metrics)
         self.last_rows_useful = 0
         self.last_rows_dispatched = 0
@@ -208,8 +215,8 @@ class ChunkedPrefillStep:
         self._signatures.touch(bucket_p)
         tok, pt = (torch.as_tensor(a, device=self.device) for a in (tok, pt))
         logits = _dispatch_in_place(
-            self._cache, lambda kp, vp: self._fn(self._params, tok,
-                                                 int(start), n, kp, vp, pt))
+            self._cache, lambda *state: self._fn(self._params, tok,
+                                                 int(start), n, *state, pt))
         # chunk-axis padding rows are masked dummy work inside this
         # sequence's call (generation.padded_token_waste)
         self.last_rows_useful = n
@@ -234,7 +241,8 @@ class RaggedStep:
         self._params = model.decode_params(self.device)
         self._bucketer = _pages_bucketer(cache)
         self._fn = model.ragged_step_fn(cache.page_size, cache.num_pages,
-                                        pool_layout=cache.pool_layout)
+                                        pool_layout=cache.pool_layout,
+                                        kv_quant=cache.quantized)
         self._signatures = SignatureCache(DecodeCacheMetrics(metrics))
         self.last_dispatches = 0
         self.last_uploads = 0
@@ -297,7 +305,7 @@ class RaggedStep:
         host = (tok, pos, pg, rw, pt, st, ln, kv)
         args = [self._params, *(self._upload(a) for a in host)]
         ids, logits = _dispatch_in_place(
-            self._cache, lambda kp, vp: self._fn(*args, kp, vp))
+            self._cache, lambda *state: self._fn(*args, *state))
         if self.use_kernel:
             self.last_score_blocks, self.last_score_blocks_untiled = \
                 ragged_score_blocks(st, ln, kv, self._cache.page_size,

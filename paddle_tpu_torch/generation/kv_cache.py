@@ -10,7 +10,10 @@ whole pages to the free list.
 - ``PagedKVCache`` — the host bookkeeping: page tables, the LIFO free
   list, reservations, byte accounting.
 - ``DeviceKVPool`` — the same bookkeeping plus per-layer pool tensors on
-  a torch device, written in place by ``scatter_pool_update``.
+  a torch device, written in place by ``scatter_pool_update`` (float
+  pools) or ``quantized_kv.quantized_pool_write`` (int8 pools, which carry
+  a ``[num_pages + 1, H]`` float32 scale array per layer beside each of K
+  and V).
 
 Every pool tensor holds ONE page more than the allocator hands out: page
 ``num_pages`` is a SINK that no page table maps.  A packed step pads its
@@ -26,6 +29,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from .quantized_kv import quantized_pool_write
 
 
 class OutOfPagesError(RuntimeError):
@@ -61,6 +65,10 @@ class PagedKVCache:
         self.num_pages = int(num_pages)
         self.page_size = int(page_size)
         self.dtype = dtype
+        # int8 storage: the pools carry per-page per-head scales, every
+        # write quantizes and every read dequantizes (quantized_kv.py)
+        self.quantized = dtype == torch.int8
+        self._scale_bytes = 0  # scale traffic (a subset of _bytes_moved)
         # LIFO free list: a just-freed (cache-warm) page is reused first
         self._free = list(range(self.num_pages - 1, -1, -1))
         self._tables = {}    # seq_id -> [page ids]
@@ -108,7 +116,10 @@ class PagedKVCache:
                 f"{seq_id!r}, only {len(self._free)} free")
         table = self._tables[seq_id]
         for _ in range(need):
-            table.append(self._free.pop())
+            page = self._free.pop()
+            table.append(page)
+            if self.quantized:
+                self._reset_page_scale(page)
         start = self._lens[seq_id]
         self._lens[seq_id] = start + new_tokens
         return start
@@ -146,6 +157,11 @@ class PagedKVCache:
         rows[:n] = pos % self.page_size
         return pages, rows
 
+    def _reset_page_scale(self, page):
+        """A just-allocated page's scales go back to zero, so a reused
+        page quantizes exactly like a fresh one.  Bookkeeping alone holds
+        no scales; DeviceKVPool does."""
+
     # --------------------------- accounting --------------------------
     def _count_write_payload(self, tokens, layers):
         """K+V bytes a write of `tokens` tokens over `layers` layers
@@ -154,15 +170,34 @@ class PagedKVCache:
         self._bytes_moved += (2 * tokens * layers * self.num_heads
                               * self.head_dim * itemsize)
 
+    def _count_scale_payload(self, n_pages, layers):
+        """Scale bytes a quantized write moves beside the int8 payload:
+        folded into the bytes moved, and kept apart for
+        ``generation.kv_scale_bytes``."""
+        if not self.quantized or not n_pages:
+            return
+        b = int(2 * layers * n_pages * self.num_heads * 4)
+        self._bytes_moved += b
+        self._scale_bytes += b
+
     def count_fused_append(self, tokens):
         """Account an in-step write of `tokens` new tokens across every
         layer (the scatter runs inside the step; its O(tokens) payload is
-        counted so ``generation.kv_bytes_moved`` keeps its meaning)."""
+        counted so ``generation.kv_bytes_moved`` keeps its meaning).
+        Quantized pools count one page's scale row per written token too,
+        as the JAX package does."""
+        self._count_scale_payload(int(tokens), self.num_layers)
         self._count_write_payload(int(tokens), self.num_layers)
 
     def take_bytes_moved(self):
         """KV bytes accumulated since the last take."""
         n, self._bytes_moved = self._bytes_moved, 0
+        return n
+
+    def take_scale_bytes(self):
+        """Scale bytes accumulated since the last take (already part of
+        take_bytes_moved's total)."""
+        n, self._scale_bytes = self._scale_bytes, 0
         return n
 
     def seq_len(self, seq_id):
@@ -252,13 +287,20 @@ class DeviceKVPool(PagedKVCache):
     - ``"token"`` (default): ``[num_pages + 1, page_size, H, D]``;
     - ``"kernel"``: ``[H, num_pages + 1, page_size, D]``.
 
+    dtype is float32, bfloat16 or int8.  An int8 pool also holds, per
+    layer, a ``[num_pages + 1, H]`` float32 scale array for K and one for
+    V (`layer_scales`); a page's scale rows go back to zero when the page
+    is handed out again (queued at reserve, zeroed before the next read or
+    write of the scales).
+
     The ragged and fused steps write the pools in place
-    (`scatter_pool_update`) and read them through `layer_pools`; the
-    legacy step's eager decode and one-shot prefill write through
-    `write_decode_tokens` / `write_prefill_batch`, which land padding in
-    the sink page too.
-    ``k_pool`` / ``v_pool`` are host copies in the canonical token layout
-    without the sink page (debug and tests only).
+    (`scatter_pool_update`, or `quantized_pool_write` for int8) and read
+    them through `layer_pools` / `layer_scales`; the legacy step's eager
+    decode and one-shot prefill write through `write_decode_tokens` /
+    `write_prefill_batch`, which land padding in the sink page too.
+    ``k_pool`` / ``v_pool`` (and for int8 ``k_scale`` / ``v_scale``) are
+    host copies in the canonical token layout without the sink page
+    (debug and tests only).
     """
 
     def __init__(self, num_layers, num_heads, head_dim, num_pages=256,
@@ -268,10 +310,10 @@ class DeviceKVPool(PagedKVCache):
             raise ValueError(
                 f"pool_layout must be 'token' or 'kernel', got "
                 f"{pool_layout!r}")
-        if dtype not in (torch.float32, torch.bfloat16):
+        if dtype not in (torch.float32, torch.bfloat16, torch.int8):
             raise NotImplementedError(
-                f"kv dtype {dtype} is not supported by the port yet "
-                f"(float32 and bfloat16 pools only)")
+                f"kv dtype {dtype} is not supported (float32, bfloat16 "
+                f"and int8 pools)")
         super().__init__(num_layers, num_heads, head_dim,
                          num_pages=num_pages, page_size=page_size,
                          dtype=dtype)
@@ -286,27 +328,77 @@ class DeviceKVPool(PagedKVCache):
         self._materialize_pools()
 
     def _materialize_pools(self):
-        def zeros():
-            return torch.zeros(self._shape, dtype=self.dtype,
-                               device=self.device)
+        def zeros(shape, dtype):
+            return torch.zeros(shape, dtype=dtype, device=self.device)
 
-        self._k = [zeros() for _ in range(self.num_layers)]
-        self._v = [zeros() for _ in range(self.num_layers)]
+        self._k = [zeros(self._shape, self.dtype)
+                   for _ in range(self.num_layers)]
+        self._v = [zeros(self._shape, self.dtype)
+                   for _ in range(self.num_layers)]
+        if self.quantized:
+            sshape = (self.num_pages + 1, self.num_heads)
+            self._ks = [zeros(sshape, torch.float32)
+                        for _ in range(self.num_layers)]
+            self._vs = [zeros(sshape, torch.float32)
+                        for _ in range(self.num_layers)]
+            # pages handed out since the last flush: their scale rows are
+            # zeroed together before the scales are next read or written
+            self._pending_scale_reset = []
 
     def layer_pools(self, layer):
         """One layer's live ``(k, v)`` pool tensors (sink page included)."""
         return self._k[layer], self._v[layer]
 
+    # ---------------------- quantized-scale state --------------------
+    def _reset_page_scale(self, page):
+        self._pending_scale_reset.append(int(page))
+
+    def _flush_scale_resets(self):
+        if not self.quantized or not self._pending_scale_reset:
+            return
+        idx = torch.as_tensor(self._pending_scale_reset, dtype=torch.long,
+                              device=self.device)
+        self._pending_scale_reset = []
+        for s in self._ks + self._vs:
+            s.index_fill_(0, idx, 0.0)
+
+    def layer_scales(self, layer):
+        """One layer's ``(k_scale, v_scale)`` ``[num_pages + 1, H]`` arrays
+        for the attention dequant; ``(None, None)`` for a float pool."""
+        if not self.quantized:
+            return None, None
+        self._flush_scale_resets()
+        return self._ks[layer], self._vs[layer]
+
     # ---------------------- legacy-step writes -----------------------
+    def _pages_touched(self, pages):
+        """Distinct real pages (sink excluded) in a write's targets: the
+        unit of its scale traffic."""
+        arr = np.asarray(pages)
+        return int(len(np.unique(arr[arr < self.num_pages])))
+
     def _scatter(self, layers, pages, rows, k, v, real_tokens):
         """Scatter k[i], v[i] ([n, H, D] each) into the pools of
         ``layers[i]`` at (pages, rows) — host int arrays uploaded once;
-        sentinel pages land in the sink."""
+        sentinel pages land in the sink.  int8 pools quantize."""
         pg = torch.as_tensor(np.asarray(pages, np.int32), device=self.device)
         rw = torch.as_tensor(np.asarray(rows, np.int32), device=self.device)
+        layers = list(layers)
+        self._flush_scale_resets()
         for li, kl, vl in zip(layers, k, v):
-            scatter_pool_update(self._k[li], pg, rw, kl, self.pool_layout)
-            scatter_pool_update(self._v[li], pg, rw, vl, self.pool_layout)
+            if self.quantized:
+                quantized_pool_write(self._k[li], self._ks[li], pg, rw, kl,
+                                     self.pool_layout)
+                quantized_pool_write(self._v[li], self._vs[li], pg, rw, vl,
+                                     self.pool_layout)
+            else:
+                scatter_pool_update(self._k[li], pg, rw, kl,
+                                    self.pool_layout)
+                scatter_pool_update(self._v[li], pg, rw, vl,
+                                    self.pool_layout)
+        if self.quantized:
+            self._count_scale_payload(self._pages_touched(pages),
+                                      len(layers))
         self._count_write_payload(real_tokens, len(layers))
 
     def write_decode_tokens(self, seq_ids, positions, layer, k, v):
@@ -339,23 +431,33 @@ class DeviceKVPool(PagedKVCache):
 
     @property
     def n_state_groups(self):
-        return 2
+        """Length-L tensor groups in the pool state: the k and v pools,
+        then the k and v scales when quantized."""
+        return 4 if self.quantized else 2
 
     def take_pool_state(self):
-        """The whole pool state as one flat list ``[*k_pools, *v_pools]``
-        for a step that writes it."""
-        return list(self._k) + list(self._v)
+        """The whole pool state as one flat list ``[*k_pools, *v_pools]``,
+        plus ``[*k_scales, *v_scales]`` when quantized, for a step that
+        writes it.  Pending scale resets are applied first."""
+        self._flush_scale_resets()
+        state = list(self._k) + list(self._v)
+        if self.quantized:
+            state += list(self._ks) + list(self._vs)
+        return state
 
     def put_pool_state(self, state):
         """Install the flat state list a step returned."""
-        want = 2 * self.num_layers
+        want = self.n_state_groups * self.num_layers
         if len(state) != want:
             raise ValueError(f"expected {want} state arrays "
-                             f"(2 groups x {self.num_layers} layers), got "
-                             f"{len(state)}")
+                             f"({self.n_state_groups} groups x "
+                             f"{self.num_layers} layers), got {len(state)}")
         ll = self.num_layers
         self._k = list(state[:ll])
-        self._v = list(state[ll:])
+        self._v = list(state[ll:2 * ll])
+        if self.quantized:
+            self._ks = list(state[2 * ll:3 * ll])
+            self._vs = list(state[3 * ll:])
 
     def reset_pools(self):
         """Fresh zeroed pool storage after a step died mid-write: the
@@ -365,17 +467,35 @@ class DeviceKVPool(PagedKVCache):
         self._materialize_pools()
 
     def _canonical(self, pool):
-        pool = pool.detach().to("cpu", torch.float32).numpy()
+        pool = pool.detach().cpu()
+        if pool.dtype == torch.bfloat16:   # numpy has no bfloat16
+            pool = pool.float()
+        pool = pool.numpy()
         if self.pool_layout == "kernel":
             pool = pool.transpose(1, 2, 0, 3)
         return pool[:self.num_pages]
 
     @property
     def k_pool(self):
-        """Host copy ``[L, P, page_size, H, D]`` in the token layout,
-        float32, sink page dropped."""
+        """Host copy ``[L, P, page_size, H, D]`` in the token layout, sink
+        page dropped: the stored bytes of an int8 pool, float32 otherwise."""
         return np.stack([self._canonical(p) for p in self._k])
 
     @property
     def v_pool(self):
         return np.stack([self._canonical(p) for p in self._v])
+
+    def _host_scales(self, scales):
+        self._flush_scale_resets()
+        return np.stack([s.detach().cpu().numpy()[:self.num_pages]
+                         for s in scales])
+
+    @property
+    def k_scale(self):
+        """Host copy ``[L, P, H]`` of an int8 pool's K scales, sink row
+        dropped."""
+        return self._host_scales(self._ks)
+
+    @property
+    def v_scale(self):
+        return self._host_scales(self._vs)

@@ -64,6 +64,10 @@ same names):
                                       page) cell) would have computed, in
                                       the same units
 - ``generation.kv_quant_dtype``       gauge (string): pool storage dtype
+- ``generation.kv_scale_bytes``       int8 scale bytes in flight (writes)
+                                      — a SUBSET of kv_bytes_moved, split
+                                      out so the quantization overhead is
+                                      visible
 """
 import time
 
@@ -103,6 +107,7 @@ KERNEL_PATH = PREFIX + "kernel_path"
 STEP_SCORE_BLOCKS = PREFIX + "step_score_blocks"
 STEP_SCORE_BLOCKS_UNTILED = PREFIX + "step_score_blocks_untiled"
 KV_QUANT_DTYPE = PREFIX + "kv_quant_dtype"
+KV_SCALE_BYTES = PREFIX + "kv_scale_bytes"
 
 
 class GenerationMetrics:
@@ -202,6 +207,14 @@ class GenerationMetrics:
 
     def set_kv_quant_dtype(self, dtype_name):
         self._stat(KV_QUANT_DTYPE).set(str(dtype_name))
+
+    def count_kv_scale_bytes(self, n):
+        """int8 scale bytes drained from the cache each step (already in
+        kv_bytes_moved).  Touches the stat even at 0, so an int8 engine's
+        snapshot always carries the key."""
+        stat = self._stat(KV_SCALE_BYTES)
+        if n:
+            stat.increase(int(n))
 
     def observe_step_rows(self, useful, dispatched, waste):
         """Row accounting for one engine step: `useful` real token rows

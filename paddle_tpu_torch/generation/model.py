@@ -18,6 +18,12 @@ Forward paths over the SAME weights:
 - `decode(tokens, positions, attend)` — the eager decode step, with the
   engine's attend callback writing and reading the pools per layer.
 
+With ``kv_quant=True`` the three step functions serve int8 pools: the
+per-layer ``[P + 1, H]`` scale arrays ride the state chain right after the
+pools (``..., k_pools, v_pools, k_scales, v_scales, ...``) and come back
+after them, every write goes through `quantized_pool_write`, and attention
+gets each layer's scales.
+
 Weights are drawn from one ``np.random.default_rng(seed)`` in a fixed
 order, the same draws as the JAX package's model, so the two packages'
 models with one seed hold bitwise-equal weights.  They are drawn on the
@@ -34,9 +40,35 @@ from ..device import resolve_device
 from . import decode_attention
 from .decode_attention import NEG_INF, dense_causal_reference
 from .kv_cache import scatter_pool_update
+from .quantized_kv import quantized_pool_write
 
 _BLOCK_KEYS = ("ln1_s", "ln1_b", "wq", "wk", "wv", "wo", "ln2_s", "ln2_b",
                "w1", "b1", "w2", "b2")
+
+
+def _write_layer(li, k_pools, v_pools, scales, pages, rows, k, v, layout):
+    """Write layer `li`'s K/V rows into its pools in place: a plain
+    scatter, or with `scales` (the ``(k_scales, v_scales)`` lists of an
+    int8 pool) the quantized write.  Returns ``(k_pool, v_pool, k_scale,
+    v_scale)``, the scales None for a float pool."""
+    if scales is None:
+        return (scatter_pool_update(k_pools[li], pages, rows, k, layout),
+                scatter_pool_update(v_pools[li], pages, rows, v, layout),
+                None, None)
+    kp, ks = quantized_pool_write(k_pools[li], scales[0][li], pages, rows,
+                                  k, layout)
+    vp, vs = quantized_pool_write(v_pools[li], scales[1][li], pages, rows,
+                                  v, layout)
+    return kp, vp, ks, vs
+
+
+def _split_state(rest, kv_quant, n_tail):
+    """A step function's ``*rest`` after the pools: ``(scales, tail)``
+    where scales is ``(k_scales, v_scales)`` when kv_quant, else None, and
+    tail the `n_tail` arguments after them."""
+    if kv_quant:
+        return tuple(rest[:2]), rest[2:2 + n_tail]
+    return None, rest[:n_tail]
 
 
 def _layer_norm(x, scale, bias, eps=1e-5):
@@ -298,12 +330,16 @@ class TinyCausalLM(nn.Module):
 
     # -------------------------- fused decode --------------------------
     def decode_step_fn(self, page_size, num_pages, pool_layout="token",
-                       greedy=False):
+                       greedy=False, kv_quant=False):
         """The legacy fused decode step the engine's FusedDecodeStep
         calls once per decode step::
 
             fn(params, tokens, positions, k_pools, v_pools, page_tables,
                lens) -> (out, k_pools, v_pools)
+
+        (with kv_quant: ``fn(params, tokens, positions, k_pools, v_pools,
+        k_scales, v_scales, page_tables, lens) -> (out, k_pools, v_pools,
+        k_scales, v_scales)``)
 
         tokens/positions: [B] int (B = the padded batch bucket);
         page_tables: [B, MP] int32 padded with page 0; lens: [B] int32
@@ -319,8 +355,8 @@ class TinyCausalLM(nn.Module):
         num_pages = int(num_pages)
 
         @torch.no_grad()
-        def step(params, tokens, positions, k_pools, v_pools, page_tables,
-                 lens):
+        def step(params, tokens, positions, k_pools, v_pools, *rest):
+            scales, (page_tables, lens) = _split_state(rest, kv_quant, 2)
             b = tokens.shape[0]
             pos = positions.long()
             x = params["tok_emb"][tokens.long()] + params["pos_emb"][pos]
@@ -332,29 +368,33 @@ class TinyCausalLM(nn.Module):
             for li, blk in enumerate(params["blocks"]):
                 hn = _layer_norm(x, blk["ln1_s"], blk["ln1_b"])
                 q, k, v = self._qkv(blk, hn)
-                kp = scatter_pool_update(k_pools[li], pages, rows, k,
-                                         pool_layout)
-                vp = scatter_pool_update(v_pools[li], pages, rows, v,
-                                         pool_layout)
+                kp, vp, ks, vs = _write_layer(li, k_pools, v_pools, scales,
+                                              pages, rows, k, v,
+                                              pool_layout)
                 attn = decode_attention.paged_decode_attention(
-                    q, kp, vp, page_tables, lens, layout=pool_layout)
+                    q, kp, vp, page_tables, lens, layout=pool_layout,
+                    k_scale=ks, v_scale=vs)
                 x = x + attn.reshape(b, self.d_model) @ blk["wo"]
                 x = x + self._mlp(blk, _layer_norm(x, blk["ln2_s"],
                                                    blk["ln2_b"]))
             logits = self._logits(params, x)
             out = (torch.argmax(logits, dim=-1).to(torch.int32) if greedy
                    else logits)
-            return out, k_pools, v_pools
+            return (out, k_pools, v_pools, *(scales or ()))
 
         return step
 
     # ------------------------- chunked prefill ------------------------
-    def prefill_chunk_fn(self, page_size, num_pages, pool_layout="token"):
+    def prefill_chunk_fn(self, page_size, num_pages, pool_layout="token",
+                         kv_quant=False):
         """The legacy chunked-prefill step the engine's
         ChunkedPrefillStep calls once per chunk::
 
             fn(params, tokens, start, length, k_pools, v_pools,
                page_table) -> (last_logits [V], k_pools, v_pools)
+
+        (with kv_quant, the scales after the pools in and out, as
+        `decode_step_fn`'s)
 
         tokens: [C] int, the chunk padded to the fixed chunk size;
         start: host int, the chunk's first position (the tokens already
@@ -369,8 +409,8 @@ class TinyCausalLM(nn.Module):
         num_pages = int(num_pages)
 
         @torch.no_grad()
-        def step(params, tokens, start, length, k_pools, v_pools,
-                 page_table):
+        def step(params, tokens, start, length, k_pools, v_pools, *rest):
+            scales, (page_table,) = _split_state(rest, kv_quant, 1)
             start, length = int(start), int(length)
             c = tokens.shape[0]
             idx = torch.arange(c, device=tokens.device)
@@ -385,17 +425,17 @@ class TinyCausalLM(nn.Module):
             for li, blk in enumerate(params["blocks"]):
                 hn = _layer_norm(x, blk["ln1_s"], blk["ln1_b"])
                 q, k, v = self._qkv(blk, hn)
-                kp = scatter_pool_update(k_pools[li], pages, rows, k,
-                                         pool_layout)
-                vp = scatter_pool_update(v_pools[li], pages, rows, v,
-                                         pool_layout)
+                kp, vp, ks, vs = _write_layer(li, k_pools, v_pools, scales,
+                                              pages, rows, k, v,
+                                              pool_layout)
                 attn = decode_attention.chunk_prefill_attention(
-                    q, kp, vp, page_table, start, layout=pool_layout)
+                    q, kp, vp, page_table, start, layout=pool_layout,
+                    k_scale=ks, v_scale=vs)
                 x = x + attn.reshape(c, self.d_model) @ blk["wo"]
                 x = x + self._mlp(blk, _layer_norm(x, blk["ln2_s"],
                                                    blk["ln2_b"]))
             logits = self._logits(params, x[length - 1:length])[0]
-            return logits, k_pools, v_pools
+            return (logits, k_pools, v_pools, *(scales or ()))
 
         return step
 
@@ -404,43 +444,46 @@ class TinyCausalLM(nn.Module):
         """The ragged layer stack over one packed token axis::
 
             core(params, tokens, positions, pages, rows, page_tables,
-                 starts, lens, kv_lens, k_pools, v_pools)
-              -> (x [T, d], k_pools, v_pools)
+                 starts, lens, kv_lens, k_pools, v_pools, scales)
+              -> x [T, d]
 
-        Each layer writes its K/V into the pools IN PLACE (the returned
-        lists hold the same tensors), then attends through the page
-        tables.  Inert slots embed token 0 at position 0 (in bounds by
+        (`scales`: ``(k_scales, v_scales)`` of an int8 pool, else None.)
+
+        Each layer writes its K/V into the pools (and scales) IN PLACE,
+        then attends through the page tables.  Inert slots embed token 0 at position 0 (in bounds by
         construction), write into the sink page, and belong to no
         descriptor, so their attention rows are exactly 0."""
 
         def core(params, tokens, positions, pages, rows, page_tables,
-                 starts, lens, kv_lens, k_pools, v_pools):
+                 starts, lens, kv_lens, k_pools, v_pools, scales):
             t = tokens.shape[0]
             x = params["tok_emb"][tokens] + params["pos_emb"][positions]
             for li, blk in enumerate(params["blocks"]):
                 hn = _layer_norm(x, blk["ln1_s"], blk["ln1_b"])
                 q, k, v = self._qkv(blk, hn)
-                kp = scatter_pool_update(k_pools[li], pages, rows, k,
-                                         pool_layout)
-                vp = scatter_pool_update(v_pools[li], pages, rows, v,
-                                         pool_layout)
+                kp, vp, ks, vs = _write_layer(li, k_pools, v_pools, scales,
+                                              pages, rows, k, v,
+                                              pool_layout)
                 attn = decode_attention.ragged_paged_attention(
                     q, kp, vp, page_tables, starts, lens, kv_lens,
-                    layout=pool_layout)
+                    layout=pool_layout, k_scale=ks, v_scale=vs)
                 x = x + attn.reshape(t, self.d_model) @ blk["wo"]
                 x = x + self._mlp(blk, _layer_norm(x, blk["ln2_s"],
                                                    blk["ln2_b"]))
-            return x, k_pools, v_pools
+            return x
 
         return core
 
-    def ragged_step_fn(self, page_size, num_pages, pool_layout="token"):
+    def ragged_step_fn(self, page_size, num_pages, pool_layout="token",
+                       kv_quant=False):
         """The mixed-batch RAGGED step function the engine's RaggedStep
         calls once per engine step::
 
             fn(params, tokens, positions, pages, rows, page_tables,
                starts, lens, kv_lens, k_pools, v_pools)
               -> ((token_ids [S], logits [S, V]), k_pools, v_pools)
+
+        (with kv_quant, ``k_scales, v_scales`` after the pools in and out)
 
         tokens/positions/pages/rows: [T] int — the PACKED token axis and
         each row's scatter target (inert slots: sink page ``num_pages``,
@@ -458,16 +501,16 @@ class TinyCausalLM(nn.Module):
 
         @torch.no_grad()
         def step(params, tokens, positions, pages, rows, page_tables,
-                 starts, lens, kv_lens, k_pools, v_pools):
+                 starts, lens, kv_lens, k_pools, v_pools, *rest):
+            scales, _ = _split_state(rest, kv_quant, 0)
             t = tokens.shape[0]
-            x, k_out, v_out = core(params, tokens, positions, pages, rows,
-                                   page_tables, starts, lens, kv_lens,
-                                   k_pools, v_pools)
+            x = core(params, tokens, positions, pages, rows, page_tables,
+                     starts, lens, kv_lens, k_pools, v_pools, scales)
             sample_rows = torch.clamp(starts.long() + lens.long() - 1,
                                       0, t - 1)
             logits = self._logits(params, x[sample_rows])
             ids = torch.argmax(logits, dim=-1).to(torch.int32)
-            return (ids, logits), k_out, v_out
+            return ((ids, logits), k_pools, v_pools, *(scales or ()))
 
         return step
 

@@ -19,9 +19,15 @@ H100.
 - Each wrapper is the one place its device is chosen
   (``generation.decode_attention`` exports them under the JAX names): it
   launches the kernel for CUDA tensors, counting each launch in its
-  ``launches`` attribute, and raises on anything the kernel does not
-  take; for CPU tensors, and only for those, it runs the plain version.
-  int8 pools raise NotImplementedError on every device.
+  ``launches`` attribute and, by pool dtype, in ``launches_by_dtype``,
+  and raises on anything the kernel does not take; for CPU tensors, and
+  only for those, it runs the plain version.
+- Pools are float32, bfloat16 or int8.  An int8 pool comes with its
+  ``k_scale`` / ``v_scale`` ``[P, H]`` float32 per-page per-head scales
+  and only an int8 pool does (`_require_scales`, on every device): the
+  kernels dequantize each staged page block, the plain versions their
+  gathered view, both as ``int8 * (scale * (1/127))``.  No path
+  dequantizes a pool.
 - The plain versions are the gather-and-mask constructions of the JAX
   references, on any device.
 - `ragged_score_blocks` counts on the host the [QB, page_size] score
@@ -40,26 +46,60 @@ NEG_INF = -1e30
 RAGGED_Q_BLOCK = 8
 MAX_HEAD_DIM = 128
 MAX_PAGE_SIZE = 64
+# int8 dequant factor 1/127 in float32, bit-equal to
+# generation.quantized_kv.INV_QMAX (a literal here: ops never imports the
+# generation package)
+INV_QMAX = 0.007874015718698502
+# the kernels' pool dtype codes
+_KV_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _RAGGED_LIB = "ragged_paged_attention"
 _DECODE_LIB = "paged_decode_attention"
 _CHUNK_LIB = "chunk_prefill_attention"
 
 
-def _gather_pool(pool, pt, b, h, d, layout, dtype):
+def _require_scales(pool, k_scale, v_scale):
+    """An int8 pool comes with both its scale arrays, and only an int8
+    pool does: raw int8 codes read as values, or float values multiplied
+    by scale/127, are both finite and plausible-looking corruption, so a
+    caller that forgot, half-threaded or wrongly threaded the cache's
+    layer_scales() fails here (ValueError) instead of mis-attending."""
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError(
+            "k_scale and v_scale must be passed together — got one "
+            "without the other (thread BOTH of the cache's layer_scales() "
+            "arrays)")
+    if k_scale is None and pool.dtype == torch.int8:
+        raise ValueError(
+            "int8 KV pool passed to paged attention without "
+            "k_scale/v_scale — thread the cache's layer_scales() through")
+    if k_scale is not None and pool.dtype != torch.int8:
+        raise ValueError(
+            f"k_scale/v_scale passed with a {pool.dtype} pool — scales "
+            f"belong to int8 pools only (float values would be silently "
+            f"multiplied by scale/127)")
+
+
+def _gather_pool(pool, pt, b, h, d, layout, dtype, scale=None):
     """A [B, Kmax, H, D] view of each row of page table `pt` ([B, MP]),
     gathered from either pool layout and cast to `dtype` (bf16 pools are
-    upcast on the gathered view, never the pool)."""
+    upcast on the gathered view, never the pool).  `scale` ([P, H], int8
+    pools only) dequantizes the gathered int8 view with the kernels'
+    expression ``value * (scale * (1/127))``."""
     if layout == "kernel":
         # pool [H, P, ps, D] -> [H, B, MP, ps, D] -> [B, MP, ps, H, D]
         g = pool[:, pt].permute(1, 2, 3, 0, 4)
     else:
         # pool [P, ps, H, D] -> [B, MP, ps, H, D]
         g = pool[pt]
+    if scale is not None:
+        # scale[pt]: [B, MP, H] -> broadcast over page rows and D
+        g = g.to(dtype) * (scale[pt] * INV_QMAX)[:, :, None, :, None]
     return g.reshape(b, -1, h, d).to(dtype)
 
 
 def ragged_paged_attention_torch(q, k_pool, v_pool, page_tables, starts,
-                                 lens, kv_lens, scale=None, layout="token"):
+                                 lens, kv_lens, scale=None, layout="token",
+                                 k_scale=None, v_scale=None):
     """Plain PyTorch ragged paged attention.
 
     q: [T, H, D] packed query rows; descriptor s owns rows
@@ -67,6 +107,7 @@ def ragged_paged_attention_torch(q, k_pool, v_pool, page_tables, starts,
     k_pool, v_pool: one layer's pool, [P, page_size, H, D] (token layout)
         or [H, P, page_size, D] (layout="kernel").
     page_tables: [S, max_pages] int; starts/lens/kv_lens: [S] int.
+    k_scale, v_scale: [P, H] float32 scales of int8 pools, else None.
     Row r of descriptor s sits at position ``kv_lens[s] - lens[s] +
     (r - starts[s])`` and attends keys ``[0, position]``.
     Returns [T, H, D]; rows owned by no descriptor are exactly 0.
@@ -74,6 +115,7 @@ def ragged_paged_attention_torch(q, k_pool, v_pool, page_tables, starts,
     Masked keys get NEG_INF, so ``exp(NEG_INF - m)`` is exactly 0, and
     weights are zeroed after the softmax where not visible (rows a
     descriptor does not own softmax over an all-masked row)."""
+    _require_scales(k_pool, k_scale, v_scale)
     t, h, d = q.shape
     if scale is None:
         scale = 1.0 / math.sqrt(d)
@@ -83,8 +125,8 @@ def ragged_paged_attention_torch(q, k_pool, v_pool, page_tables, starts,
     lens = lens.to(dev, torch.long)
     kv_lens = kv_lens.to(dev, torch.long)
     s_n = pt.shape[0]
-    k = _gather_pool(k_pool, pt, s_n, h, d, layout, q.dtype)
-    v = _gather_pool(v_pool, pt, s_n, h, d, layout, q.dtype)
+    k = _gather_pool(k_pool, pt, s_n, h, d, layout, q.dtype, k_scale)
+    v = _gather_pool(v_pool, pt, s_n, h, d, layout, q.dtype, v_scale)
     kmax = k.shape[1]
     logits = torch.einsum("thd,skhd->sthk", q, k) * scale
     row = torch.arange(t, device=dev)[None, :]                   # [1, T]
@@ -101,22 +143,25 @@ def ragged_paged_attention_torch(q, k_pool, v_pool, page_tables, starts,
 
 
 def paged_decode_attention_torch(q, k_pool, v_pool, page_tables, seq_lens,
-                                 scale=None, layout="token"):
+                                 scale=None, layout="token", k_scale=None,
+                                 v_scale=None):
     """Plain PyTorch paged decode attention: one query row per sequence.
 
-    q: [B, H, D]; k_pool, v_pool: one layer's pool in either layout;
-    page_tables: [B, max_pages] int (padding: page 0); seq_lens: [B] int.
+    q: [B, H, D]; k_pool, v_pool: one layer's pool in either layout (int8
+    with its [P, H] k_scale/v_scale); page_tables: [B, max_pages] int
+    (padding: page 0); seq_lens: [B] int.
     Sequence b attends to its first ``seq_lens[b]`` keys.  Returns
     [B, H, D]; a sequence of length 0 gets exact zeros (its softmax over
     an all-masked row is zeroed after the fact)."""
+    _require_scales(k_pool, k_scale, v_scale)
     b, h, d = q.shape
     if scale is None:
         scale = 1.0 / math.sqrt(d)
     dev = q.device
     pt = page_tables.to(dev, torch.long)
     lens = seq_lens.to(dev, torch.long)
-    k = _gather_pool(k_pool, pt, b, h, d, layout, q.dtype)
-    v = _gather_pool(v_pool, pt, b, h, d, layout, q.dtype)
+    k = _gather_pool(k_pool, pt, b, h, d, layout, q.dtype, k_scale)
+    v = _gather_pool(v_pool, pt, b, h, d, layout, q.dtype, v_scale)
     logits = torch.einsum("bhd,bkhd->bhk", q, k) * scale
     live = (torch.arange(k.shape[1], device=dev)[None, :]
             < lens[:, None])[:, None, :]                         # [B,1,K]
@@ -150,16 +195,18 @@ def chunk_prefill_attention_dense(q, k, v, start, scale=None):
 
 
 def chunk_prefill_attention_torch(q, k_pool, v_pool, page_table, start,
-                                  scale=None, layout="token"):
+                                  scale=None, layout="token", k_scale=None,
+                                  v_scale=None):
     """Plain PyTorch chunked-prefill attention for ONE sequence, whose
     chunk K/V were already scattered into the pools: q [n, H, D] (row i
     at position ``start + i``), page_table [max_pages] int (padding: page
-    0), `start` an int.  Every key is read through the page table.
-    Returns [n, H, D]."""
+    0), `start` an int; int8 pools with their [P, H] k_scale/v_scale.
+    Every key is read through the page table.  Returns [n, H, D]."""
+    _require_scales(k_pool, k_scale, v_scale)
     n, h, d = q.shape
     pt = page_table.to(q.device, torch.long)[None]
-    k = _gather_pool(k_pool, pt, 1, h, d, layout, q.dtype)[0]
-    v = _gather_pool(v_pool, pt, 1, h, d, layout, q.dtype)[0]
+    k = _gather_pool(k_pool, pt, 1, h, d, layout, q.dtype, k_scale)[0]
+    v = _gather_pool(v_pool, pt, 1, h, d, layout, q.dtype, v_scale)[0]
     return chunk_prefill_attention_dense(q, k, v, int(start), scale=scale)
 
 
@@ -172,19 +219,19 @@ def _pool_strides(pool, layout):
     return s_page, s_row, s_head
 
 
-def _refuse_int8(k_pool):
-    if k_pool.dtype == torch.int8:
-        raise NotImplementedError("int8 KV pools are not ported yet")
-
-
-def _check_kernel_args(q, k_pool, v_pool, layout, **int_args):
+def _check_kernel_args(q, k_pool, v_pool, layout, k_scale=None,
+                       v_scale=None, **int_args):
     """Refuse what the CUDA kernels do not take: tensors off q's device
     or not contiguous, q not float32 [rows, H, D], pools not one 4-D
-    shape of float32 or bfloat16 matching q's heads and head_dim, head_dim
-    past MAX_HEAD_DIM or page_size past MAX_PAGE_SIZE, or index tensors
+    shape of float32, bfloat16 or int8 matching q's heads and head_dim,
+    an int8 pool's scales not float32 [pool pages, H], head_dim past
+    MAX_HEAD_DIM or page_size past MAX_PAGE_SIZE, or index tensors
     (`int_args`) not int32.  Returns the page size."""
     dev = q.device
-    named = {"q": q, "k_pool": k_pool, "v_pool": v_pool, **int_args}
+    scales = {} if k_scale is None else {"k_scale": k_scale,
+                                         "v_scale": v_scale}
+    named = {"q": q, "k_pool": k_pool, "v_pool": v_pool, **scales,
+             **int_args}
     for name, x in named.items():
         if x.device != dev:
             raise ValueError(f"{name} is on {x.device}, q on {dev}: the "
@@ -194,20 +241,24 @@ def _check_kernel_args(q, k_pool, v_pool, layout, **int_args):
     if q.dtype != torch.float32 or q.dim() != 3:
         raise ValueError(f"q must be float32 [rows, H, D], got {q.dtype} "
                          f"{tuple(q.shape)}")
-    if k_pool.dtype not in (torch.float32, torch.bfloat16) \
-            or v_pool.dtype != k_pool.dtype:
-        raise ValueError(f"pools must both be float32 or both bfloat16, "
+    if k_pool.dtype not in _KV_DTYPE_CODES or v_pool.dtype != k_pool.dtype:
+        raise ValueError(f"pools must both be float32, bfloat16 or int8, "
                          f"got {k_pool.dtype} and {v_pool.dtype}")
     if k_pool.dim() != 4 or v_pool.shape != k_pool.shape:
         raise ValueError(f"pools must share one 4-D shape, got "
                          f"{tuple(k_pool.shape)} and {tuple(v_pool.shape)}")
     _, h, d = q.shape
     if layout == "kernel":
-        ph, _, page_size, pd = k_pool.shape
+        ph, n_pages, page_size, pd = k_pool.shape
     else:
-        _, page_size, ph, pd = k_pool.shape
+        n_pages, page_size, ph, pd = k_pool.shape
     if (ph, pd) != (h, d):
         raise ValueError(f"pool heads/head_dim {(ph, pd)} != q's {(h, d)}")
+    for name, x in scales.items():
+        if x.dtype != torch.float32 or x.shape != (n_pages, h):
+            raise ValueError(f"{name} must be float32 [{n_pages}, {h}] (one "
+                             f"scale per pool page and head), got "
+                             f"{x.dtype} {tuple(x.shape)}")
     if d > MAX_HEAD_DIM or page_size > MAX_PAGE_SIZE:
         raise ValueError(f"the kernel takes head_dim <= {MAX_HEAD_DIM} and "
                          f"page_size <= {MAX_PAGE_SIZE}, got {d} and "
@@ -229,26 +280,43 @@ def _check_descriptors(page_tables, starts, lens, kv_lens):
             f"{tuple(kv_lens.shape)}")
 
 
-def _launch(lib_name, entry, q, k_pool, v_pool, layout, page_size,
-            *mid, scale):
+def _launch(wrapper, lib_name, entry, q, k_pool, v_pool, layout, page_size,
+            *mid, scale, k_scale, v_scale):
     """Launch one kernel on the current stream: ``entry(q, k_pool,
-    v_pool, kv_bf16, s_page, s_row, s_head, *mid, page_size, scale,
-    stream)``, raising on a refused launch."""
+    v_pool, kv_dtype, k_scale, v_scale, s_page, s_row, s_head, *mid,
+    page_size, scale, stream)`` (the scale pointers NULL unless int8),
+    raising on a refused launch; then count it on `wrapper`."""
     lib = _load(lib_name)
     s_page, s_row, s_head = _pool_strides(k_pool, layout)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = getattr(lib, entry)(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-        int(k_pool.dtype == torch.bfloat16), s_page, s_row, s_head, *mid,
-        page_size, float(scale), stream)
+        _KV_DTYPE_CODES[k_pool.dtype],
+        None if k_scale is None else k_scale.data_ptr(),
+        None if v_scale is None else v_scale.data_ptr(),
+        s_page, s_row, s_head, *mid, page_size, float(scale), stream)
     if rc != 0:
         raise RuntimeError(f"{lib_name} launch failed: CUDA error {rc} "
                            f"({lib.pa_error_string(rc).decode()})")
+    wrapper.launches += 1
+    wrapper.launches_by_dtype[str(k_pool.dtype).replace("torch.", "")] += 1
 
 
+def _counted(wrapper):
+    """Give `wrapper` its launch counts: ``launches`` in all and
+    ``launches_by_dtype`` per pool dtype, so an f32 launch cannot stand in
+    for an int8 one."""
+    wrapper.launches = 0
+    wrapper.launches_by_dtype = {
+        str(t).replace("torch.", ""): 0 for t in _KV_DTYPE_CODES}
+    return wrapper
+
+
+@_counted
 def ragged_paged_attention_kernel(q, k_pool, v_pool, page_tables, starts,
                                   lens, kv_lens, scale=None,
-                                  layout="token"):
+                                  layout="token", k_scale=None,
+                                  v_scale=None):
     """The ragged kernel's wrapper: same contract as the plain version.
 
     CUDA tensors launch the CUDA kernel (building it on first use) on the
@@ -256,34 +324,34 @@ def ragged_paged_attention_kernel(q, k_pool, v_pool, page_tables, starts,
     descriptor owns stay exactly 0; a refused launch raises.  CPU tensors
     run the plain version.  Anything else raises."""
     _check_descriptors(page_tables, starts, lens, kv_lens)
-    _refuse_int8(k_pool)
+    _require_scales(k_pool, k_scale, v_scale)
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     if q.device.type == "cpu":
         return ragged_paged_attention_torch(
             q, k_pool, v_pool, page_tables, starts, lens, kv_lens,
-            scale=scale, layout=layout)
+            scale=scale, layout=layout, k_scale=k_scale, v_scale=v_scale)
     if q.device.type != "cuda":
         raise ValueError(f"no kernel for device {q.device}")
-    page_size = _check_kernel_args(q, k_pool, v_pool, layout,
-                                   page_tables=page_tables, starts=starts,
-                                   lens=lens, kv_lens=kv_lens)
+    page_size = _check_kernel_args(q, k_pool, v_pool, layout, k_scale,
+                                   v_scale, page_tables=page_tables,
+                                   starts=starts, lens=lens,
+                                   kv_lens=kv_lens)
     t, h, d = q.shape
     s_n, max_pages = page_tables.shape
     out = torch.zeros_like(q)
-    _launch(_RAGGED_LIB, "rpa_ragged_paged_attention", q, k_pool, v_pool,
-            layout, page_size, page_tables.data_ptr(), max_pages,
-            starts.data_ptr(), lens.data_ptr(), kv_lens.data_ptr(),
-            out.data_ptr(), t, s_n, h, d, scale=scale)
-    ragged_paged_attention_kernel.launches += 1
+    _launch(ragged_paged_attention_kernel, _RAGGED_LIB,
+            "rpa_ragged_paged_attention", q, k_pool, v_pool, layout,
+            page_size, page_tables.data_ptr(), max_pages, starts.data_ptr(),
+            lens.data_ptr(), kv_lens.data_ptr(), out.data_ptr(), t, s_n, h,
+            d, scale=scale, k_scale=k_scale, v_scale=v_scale)
     return out
 
 
-ragged_paged_attention_kernel.launches = 0
-
-
+@_counted
 def paged_decode_attention_kernel(q, k_pool, v_pool, page_tables, seq_lens,
-                                  scale=None, layout="token"):
+                                  scale=None, layout="token", k_scale=None,
+                                  v_scale=None):
     """The paged decode kernel's wrapper: same contract as
     `paged_decode_attention_torch`.  CUDA tensors launch the CUDA kernel
     (built on first use) on the current stream; every output row is
@@ -295,34 +363,34 @@ def paged_decode_attention_kernel(q, k_pool, v_pool, page_tables, seq_lens,
             f"paged decode takes q [B, H, D], page_tables [B, MP] and "
             f"seq_lens [B]: got {tuple(q.shape)}, "
             f"{tuple(page_tables.shape)}, {tuple(seq_lens.shape)}")
-    _refuse_int8(k_pool)
+    _require_scales(k_pool, k_scale, v_scale)
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     if q.device.type == "cpu":
-        return paged_decode_attention_torch(q, k_pool, v_pool, page_tables,
-                                            seq_lens, scale=scale,
-                                            layout=layout)
+        return paged_decode_attention_torch(
+            q, k_pool, v_pool, page_tables, seq_lens, scale=scale,
+            layout=layout, k_scale=k_scale, v_scale=v_scale)
     if q.device.type != "cuda":
         raise ValueError(f"no kernel for device {q.device}")
-    page_size = _check_kernel_args(q, k_pool, v_pool, layout,
-                                   page_tables=page_tables,
+    page_size = _check_kernel_args(q, k_pool, v_pool, layout, k_scale,
+                                   v_scale, page_tables=page_tables,
                                    seq_lens=seq_lens)
     b, h, d = q.shape
     out = torch.empty_like(q)
     if b == 0:
         return out
-    _launch(_DECODE_LIB, "pda_paged_decode_attention", q, k_pool, v_pool,
-            layout, page_size, page_tables.data_ptr(), page_tables.shape[1],
-            seq_lens.data_ptr(), out.data_ptr(), b, h, d, scale=scale)
-    paged_decode_attention_kernel.launches += 1
+    _launch(paged_decode_attention_kernel, _DECODE_LIB,
+            "pda_paged_decode_attention", q, k_pool, v_pool, layout,
+            page_size, page_tables.data_ptr(), page_tables.shape[1],
+            seq_lens.data_ptr(), out.data_ptr(), b, h, d, scale=scale,
+            k_scale=k_scale, v_scale=v_scale)
     return out
 
 
-paged_decode_attention_kernel.launches = 0
-
-
+@_counted
 def chunk_prefill_attention_kernel(q, k_pool, v_pool, page_table, start,
-                                   scale=None, layout="token"):
+                                   scale=None, layout="token", k_scale=None,
+                                   v_scale=None):
     """The chunk-prefill kernel's wrapper: same contract as
     `chunk_prefill_attention_torch`; `start` is a host int, passed to the
     kernel by value.  CUDA tensors launch the CUDA kernel (built on first
@@ -333,33 +401,32 @@ def chunk_prefill_attention_kernel(q, k_pool, v_pool, page_table, start,
         raise ValueError(
             f"chunk prefill takes a [max_pages >= 1] page table and a "
             f"start >= 0: got {tuple(page_table.shape)} and {start}")
-    _refuse_int8(k_pool)
+    _require_scales(k_pool, k_scale, v_scale)
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     if q.device.type == "cpu":
-        return chunk_prefill_attention_torch(q, k_pool, v_pool, page_table,
-                                             start, scale=scale,
-                                             layout=layout)
+        return chunk_prefill_attention_torch(
+            q, k_pool, v_pool, page_table, start, scale=scale,
+            layout=layout, k_scale=k_scale, v_scale=v_scale)
     if q.device.type != "cuda":
         raise ValueError(f"no kernel for device {q.device}")
-    page_size = _check_kernel_args(q, k_pool, v_pool, layout,
-                                   page_table=page_table)
+    page_size = _check_kernel_args(q, k_pool, v_pool, layout, k_scale,
+                                   v_scale, page_table=page_table)
     n, h, d = q.shape
     out = torch.empty_like(q)
     if n == 0:
         return out
-    _launch(_CHUNK_LIB, "cpa_chunk_prefill_attention", q, k_pool, v_pool,
-            layout, page_size, page_table.data_ptr(), page_table.shape[0],
-            start, out.data_ptr(), n, h, d, scale=scale)
-    chunk_prefill_attention_kernel.launches += 1
+    _launch(chunk_prefill_attention_kernel, _CHUNK_LIB,
+            "cpa_chunk_prefill_attention", q, k_pool, v_pool, layout,
+            page_size, page_table.data_ptr(), page_table.shape[0], start,
+            out.data_ptr(), n, h, d, scale=scale, k_scale=k_scale,
+            v_scale=v_scale)
     return out
 
 
-chunk_prefill_attention_kernel.launches = 0
-
 # each library's entry point: its ctypes argument types after the common
-# (q, k_pool, v_pool, kv_bf16, s_page, s_row, s_head) head, before the
-# common (page_size, scale, stream) tail
+# (q, k_pool, v_pool, kv_dtype, k_scale, v_scale, s_page, s_row, s_head)
+# head, before the common (page_size, scale, stream) tail
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ENTRIES = {
     _RAGGED_LIB: ("rpa_ragged_paged_attention",
@@ -376,7 +443,7 @@ def _load(name):
         entry, mid = _ENTRIES[name]
         ll = ctypes.c_longlong
         fn = getattr(lib, entry)
-        fn.argtypes = [_P, _P, _P, _I, ll, ll, ll, *mid, _I,
+        fn.argtypes = [_P, _P, _P, _I, _P, _P, ll, ll, ll, *mid, _I,
                        ctypes.c_float, _P]
         fn.restype = _I
         lib.pa_error_string.argtypes = [_I]

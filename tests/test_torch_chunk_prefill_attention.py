@@ -99,6 +99,36 @@ def test_bf16_pool_matches_jax(layout):
     np.testing.assert_allclose(ours, pallas, atol=1e-2, rtol=1e-2)
 
 
+@pytest.mark.parametrize("layout", ["token", "kernel"])
+@pytest.mark.parametrize("start,n,length", CASES)
+def test_int8_pool_matches_pallas_interpret_and_reference(
+        start, n, length, layout):
+    """int8 pools with [P, H] scales (every third page's 0: a fresh page)
+    dequantize with the Pallas body's expression: the fp32 tolerance
+    holds against the JAX reference and the Pallas kernel."""
+    rng = np.random.default_rng(31 + start)
+    fx = _fixture(rng, start, n, length, layout)
+    n_pages = fx["k_pool"].shape[1 if layout == "kernel" else 0]
+    for key in ("k_pool", "v_pool"):
+        fx[key] = rng.integers(-127, 128, fx[key].shape).astype(np.int8)
+    scales = {}
+    for key in ("k_scale", "v_scale"):
+        sc = rng.uniform(0.5, 4.0, (n_pages, 2))
+        sc[::3] = 0.0
+        scales[key] = sc.astype(np.float32)
+    ours = chunk_prefill_attention(
+        *[torch.from_numpy(np.asarray(a)) for a in _args(fx)], start,
+        layout=layout,
+        **{k: torch.from_numpy(v) for k, v in scales.items()}).numpy()
+    pallas = np.asarray(jax_chunk(*_args(fx), start, use_kernel=True,
+                                  interpret=True, layout=layout, **scales))
+    ref = np.asarray(jax_chunk(*_args(fx), start, use_kernel=False,
+                               layout=layout, **scales))
+    np.testing.assert_allclose(ours[:length], pallas[:length], **TOL)
+    np.testing.assert_allclose(ours[:length], ref[:length], **TOL)
+    assert np.isfinite(ours).all()
+
+
 def test_dense_reference_matches_jax():
     """The exported dense core (keys already in position order, K past
     start + n) against the JAX reference of the same signature."""
@@ -139,9 +169,15 @@ def test_table_start_and_int8_checked_before_the_device_is_chosen():
         pa.chunk_prefill_attention_kernel(q, pool, pool, pt[:0], 0)
     with pytest.raises(ValueError, match="start"):
         pa.chunk_prefill_attention_kernel(q, pool, pool, pt, -1)
-    with pytest.raises(NotImplementedError, match="int8"):
-        pa.chunk_prefill_attention_kernel(q, pool.to(torch.int8),
-                                          pool.to(torch.int8), pt, 0)
+    qpool, sc = pool.to(torch.int8), torch.ones(5, 2)
+    with pytest.raises(ValueError, match="int8 KV pool"):
+        pa.chunk_prefill_attention_kernel(q, qpool, qpool, pt, 0)
+    with pytest.raises(ValueError, match="int8 pools only"):
+        pa.chunk_prefill_attention_kernel(q, pool, pool, pt, 0,
+                                          k_scale=sc, v_scale=sc)
+    with pytest.raises(ValueError, match="together"):
+        pa.chunk_prefill_attention_kernel(q, qpool, qpool, pt, 0,
+                                          v_scale=sc)
 
 
 @pytest.mark.parametrize("bad", ["head_dim", "page_size", "contiguous",

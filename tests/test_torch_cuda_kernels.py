@@ -222,6 +222,158 @@ def test_engine_on_card_matches_cpu_engine_tokens(settings):
     assert outs[0] == outs[1]
 
 
+# --------------------------- int8 pools ---------------------------------
+
+SHAPES = [(2, 8, 4), (12, 64, 16), (2, 128, 64), (2, 6, 4), (3, 30, 16),
+          (2, 100, 5)]
+
+
+def _int8(args, rng, layout, h):
+    """Replace args[1], args[2] (the pools) with random int8 codes and
+    return their [pool pages, H] scales (every third page's 0: a fresh
+    page, which decodes to exact zeros)."""
+    n_pages = args[1].shape[1 if layout == "kernel" else 0]
+    for i in (1, 2):
+        args[i] = torch.as_tensor(
+            rng.integers(-127, 128, tuple(args[i].shape)), dtype=torch.int8,
+            device="cuda")
+    scales = {}
+    for key in ("k_scale", "v_scale"):
+        sc = rng.uniform(0.5, 4.0, (n_pages, h))
+        sc[::3] = 0.0
+        scales[key] = torch.as_tensor(sc, dtype=torch.float32, device="cuda")
+    return scales
+
+
+@pytest.mark.parametrize("layout", ["token", "kernel"])
+@pytest.mark.parametrize("h,d,ps", SHAPES)
+def test_ragged_kernel_int8_matches_plain_version(layout, h, d, ps):
+    _need_card()
+    rng = np.random.default_rng(12)
+    args = _case(rng, h, d, ps, layout, torch.float32,
+                 [(1, 13), (1, 60), (17, 40), (0, 9)])
+    sc = _int8(args, rng, layout, h)
+    before = dict(pa.ragged_paged_attention_kernel.launches_by_dtype)
+    ker = pa.ragged_paged_attention_kernel(*args, layout=layout, **sc)
+    plain = pa.ragged_paged_attention_torch(*args, layout=layout, **sc)
+    torch.cuda.synchronize()
+    after = pa.ragged_paged_attention_kernel.launches_by_dtype
+    assert after["int8"] == before["int8"] + 1
+    assert after["float32"] == before["float32"]
+    torch.testing.assert_close(ker, plain, atol=TOL, rtol=TOL)
+    assert bool((ker[0] == 0).all()) and bool((ker[-1] == 0).all())
+
+
+@pytest.mark.parametrize("layout", ["token", "kernel"])
+@pytest.mark.parametrize("h,d,ps", SHAPES)
+def test_decode_kernel_int8_matches_plain_version(layout, h, d, ps):
+    _need_card()
+    rng = np.random.default_rng(13)
+    args = _decode_case(rng, h, d, ps, layout, torch.float32,
+                        [0, ps, 3 * ps + 1, 1, 40 * ps - 3])
+    sc = _int8(args, rng, layout, h)
+    before = pa.paged_decode_attention_kernel.launches_by_dtype["int8"]
+    ker = pa.paged_decode_attention_kernel(*args, layout=layout, **sc)
+    plain = pa.paged_decode_attention_torch(*args, layout=layout, **sc)
+    torch.cuda.synchronize()
+    assert pa.paged_decode_attention_kernel.launches_by_dtype["int8"] == \
+        before + 1
+    torch.testing.assert_close(ker, plain, atol=TOL, rtol=TOL)
+    assert bool((ker[0] == 0).all())
+
+
+@pytest.mark.parametrize("layout", ["token", "kernel"])
+@pytest.mark.parametrize("h,d,ps", SHAPES)
+@pytest.mark.parametrize("n,start", [(8, 0), (13, 21), (64, 536)])
+def test_chunk_kernel_int8_matches_plain_version(layout, h, d, ps, n,
+                                                 start):
+    _need_card()
+    rng = np.random.default_rng(14)
+    args = _chunk_case(rng, h, d, ps, layout, torch.float32, n, start)
+    sc = _int8(args, rng, layout, h)
+    before = pa.chunk_prefill_attention_kernel.launches_by_dtype["int8"]
+    ker = pa.chunk_prefill_attention_kernel(*args, start, layout=layout,
+                                            **sc)
+    plain = pa.chunk_prefill_attention_torch(*args, start, layout=layout,
+                                             **sc)
+    torch.cuda.synchronize()
+    assert pa.chunk_prefill_attention_kernel.launches_by_dtype["int8"] == \
+        before + 1
+    torch.testing.assert_close(ker, plain, atol=TOL, rtol=TOL)
+
+
+@pytest.mark.parametrize("layout", ["token", "kernel"])
+def test_int8_kernels_on_misaligned_pools(layout):
+    """int8 pools one byte off a 4-byte boundary take the scalar byte
+    loads in all three kernels."""
+    _need_card()
+    rng = np.random.default_rng(15)
+    rag = _case(rng, 2, 64, 16, layout, torch.float32,
+                [(1, 50), (12, 33), (0, 9)])
+    dec = _decode_case(rng, 2, 64, 16, layout, torch.float32,
+                       [0, 50, 16, 33])
+    chunk = _chunk_case(rng, 2, 64, 16, layout, torch.float32, 12, 21)
+    scs = [_int8(args, rng, layout, 2) for args in (rag, dec, chunk)]
+    for args in (rag, dec, chunk):
+        args[1], args[2] = _misalign(args[1]), _misalign(args[2])
+        assert args[1].data_ptr() % 4 == 1
+    for kernel, plain, args, sc, extra in (
+            (pa.ragged_paged_attention_kernel,
+             pa.ragged_paged_attention_torch, rag, scs[0], ()),
+            (pa.paged_decode_attention_kernel,
+             pa.paged_decode_attention_torch, dec, scs[1], ()),
+            (pa.chunk_prefill_attention_kernel,
+             pa.chunk_prefill_attention_torch, chunk, scs[2], (21,))):
+        torch.testing.assert_close(
+            kernel(*args, *extra, layout=layout, **sc),
+            plain(*args, *extra, layout=layout, **sc), atol=TOL, rtol=TOL)
+
+
+def test_int8_kernels_refuse_missing_or_misshapen_scales():
+    _need_card()
+    rng = np.random.default_rng(16)
+    dec = _decode_case(rng, 2, 8, 4, "token", torch.float32, [5, 3])
+    sc = _int8(dec, rng, "token", 2)
+    with pytest.raises(ValueError, match="without k_scale"):
+        pa.paged_decode_attention_kernel(*dec)
+    with pytest.raises(ValueError, match="float32"):
+        pa.paged_decode_attention_kernel(
+            *dec, k_scale=sc["k_scale"][:-1].contiguous(),
+            v_scale=sc["v_scale"][:-1].contiguous())
+
+
+@pytest.mark.parametrize("settings", [
+    dict(), dict(step_mode="legacy"), dict(step_mode="legacy", decode="eager"),
+    dict(step_mode="legacy", prefill_chunk_tokens=0, pool_layout="kernel")],
+    ids=["ragged", "legacy_fused", "legacy_eager", "legacy_one_shot"])
+def test_int8_engine_on_card_matches_cpu_engine_tokens(settings):
+    """int8 engines card vs CPU: the same tokens, and the card run
+    launched only the int8 branches of the paged kernels."""
+    _need_card()
+    outs = []
+    wrappers = (pa.ragged_paged_attention_kernel,
+                pa.paged_decode_attention_kernel,
+                pa.chunk_prefill_attention_kernel)
+    before = [dict(w.launches_by_dtype) for w in wrappers]
+    for device in ("cuda", "cpu"):
+        model = pgen.TinyCausalLM(vocab_size=48, num_layers=2, num_heads=2,
+                                  head_dim=8, seed=3, device=device)
+        eng = pgen.GenerationEngine(model, pgen.GenerationConfig(
+            **{"max_decode_slots": 4, "num_pages": 64, "page_size": 4,
+               "prefill_chunk_tokens": 3, "device": device,
+               "kv_dtype": "int8", **settings}), start=False)
+        hs = [eng.submit(p, max_new_tokens=10)
+              for p in ([1, 2, 3], [7, 5], [9, 9, 9, 4, 2], [11])]
+        eng.run_until_idle()
+        outs.append([h.result(timeout=30).token_ids for h in hs])
+        eng.shutdown()
+    assert outs[0] == outs[1]
+    moved = [{k: w.launches_by_dtype[k] - b[k] for k in b}
+             for w, b in zip(wrappers, before)]
+    assert sum(m["int8"] for m in moved) > 0
+    assert all(m["float32"] == m["bfloat16"] == 0 for m in moved)
+
+
 # ------------------------- flash attention ------------------------------
 
 FLASH_TOL = dict(atol=2e-5, rtol=2e-5)    # out, lse: fp32, other sum order

@@ -112,7 +112,7 @@ def test_training_entry_points_default_to_the_card(build):
 
 @pytest.mark.parametrize("setting", [
     dict(spec_mode="ngram"), dict(loop_steps=4), dict(prefix_cache=True),
-    dict(kv_dtype="int8"), dict(mesh=object())])
+    dict(mesh=object())])
 def test_unported_settings_raise_at_build(setting):
     cfg = pgen.GenerationConfig(device="cpu", **setting)
     with pytest.raises(NotImplementedError, match="not supported"):
@@ -132,6 +132,25 @@ def test_legacy_settings_build_on_cpu(setting):
     eng.run_until_idle()
     assert h.result(timeout=5).token_ids == model.greedy_reference(
         [1, 2, 3, 4, 5], 4)
+    eng.shutdown()
+
+
+@pytest.mark.parametrize("setting", [
+    dict(), dict(step_mode="legacy"),
+    dict(step_mode="legacy", decode="eager", prefill_chunk_tokens=0,
+         pool_layout="kernel")], ids=["ragged", "legacy_fused",
+                                      "legacy_eager_one_shot"])
+def test_int8_engine_builds_on_cpu(setting):
+    """int8 pools are ported: an int8 engine builds on the CPU, holds
+    int8 pools with float32 scales, and serves a request."""
+    model = pgen.TinyCausalLM(device="cpu")
+    eng = pgen.GenerationEngine(model, pgen.GenerationConfig(
+        device="cpu", num_pages=32, page_size=4, kv_dtype="int8",
+        **setting), start=False)
+    assert eng.kv_quant and eng.cache.n_state_groups == 4
+    h = eng.submit([1, 2, 3, 4, 5], max_new_tokens=4)
+    eng.run_until_idle()
+    assert len(h.result(timeout=5).token_ids) == 4
     eng.shutdown()
 
 

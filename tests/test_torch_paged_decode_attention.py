@@ -98,6 +98,41 @@ def test_bf16_pool_matches_jax(layout):
     assert np.all(ours[1] == 0.0)
 
 
+def _int8_pools(fx, rng, layout):
+    """Random int8 codes in place of the pools, with [P, H] scales; every
+    third page's scales are 0 (a fresh page: exact zeros)."""
+    n_pages = fx["k_pool"].shape[1 if layout == "kernel" else 0]
+    for key in ("k_pool", "v_pool"):
+        fx[key] = rng.integers(-127, 128, fx[key].shape).astype(np.int8)
+    scales = {}
+    for key in ("k_scale", "v_scale"):
+        sc = rng.uniform(0.5, 4.0, (n_pages, fx["q"].shape[1]))
+        sc[::3] = 0.0
+        scales[key] = sc.astype(np.float32)
+    return scales
+
+
+@pytest.mark.parametrize("layout", ["token", "kernel"])
+def test_int8_pool_matches_pallas_interpret_and_reference(layout):
+    """int8 pools dequantize with the Pallas body's expression, so the
+    operands entering the products are bitwise equal and the fp32
+    tolerance holds against the JAX reference and the Pallas kernel."""
+    rng = np.random.default_rng(14)
+    fx = _fixture(rng, layout)
+    scales = _int8_pools(fx, rng, layout)
+    ours = paged_decode_attention(
+        *[torch.from_numpy(np.asarray(a)) for a in _args(fx)],
+        layout=layout,
+        **{k: torch.from_numpy(v) for k, v in scales.items()}).numpy()
+    pallas = np.asarray(jax_decode(*_args(fx), use_kernel=True,
+                                   interpret=True, layout=layout, **scales))
+    ref = np.asarray(jax_decode_reference(*_args(fx), layout=layout,
+                                          **scales))
+    np.testing.assert_allclose(ours, pallas, **TOL)
+    np.testing.assert_allclose(ours, ref, **TOL)
+    assert np.all(ours[1] == 0.0)          # seq_len 0: exact zeros
+
+
 def test_cpu_call_never_builds_or_loads_the_cuda_library(monkeypatch):
     def refuse(name):
         raise AssertionError(f"tried to build/load {name} for CPU tensors")
@@ -115,8 +150,9 @@ def test_cpu_call_never_builds_or_loads_the_cuda_library(monkeypatch):
 
 
 def test_shapes_and_int8_checked_before_the_device_is_chosen():
-    """The wrapper refuses mismatched shapes and int8 pools for CPU
-    tensors too, before it picks the plain version or the kernel."""
+    """The wrapper refuses mismatched shapes, an int8 pool without its
+    scales, scales with a float pool and one scale alone (ValueError) for
+    CPU tensors too, before it picks the plain version or the kernel."""
     q = torch.zeros(3, 2, 8)
     pool = torch.zeros(5, 4, 2, 8)
     pt = torch.zeros(3, 2, dtype=torch.int32)
@@ -127,9 +163,15 @@ def test_shapes_and_int8_checked_before_the_device_is_chosen():
         pa.paged_decode_attention_kernel(q[:2], pool, pool, pt, lens)
     with pytest.raises(ValueError, match="paged decode"):
         pa.paged_decode_attention_kernel(q, pool, pool, pt[0], lens)
-    with pytest.raises(NotImplementedError, match="int8"):
-        pa.paged_decode_attention_kernel(q, pool.to(torch.int8),
-                                         pool.to(torch.int8), pt, lens)
+    qpool, sc = pool.to(torch.int8), torch.ones(5, 2)
+    with pytest.raises(ValueError, match="int8 KV pool"):
+        pa.paged_decode_attention_kernel(q, qpool, qpool, pt, lens)
+    with pytest.raises(ValueError, match="int8 pools only"):
+        pa.paged_decode_attention_kernel(q, pool, pool, pt, lens,
+                                         k_scale=sc, v_scale=sc)
+    with pytest.raises(ValueError, match="together"):
+        pa.paged_decode_attention_kernel(q, qpool, qpool, pt, lens,
+                                         k_scale=sc)
 
 
 @pytest.mark.parametrize("bad", ["head_dim", "page_size", "contiguous",

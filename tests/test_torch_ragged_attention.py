@@ -129,6 +129,44 @@ def test_bf16_pool_matches_jax():
     assert np.all(ours[_unowned_rows(fx)] == 0.0)
 
 
+def _int8_pools(fx, rng, layout):
+    """Replace the pools with random int8 codes and give them [P, H]
+    scales; every third page's scales are 0 (a freshly allocated page,
+    which decodes to exact zeros)."""
+    n_pages = fx["k_pool"].shape[1 if layout == "kernel" else 0]
+    for key in ("k_pool", "v_pool"):
+        fx[key] = rng.integers(-127, 128, fx[key].shape).astype(np.int8)
+    for key in ("k_scale", "v_scale"):
+        sc = rng.uniform(0.5, 4.0, (n_pages, fx["q"].shape[1]))
+        sc[::3] = 0.0
+        fx[key] = sc.astype(np.float32)
+    return fx
+
+
+@pytest.mark.parametrize("layout", ["token", "kernel"])
+@pytest.mark.parametrize("name", ["mixed", "chunk_only",
+                                  "padding_descriptors"])
+def test_int8_pool_matches_pallas_interpret_and_reference(name, layout):
+    """int8 pools dequantize on the gathered view with the Pallas body's
+    expression, so the operands entering the products are bitwise equal
+    to the JAX reference's and the kernel's: the fp32 tolerance holds
+    against both (the softmax weights stay f32 in the int8 branch)."""
+    rng = np.random.default_rng(17)
+    fx = _int8_pools(_layout(_case(name, rng), layout), rng, layout)
+    args = [fx[k] for k in ("q", "k_pool", "v_pool", "page_tables",
+                            "starts", "lens", "kv_lens")]
+    scales = dict(k_scale=fx["k_scale"], v_scale=fx["v_scale"])
+    ours = ragged_paged_attention(
+        *[torch.from_numpy(a) for a in args], layout=layout,
+        **{k: torch.from_numpy(v) for k, v in scales.items()}).numpy()
+    pallas = np.asarray(jax_ragged(*args, use_kernel=True, interpret=True,
+                                   layout=layout, **scales))
+    ref = np.asarray(jax_ragged_reference(*args, layout=layout, **scales))
+    np.testing.assert_allclose(ours, pallas, **TOL)
+    np.testing.assert_allclose(ours, ref, **TOL)
+    assert np.all(ours[_unowned_rows(fx)] == 0.0)
+
+
 def test_ragged_score_blocks_hand_computed():
     """Tiles are counted from each descriptor's first row.  page_size 4,
     q_block 2, descriptors (len, kv_len) = (1, 13), (1, 6), (5, 12):
@@ -178,8 +216,30 @@ def test_descriptor_shapes_checked_before_the_device_is_chosen():
                                          three)
 
 
+def test_scales_checked_before_the_device_is_chosen():
+    """An int8 pool without its scales, scales with a float pool and one
+    scale alone raise ValueError from the wrapper and the plain version,
+    for CPU tensors too."""
+    q = torch.zeros(8, 2, 16)
+    pool = torch.zeros(5, 4, 2, 16)
+    pt = torch.zeros(3, 2, dtype=torch.int32)
+    three = torch.zeros(3, dtype=torch.int32)
+    qpool, sc = pool.to(torch.int8), torch.ones(5, 2)
+    for pools, kw, match in (
+            ((qpool, qpool), {}, "without k_scale"),
+            ((pool, pool), dict(k_scale=sc, v_scale=sc), "int8 pools only"),
+            ((qpool, qpool), dict(k_scale=sc), "together")):
+        with pytest.raises(ValueError, match=match):
+            pa.ragged_paged_attention_kernel(q, *pools, pt, three, three,
+                                             three, **kw)
+        with pytest.raises(ValueError, match=match):
+            pa.ragged_paged_attention_torch(q, *pools, pt, three, three,
+                                            three, **kw)
+
+
 @pytest.mark.parametrize("bad", ["head_dim", "page_size", "contiguous",
-                                 "dtype", "int32"])
+                                 "dtype", "int32", "scale_dtype",
+                                 "scale_shape"])
 def test_kernel_argument_checks_raise(bad):
     """What the CUDA kernel does not take is refused before launch (the
     checks themselves need no card)."""
@@ -195,8 +255,15 @@ def test_kernel_argument_checks_raise(bad):
         q = torch.zeros(2, 8, 16).transpose(0, 1)
     elif bad == "dtype":
         pool = pool.to(torch.float16)
-    else:
+    elif bad == "int32":
         desc = desc.long()
+    scales = {}
+    if bad.startswith("scale"):
+        pool = pool.to(torch.int8)
+        sc = (torch.ones(5, 2, dtype=torch.float64) if bad == "scale_dtype"
+              else torch.ones(4, 2))       # one row per pool page: 5
+        scales = dict(k_scale=sc, v_scale=sc)
     with pytest.raises(ValueError):
-        pa._check_kernel_args(q, pool, pool, "token", page_tables=pt,
-                              starts=desc, lens=desc, kv_lens=desc)
+        pa._check_kernel_args(q, pool, pool, "token", **scales,
+                              page_tables=pt, starts=desc, lens=desc,
+                              kv_lens=desc)
