@@ -7,7 +7,10 @@ carries on:
 
 1. environment: the card's name and power limit; build every CUDA kernel
    of the port from the sources in this checkout, one nvcc (sm_90a) per
-   source, all at once;
+   source, all at once, printing ptxas's registers, shared memory and
+   spills; where the toolkit has cuobjdump, the count of tensor-core
+   instructions (HMMA) in each flash backward kernel's SASS, none
+   failing;
 2. every kernel against its plain PyTorch version, on CUDA tensors, at
    small edge shapes and at the main paths' shapes: the paged kernels
    within max |diff| 2e-5 on float32, bfloat16 and int8 pools (int8:
@@ -49,7 +52,10 @@ carries on:
 8. numbers: each kernel's and its plain version's times at its main
    path's shape beside its bound (the paged kernels on float32 and on
    int8 pools; for the flash kernels, PyTorch's
-   scaled_dot_product_attention forward and backward at that shape), the
+   scaled_dot_product_attention forward and backward at that shape, the
+   fp32 bound at the 3xTF32 rate with the fp32 FMA share beside it, and
+   the whole backward through autograd against sdpa's in turns, with
+   the names of sdpa's backward kernels), the
    int8 write's time per layer, each engine's tokens/s, ms per step and
    time to first token (float32 and int8), and the trainer's tokens/s,
    ms per step, peak memory and device idle share;
@@ -83,7 +89,10 @@ NEAR_TIE = 1e-4         # CPU top-2 logit gap under which greedy may differ
 INT8_LOGIT_TOL = 3e-2
 INT8_NEAR_TIE = 2 * INT8_LOGIT_TOL  # each of the top two may move that far
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM published peaks
-FP32_FLOPS_PER_S = 67e12
+FP32_FLOPS_PER_S = 67e12       # CUDA-core FMAs
+# fp32-accurate products on the tensor cores: 3xTF32 takes three TF32
+# MMAs per product, so a third of the dense TF32 rate
+TF32X3_FLOPS_PER_S = 495e12 / 3
 BF16_FLOPS_PER_S = 989e12      # tensor cores, dense
 FLASH_TOL = 2e-5        # flash out and lse, fp32
 FLASH_GRAD_TOL = 1e-4   # dq, dk, dv, fp32: sums of up to Lq products
@@ -1029,8 +1038,9 @@ def make_flash_case(rng, *, bh, heads, lq, lk, d, causal, mask=False,
 def flash_cases():
     """The CPU tests' edge cases at D 16, 64 and 128 (one tile; ragged
     tiles at L 48, 130, 200; Lq < Lk and Lq > Lk causal; a key mask with
-    fully masked rows; several tiles at L 1024), in fp32 and bf16, and
-    the trainer's case."""
+    fully masked rows; several tiles at L 1024, at D 128 with the mask
+    the backward's largest tiles), in fp32 and bf16, and the trainer's
+    case."""
     shapes = [
         ("d16_l64", dict(bh=4, heads=2, lq=64, lk=64, d=16, causal=False)),
         ("d64_l48_causal", dict(bh=4, heads=2, lq=48, lk=48, d=64,
@@ -1043,6 +1053,8 @@ def flash_cases():
                                       causal=True, mask=True)),
         ("d16_l1024_causal", dict(bh=2, heads=1, lq=1024, lk=1024, d=16,
                                   causal=True)),
+        ("d128_l1024_causal_mask", dict(bh=4, heads=2, lq=1024, lk=1024,
+                                        d=128, causal=True, mask=True)),
     ]
     cases = []
     for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
@@ -1119,10 +1131,13 @@ def phase_flash(fa, rng):
 
 def flash_bound(case, name):
     """Least time for one flash kernel on these inputs: each input read
-    once and each output written once; fp32 FMAs (or bf16 tensor-core
-    operations) of 2*D flops per visible (row, key) pair per product:
-    forward 2 products (q.k, p.v), dK/dV 4 (q.k, dO.v, p.dO, dS.q), dQ 3
-    (q.k, dO.v, dS.k), each pair counted once."""
+    once and each output written once; 2*D flops per visible (row, key)
+    pair per product, forward 2 products (q.k, p.v), dK/dV 4 (q.k, dO.v,
+    p.dO, dS.q), dQ 3 (q.k, dO.v, dS.k), each pair counted once; at the
+    3xTF32 rate for fp32 (the fastest fp32-accurate products the card
+    has), the bf16 tensor-core rate for bf16.  Also returns the time at
+    the fp32 FMA rate (None for bf16), the bound of the first, FMA-only
+    kernels, so their shares stay comparable."""
     bh, lq, d = case["qs"].shape
     lk = case["k"].shape[1]
     item = case["qs"].element_size()
@@ -1139,17 +1154,26 @@ def flash_bound(case, name):
                                        + mat, 3)}
     nbytes, products = work[name]
     flops = 2 * d * pairs * products
-    peak = FP32_FLOPS_PER_S if item == 4 else BF16_FLOPS_PER_S
+    peak = TF32X3_FLOPS_PER_S if item == 4 else BF16_FLOPS_PER_S
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_flops = flops / peak * 1e3
-    return max(t_bytes, t_flops), ("bytes" if t_bytes >= t_flops
-                                   else "operations"), nbytes, flops
+    fma_ms = (max(t_bytes, flops / FP32_FLOPS_PER_S * 1e3) if item == 4
+              else None)
+    return (max(t_bytes, t_flops), ("bytes" if t_bytes >= t_flops
+                                    else "operations"), nbytes, flops,
+            fma_ms)
 
 
 def flash_numbers(fa, card):
     """Each flash kernel, its plain version and PyTorch's sdpa at the
-    trainer's attention shape.  Returns name -> (ms, plain_ms, bound_ms,
-    bound_by, library_ms)."""
+    trainer's attention shape; then the whole backward as the trainer
+    runs it (torch.autograd.grad through FlashAttention: the delta op
+    and both kernels) beside sdpa's backward on the same inputs, in
+    turns (ours, sdpa, sdpa, ours), and the names of the kernels sdpa's
+    backward ran (torch.profiler).  Returns name -> (ms, plain_ms,
+    bound_ms, bound_by, library_ms)."""
+    from torch.profiler import ProfilerActivity, profile
+
     case = make_flash_case(np.random.default_rng(5), **FLASH_MAIN)
     opts = flash_opts(case)
     out, lse = fa.flash_attention_fwd_kernel(*flash_args(case), **opts)
@@ -1165,8 +1189,12 @@ def flash_numbers(fa, card):
     lib_out = sdpa(q4, k4, v4, is_causal=True, scale=1.0)
     lib_fwd = time_ms(lambda: sdpa(q4, k4, v4, is_causal=True, scale=1.0),
                       100)
-    lib_bwd = time_ms(lambda: torch.autograd.grad(
-        lib_out, (q4, k4, v4), do4, retain_graph=True), 100)
+
+    def lib_backward():
+        return torch.autograd.grad(lib_out, (q4, k4, v4), do4,
+                                   retain_graph=True)
+
+    lib_bwd = time_ms(lib_backward, 100)
     runs = {"flash_attention_fwd": (
                 lambda: fa.flash_attention_fwd_kernel(*flash_args(case),
                                                       **opts),
@@ -1185,17 +1213,47 @@ def flash_numbers(fa, card):
         ms = time_ms(kernel, 100)
         paced = time_ms(kernel, 100, queued=False)
         plain_ms = time_ms(plain, 20)
-        bound_ms, bound_by, nbytes, flops = flash_bound(case, name)
+        bound_ms, bound_by, nbytes, flops, fma_ms = flash_bound(case, name)
         numbers[name] = (ms, plain_ms, bound_ms, bound_by, lib_ms)
         log(f"  [{card}] {name} at the trainer's shape (BH=96: B=8 x H=12, "
             f"L=512, D=64, f32, causal): {ms * 1e3:.1f} us (launch-paced "
             f"{paced * 1e3:.1f} us); plain version {plain_ms * 1e3:.1f} us; "
-            f"bound {bound_ms * 1e3:.2f} us by {bound_by} ({nbytes} B, "
-            f"{flops} flop) = {bound_ms / ms:.1%} of bound")
+            f"bound {bound_ms * 1e3:.2f} us by {bound_by} at the 3xTF32 "
+            f"rate ({nbytes} B, {flops} flop) = {bound_ms / ms:.1%} of "
+            f"bound; against the fp32 FMA bound ({fma_ms * 1e3:.2f} us) "
+            f"{fma_ms / ms:.1%}")
     log(f"  [{card}] library call, torch scaled_dot_product_attention at "
         f"that shape (is_causal, f32): forward {lib_fwd * 1e3:.1f} us, "
         f"backward (torch.autograd.grad: dq, dk, dv in one call) "
         f"{lib_bwd * 1e3:.1f} us")
+    qg, kg, vg = (case[n].detach().clone().requires_grad_()
+                  for n in ("qs", "k", "v"))
+    ours_out = fa.FlashAttention.apply(qg, kg, vg, case["km"],
+                                       case["causal"], case["heads"])
+
+    def ours():
+        return torch.autograd.grad(ours_out, (qg, kg, vg), case["do"],
+                                   retain_graph=True)
+
+    turns = [time_ms(fn, 100) for fn in (ours, lib_backward, lib_backward,
+                                         ours)]
+    whole, lib_whole = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+    log(f"  [{card}] whole backward at that shape (torch.autograd.grad "
+        f"through FlashAttention: delta = rowsum(dO*out), dK/dV, dQ) "
+        f"{whole * 1e3:.1f} us against sdpa's backward "
+        f"{lib_whole * 1e3:.1f} us, {whole / lib_whole:.2f}x (in turns: "
+        f"{', '.join(f'{x * 1e3:.1f}' for x in turns)} us)")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            lib_backward()
+        torch.cuda.synchronize()
+    lib_kernels = sorted(device_kernels(prof).items(),
+                         key=lambda kv: -kv[1][0])
+    log(f"  [{card}] sdpa backward's kernels (torch.profiler, 3 calls): "
+        + ("; ".join(f"{key} {us / 3:.1f} us x {count // 3}"
+                     for key, (us, count) in lib_kernels)
+           or "not measured (no device events)"))
     return numbers
 
 
@@ -1412,6 +1470,35 @@ def write_numbers(card):
         f"{paced * 1e3:.1f} us per layer on this host")
 
 
+def check_tensor_cores(build, lib):
+    """Count the tensor-core instructions (HMMA) in the SASS of each
+    instantiation of the flash backward kernels, with cuobjdump from the
+    toolkit that built them; fail if one has none."""
+    from pathlib import Path
+
+    cuobjdump = Path(build.find_nvcc()).with_name("cuobjdump")
+    if not cuobjdump.is_file():
+        log("  HMMA in the backward kernels' SASS: not checked (no "
+            "cuobjdump in the toolkit)")
+        return
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            counts[fn] = 0
+        elif fn is not None and "HMMA" in line:
+            counts[fn] += 1
+    bwd = {fn: n for fn, n in counts.items()
+           if "fa_dkdv_kernel" in fn or "fa_dq_kernel" in fn}
+    log("  HMMA instructions in the backward kernels' SASS (cuobjdump): "
+        + ", ".join(f"{fn} {n}" for fn, n in sorted(bwd.items())))
+    if len(bwd) != 12 or not all(bwd.values()):
+        fail(f"want 12 backward instantiations, each with HMMA: {bwd}")
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this run needs a card")
@@ -1448,6 +1535,7 @@ def main():
             if ("registers" in line or "spill" in line
                     or "Compiling entry" in line):
                 log(f"    ptxas {name}: {line.strip()}")
+    check_tensor_cores(_build, libs[lib_names.index("flash_attention")])
 
     rng = np.random.default_rng(0)
     phase("phase 2: kernels against their plain versions")

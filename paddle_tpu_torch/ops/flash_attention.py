@@ -39,7 +39,8 @@ import torch
 from . import _build
 
 NEG_INF = -1e30
-BLOCK = 64              # FA_BQ = FA_BK in the kernel source
+BLOCK = 64              # FA_B: the forward's q and K tiles
+BWD_OWNED, BWD_WALKED = 64, 32   # FB_M, FB_N: the backward's tiles
 MAX_HEAD_DIM = 128
 SMEM_PER_BLOCK = 232448  # an H100 block's dynamic shared-memory ceiling
 _LIB = "flash_attention"
@@ -50,14 +51,16 @@ _LIB = "flash_attention"
 
 def kernel_smem_bytes(d):
     """The largest dynamic shared memory the three kernels ask for at head
-    dim `d`: tiles of BLOCK rows with rows padded to d + 1 floats, the
-    [BLOCK, BLOCK + 1] weight tiles and the lse/delta rows (dK/dV holds
-    k, v, q, dO, P^T and dS^T)."""
-    ld = d + 1
-    fwd = 3 * BLOCK * ld + BLOCK * (BLOCK + 1)
-    dkdv = 4 * BLOCK * ld + 2 * BLOCK * (BLOCK + 1) + 2 * BLOCK
-    dq = 4 * BLOCK * ld + BLOCK * (BLOCK + 1) + 2 * BLOCK
-    return 4 * max(fwd, dkdv, dq)
+    dim `d` (fa_smem_fwd, fa_smem_bwd in the source).  Forward: q, k, v
+    tiles of BLOCK rows padded to d + 1 floats and a [BLOCK, BLOCK + 1]
+    weight tile.  Backward (fp32, the larger dtype): rows of d rounded up
+    to 32, 64 or 128 floats; two owned tiles of BWD_OWNED rows, two
+    buffers of two walked tiles of BWD_WALKED rows, and two buffers of
+    two f32 rows of BWD_WALKED (lse and delta, or the key mask)."""
+    fwd = 3 * BLOCK * (d + 1) + BLOCK * (BLOCK + 1)
+    width = 32 if d <= 32 else 64 if d <= 64 else 128
+    bwd = width * (2 * BWD_OWNED + 4 * BWD_WALKED) + 4 * BWD_WALKED
+    return 4 * max(fwd, bwd)
 
 
 def shapes_fit_kernels(lq, lk, d):

@@ -463,6 +463,41 @@ def test_flash_kernels_at_the_training_shape():
     _check_flash(*case, True, 12)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernels_at_d128_l1024_causal_with_key_mask(dtype):
+    """The backward's largest shared-memory footprint (D 128) and longest
+    walks (16 owned tiles of 64, 32 walked tiles of 32), causal, with a
+    key mask whose batch row 0 masks every key."""
+    _need_card()
+    case = _flash_case(np.random.default_rng(12), 4, 1024, 1024, 128,
+                       dtype, mask=True)
+    out, lse = _check_flash(*case, True, 2)
+    assert bool((out[:2] == 0).all()) and bool((lse[:2] == -1e30).all())
+
+
+def test_flash_backward_is_deterministic():
+    """The two backward kernels run twice on the same inputs at the
+    training shape give bitwise-equal dq, dk, dv: each output element is
+    summed by one thread in a fixed order, with no atomics."""
+    _need_card()
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    qs, k, v, do, _ = _flash_case(np.random.default_rng(11), 96, 512, 512,
+                                  64, torch.float32)
+    out, lse = fa.flash_attention_fwd_kernel(qs, k, v, None, True, 12)
+    delta = (do.float() * out.float()).sum(-1)
+    runs = []
+    for _ in range(2):
+        dk, dv = fa.flash_attention_bwd_dkdv_kernel(qs, k, v, do, lse, delta,
+                                                    None, True, 12)
+        dq = fa.flash_attention_bwd_dq_kernel(qs, k, v, do, lse, delta,
+                                              None, True, 12)
+        runs.append((dq, dk, dv))
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dq", "dk", "dv"), *runs):
+        assert torch.equal(a, b), name
+
+
 def test_flash_kernels_refuse_what_they_do_not_take():
     _need_card()
     from paddle_tpu_torch.ops import flash_attention as fa
