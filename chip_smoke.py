@@ -9,8 +9,8 @@ carries on:
    of the port from the sources in this checkout, one nvcc (sm_90a) per
    source, all at once, printing ptxas's registers, shared memory and
    spills; where the toolkit has cuobjdump, the count of tensor-core
-   instructions (HMMA) in each flash backward kernel's SASS, none
-   failing;
+   instructions (HMMA) in the SASS of each flash kernel (forward, dK/dV
+   and dQ), none failing;
 2. every kernel against its plain PyTorch version, on CUDA tensors, at
    small edge shapes and at the main paths' shapes: the paged kernels
    within max |diff| 2e-5 on float32, bfloat16 and int8 pools (int8:
@@ -53,9 +53,9 @@ carries on:
    path's shape beside its bound (the paged kernels on float32 and on
    int8 pools; for the flash kernels, PyTorch's
    scaled_dot_product_attention forward and backward at that shape, the
-   fp32 bound at the 3xTF32 rate with the fp32 FMA share beside it, and
-   the whole backward through autograd against sdpa's in turns, with
-   the names of sdpa's backward kernels), the
+   fp32 bound at the 3xTF32 rate with the fp32 FMA share beside it, the
+   forward and the whole backward through autograd against sdpa's in
+   turns, with the names of sdpa's forward and backward kernels), the
    int8 write's time per layer, each engine's tokens/s, ms per step and
    time to first token (float32 and int8), and the trainer's tokens/s,
    ms per step, peak memory and device idle share;
@@ -1164,40 +1164,70 @@ def flash_bound(case, name):
             fma_ms)
 
 
-def flash_numbers(fa, card):
-    """Each flash kernel, its plain version and PyTorch's sdpa at the
-    trainer's attention shape; then the whole backward as the trainer
-    runs it (torch.autograd.grad through FlashAttention: the delta op
-    and both kernels) beside sdpa's backward on the same inputs, in
-    turns (ours, sdpa, sdpa, ours), and the names of the kernels sdpa's
-    backward ran (torch.profiler).  Returns name -> (ms, plain_ms,
-    bound_ms, bound_by, library_ms)."""
+def lib_kernels(fn, card, what):
+    """Log the kernels that `fn` (a PyTorch call) ran in 3 calls under
+    torch.profiler: each one's mean device time per launch and the
+    launches the profiler recorded (it may miss the first call's)."""
     from torch.profiler import ProfilerActivity, profile
 
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+    ran = sorted(device_kernels(prof).items(), key=lambda kv: -kv[1][0])
+    log(f"  [{card}] {what}'s kernels (torch.profiler, 3 calls): "
+        + ("; ".join(f"{key} {us / count:.1f} us per launch, {count} "
+                     f"launches" for key, (us, count) in ran)
+           or "not measured (no device events)"))
+
+
+def in_turns(ours, lib):
+    """Device ms of `ours` and `lib`, timed in turns (ours, lib, lib,
+    ours), each the mean of its two turns; and the four turns."""
+    turns = [time_ms(fn, 100) for fn in (ours, lib, lib, ours)]
+    return (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2, turns
+
+
+def flash_numbers(fa, card):
+    """Each flash kernel, its plain version and PyTorch's sdpa at the
+    trainer's attention shape: the forward kernel against sdpa's forward
+    in turns (ours, sdpa, sdpa, ours); then the whole backward as the
+    trainer runs it (torch.autograd.grad through FlashAttention: the
+    delta op and both kernels) beside sdpa's backward on the same inputs,
+    in turns; and the names of the kernels sdpa's forward and backward
+    ran (torch.profiler).  Returns name -> (ms, plain_ms, bound_ms,
+    bound_by, library_ms)."""
     case = make_flash_case(np.random.default_rng(5), **FLASH_MAIN)
     opts = flash_opts(case)
     out, lse = fa.flash_attention_fwd_kernel(*flash_args(case), **opts)
     delta = (case["do"].float() * out.float()).sum(-1)
     bwd = flash_bwd_args(case, lse, delta)
     # the library call: sdpa on [B, H, L, D] (Lq = Lk, so its top-left
-    # causal alignment is the JAX kernel's bottom-right one)
+    # causal alignment is the JAX kernel's bottom-right one); its inputs
+    # need grads, as in training, so its forward also keeps the row
+    # log-sum-exp, as ours does
     b, h = FLASH_MAIN["bh"] // FLASH_MAIN["heads"], FLASH_MAIN["heads"]
     q4, k4, v4, do4 = (case[n].reshape(b, h, *case[n].shape[1:])
                        .detach().clone().requires_grad_(n != "do")
                        for n in ("qs", "k", "v", "do"))
     sdpa = torch.nn.functional.scaled_dot_product_attention
     lib_out = sdpa(q4, k4, v4, is_causal=True, scale=1.0)
-    lib_fwd = time_ms(lambda: sdpa(q4, k4, v4, is_causal=True, scale=1.0),
-                      100)
+
+    def lib_forward():
+        return sdpa(q4, k4, v4, is_causal=True, scale=1.0)
 
     def lib_backward():
         return torch.autograd.grad(lib_out, (q4, k4, v4), do4,
                                    retain_graph=True)
 
+    def forward():
+        return fa.flash_attention_fwd_kernel(*flash_args(case), **opts)
+
+    fwd_ms, lib_fwd, fwd_turns = in_turns(forward, lib_forward)
     lib_bwd = time_ms(lib_backward, 100)
     runs = {"flash_attention_fwd": (
-                lambda: fa.flash_attention_fwd_kernel(*flash_args(case),
-                                                      **opts),
+                forward,
                 lambda: fa.flash_attention_fwd_torch(*flash_args(case),
                                                      **opts), lib_fwd),
             "flash_attention_bwd_dkdv": (
@@ -1210,7 +1240,7 @@ def flash_numbers(fa, card):
                 lib_bwd)}
     numbers = {}
     for name, (kernel, plain, lib_ms) in runs.items():
-        ms = time_ms(kernel, 100)
+        ms = fwd_ms if kernel is forward else time_ms(kernel, 100)
         paced = time_ms(kernel, 100, queued=False)
         plain_ms = time_ms(plain, 20)
         bound_ms, bound_by, nbytes, flops, fma_ms = flash_bound(case, name)
@@ -1222,10 +1252,14 @@ def flash_numbers(fa, card):
             f"rate ({nbytes} B, {flops} flop) = {bound_ms / ms:.1%} of "
             f"bound; against the fp32 FMA bound ({fma_ms * 1e3:.2f} us) "
             f"{fma_ms / ms:.1%}")
+    log(f"  [{card}] forward at that shape against sdpa's forward "
+        f"(is_causal, f32, inputs that need grads), in turns: "
+        f"{fwd_ms * 1e3:.1f} us against {lib_fwd * 1e3:.1f} us, "
+        f"{fwd_ms / lib_fwd:.2f}x (turns: "
+        f"{', '.join(f'{x * 1e3:.1f}' for x in fwd_turns)} us)")
     log(f"  [{card}] library call, torch scaled_dot_product_attention at "
-        f"that shape (is_causal, f32): forward {lib_fwd * 1e3:.1f} us, "
-        f"backward (torch.autograd.grad: dq, dk, dv in one call) "
-        f"{lib_bwd * 1e3:.1f} us")
+        f"that shape: backward (torch.autograd.grad: dq, dk, dv in one "
+        f"call) {lib_bwd * 1e3:.1f} us")
     qg, kg, vg = (case[n].detach().clone().requires_grad_()
                   for n in ("qs", "k", "v"))
     ours_out = fa.FlashAttention.apply(qg, kg, vg, case["km"],
@@ -1235,25 +1269,14 @@ def flash_numbers(fa, card):
         return torch.autograd.grad(ours_out, (qg, kg, vg), case["do"],
                                    retain_graph=True)
 
-    turns = [time_ms(fn, 100) for fn in (ours, lib_backward, lib_backward,
-                                         ours)]
-    whole, lib_whole = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+    whole, lib_whole, turns = in_turns(ours, lib_backward)
     log(f"  [{card}] whole backward at that shape (torch.autograd.grad "
         f"through FlashAttention: delta = rowsum(dO*out), dK/dV, dQ) "
         f"{whole * 1e3:.1f} us against sdpa's backward "
         f"{lib_whole * 1e3:.1f} us, {whole / lib_whole:.2f}x (in turns: "
         f"{', '.join(f'{x * 1e3:.1f}' for x in turns)} us)")
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(3):
-            lib_backward()
-        torch.cuda.synchronize()
-    lib_kernels = sorted(device_kernels(prof).items(),
-                         key=lambda kv: -kv[1][0])
-    log(f"  [{card}] sdpa backward's kernels (torch.profiler, 3 calls): "
-        + ("; ".join(f"{key} {us / 3:.1f} us x {count // 3}"
-                     for key, (us, count) in lib_kernels)
-           or "not measured (no device events)"))
+    lib_kernels(lib_forward, card, "sdpa forward")
+    lib_kernels(lib_backward, card, "sdpa backward")
     return numbers
 
 
@@ -1472,14 +1495,14 @@ def write_numbers(card):
 
 def check_tensor_cores(build, lib):
     """Count the tensor-core instructions (HMMA) in the SASS of each
-    instantiation of the flash backward kernels, with cuobjdump from the
-    toolkit that built them; fail if one has none."""
+    instantiation of the flash kernels (forward, dK/dV and dQ), with
+    cuobjdump from the toolkit that built them; fail if one has none."""
     from pathlib import Path
 
     cuobjdump = Path(build.find_nvcc()).with_name("cuobjdump")
     if not cuobjdump.is_file():
-        log("  HMMA in the backward kernels' SASS: not checked (no "
-            "cuobjdump in the toolkit)")
+        log("  HMMA in the flash kernels' SASS: not checked (no cuobjdump "
+            "in the toolkit)")
         return
     sass = subprocess.run([str(cuobjdump), "-sass", str(lib)],
                           capture_output=True, text=True, check=True,
@@ -1491,12 +1514,13 @@ def check_tensor_cores(build, lib):
             counts[fn] = 0
         elif fn is not None and "HMMA" in line:
             counts[fn] += 1
-    bwd = {fn: n for fn, n in counts.items()
-           if "fa_dkdv_kernel" in fn or "fa_dq_kernel" in fn}
-    log("  HMMA instructions in the backward kernels' SASS (cuobjdump): "
-        + ", ".join(f"{fn} {n}" for fn, n in sorted(bwd.items())))
-    if len(bwd) != 12 or not all(bwd.values()):
-        fail(f"want 12 backward instantiations, each with HMMA: {bwd}")
+    flash = {fn: n for fn, n in counts.items()
+             if any(k in fn for k in ("fa_fwd_kernel", "fa_dkdv_kernel",
+                                      "fa_dq_kernel"))}
+    log("  HMMA instructions in the flash kernels' SASS (cuobjdump): "
+        + ", ".join(f"{fn} {n}" for fn, n in sorted(flash.items())))
+    if len(flash) != 18 or not all(flash.values()):
+        fail(f"want 18 flash instantiations, each with HMMA: {flash}")
 
 
 def main():

@@ -15,32 +15,44 @@
 // their products (the Pallas bodies' p.astype(v.dtype), ds.astype(q.dtype));
 // outputs are in the input dtype.
 //
-// Forward design.  The TPU grid runs in order and carries the
-// online-softmax state in VMEM scratch across its last grid axis.  Here
-// one block per (64-row q tile, bh) walks the K tiles in a loop, so
-// nothing crosses blocks and no atomics are needed: K and V tiles of 64
-// keys are staged in shared memory, the state (m, l, acc) stays in
-// registers; under causal the K tiles past the tile's last row's limit
-// are never read (_causal_block_runs), the diagonal tile is masked.
-// 256 threads as a 16 x 16 grid: thread (ty, tx) computes a 4 x 4 block
-// of each 64 x 64 score tile (rows ty*4.., columns tx, tx+16, ...) and
-// owns 4 rows x ceil(D/16) columns (tx, tx+16, ...) of each output tile.
-// A row's 16 threads are one half-warp, so row max and sum are four
-// shuffles.  Tiles sit in shared memory with rows padded to D + 1 floats,
-// so column walks are free of bank conflicts.
+// All three kernels run on the tensor cores with mma.sync and share one
+// set of building blocks (the fb_* helpers below); each block owns a
+// 64-row tile and walks the other axis in tiles of 32 rows, so each
+// output element is summed by one thread in a fixed order: no atomics,
+// and two runs give bitwise equal results.
+//
+// Forward design (fa_fwd_kernel).  The TPU grid runs in order and carries
+// the online-softmax state in VMEM scratch across its last grid axis.
+// Here one block of 4 warps owns 64 q rows of one head (16 rows a warp)
+// and walks the K/V tiles of 32 keys in a loop, so nothing crosses
+// blocks; under causal the K tiles past the tile's last row's limit are
+// never read, and a warp skips the tiles past its own 16 rows' limit.
+// K, V and the key-mask row arrive by cp.async as in the backward (below).
+// S = Q.K^T is computed into registers (fb_scores), masked there, and
+// the online softmax runs on the accumulator fragments: a lane holds rows
+// g and g + 8 and columns 2t, 2t + 1 of each 8-key tile, so a row's max
+// and sum are two shuffles across the lane quad; the state (m, l and the
+// [16, D] accumulator) stays in registers and is rescaled by exp(m_old -
+// m_new).  The weights p feed out += P.V (fb_accumulate) as A operands
+// as they stand.  With bf16 inputs p is rounded to bf16 before P.V while
+// l sums the unrounded p, as the Pallas body does.  Q is read from shared
+// memory for every K tile, as in the dQ kernel.  __launch_bounds__(128,
+// 3) holds a thread to 168 registers, so three blocks share an SM (at D
+// 64, f32: 49,408 bytes of shared memory each).  Holding Q's split
+// fragments in registers instead needs more than 168 (two blocks an SM,
+// slower), and under the same bound it spills and is no faster.
 //
 // What bounds the forward on an H100.  At the training shape (BH 96, L
-// 512, D 64, causal) it does 2 products of 2*L*L/2*D flops per head and
-// moves ~50 MB.  It reads its operands from shared memory at 2 FMAs per
-// load, so shared-memory bandwidth, not the FMA rate, sets its time.
+// 512, D 64, causal) it does 2 products of 2*D flops per visible (row,
+// key) pair, 3.2 GFLOP (19.6 us at the 3xTF32 rate), against ~50 MB (15
+// us at 3.35 TB/s): bound by operations, like the backward.
 //
 // Backward design (fa_dkdv_kernel, fa_dq_kernel: one body,
 // fa_bwd_body).  Each block owns a 64-row tile (dK/dV: 64 keys with
 // their K and V; dQ: 64 q rows with their Q, dO, lse and delta) and walks
-// the other axis in tiles of 32 rows, so each output element is summed
-// by one thread in a fixed order: no atomics, and two runs give bitwise
-// equal results.  dQ stays its own kernel, so S and dP are computed by
-// both (7 products where a fused kernel with atomics needs 5).
+// the other axis in tiles of 32 rows.  dQ stays its own kernel, so S and
+// dP are computed by both (7 products where a fused kernel with atomics
+// needs 5).
 // - Products on tensor cores with mma.sync.  4 warps, each owning 16 rows
 //   of the owned tile.  S (dK/dV: S^T = K.Q^T) and dP are computed into
 //   registers; p = exp(s - lse) and dS = p (dP - delta) run on the
@@ -98,11 +110,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-#define FA_B 64                // rows of a q tile = keys of a K tile
-#define FA_THREADS 256
 #define FA_MAX_D 128
 #define FA_NEG_INF (-1e30f)
-#define FA_LDP (FA_B + 1)      // row stride of the 64 x 64 weight tiles
 
 __device__ __forceinline__ float fa_f32(float x) { return x; }
 __device__ __forceinline__ float fa_f32(__nv_bfloat16 x) {
@@ -122,203 +131,23 @@ __device__ __forceinline__ float fa_round(float x) {
   return fa_f32(fa_out<T>(x));
 }
 
-__device__ __forceinline__ float fa_half_max(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-__device__ __forceinline__ float fa_half_sum(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-// Rows row0 .. row0 + 63 of a [n_rows, D] matrix into dst[64][ld] as
-// f32; rows past n_rows are zeros.
-template <typename T>
-__device__ __forceinline__ void fa_load_tile(const T* __restrict__ src,
-                                             int row0, int n_rows, int D,
-                                             float* dst, int ld) {
-  for (int e = threadIdx.x; e < FA_B * D; e += FA_THREADS) {
-    const int i = e / D;
-    const int d = e - i * D;
-    const int row = row0 + i;
-    dst[i * ld + d] = row < n_rows ? fa_f32(src[(long long)row * D + d])
-                                   : 0.f;
-  }
-}
-
-// s[r][c] += A[ty*4 + r] . B[tx + 16c] over D (rows of two [64][ld]
-// tiles); with A2/B2 also s2 += A2[..] . B2[..] in the same walk.
-template <bool TWO>
-__device__ __forceinline__ void fa_dots(const float* A, const float* B,
-                                        const float* A2, const float* B2,
-                                        int ld, int D, int ty, int tx,
-                                        float s[4][4], float s2[4][4]) {
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      s[r][c] = 0.f;
-      if (TWO) s2[r][c] = 0.f;
-    }
-  const float* a = A + ty * 4 * ld;
-  const float* b = B + tx * ld;
-  const float* a2 = TWO ? A2 + ty * 4 * ld : nullptr;
-  const float* b2 = TWO ? B2 + tx * ld : nullptr;
-#pragma unroll 4
-  for (int d = 0; d < D; ++d) {
-    float av[4], bv[4];
-#pragma unroll
-    for (int r = 0; r < 4; ++r) av[r] = a[r * ld + d];
-#pragma unroll
-    for (int c = 0; c < 4; ++c) bv[c] = b[16 * c * ld + d];
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) s[r][c] = fmaf(av[r], bv[c], s[r][c]);
-    if (TWO) {
-#pragma unroll
-      for (int r = 0; r < 4; ++r) av[r] = a2[r * ld + d];
-#pragma unroll
-      for (int c = 0; c < 4; ++c) bv[c] = b2[16 * c * ld + d];
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) s2[r][c] = fmaf(av[r], bv[c], s2[r][c]);
-    }
-  }
-}
-
 // The masked score of (row, key): NEG_INF past either edge or above the
-// causal diagonal; the key mask added otherwise.
+// causal diagonal; the key's mask value kmv added otherwise.
 __device__ __forceinline__ float fa_mask(float s, int row, int key, int Lq,
-                                         int Lk, const float* kmr,
-                                         bool causal, int offset) {
-  if (row >= Lq || key >= Lk) return FA_NEG_INF;
-  if (kmr) s += kmr[key];
-  if (causal && row + offset < key) return FA_NEG_INF;
-  return s;
+                                         int Lk, float kmv, bool causal,
+                                         int offset) {
+  if (row >= Lq || key >= Lk || (causal && row + offset < key))
+    return FA_NEG_INF;
+  return s + kmv;
 }
 
-// K tiles a q tile starting at row q0 walks: all, or under causal those
-// up to its last real row's limit (none when that limit is negative).
-__device__ __forceinline__ int fa_k_tiles(int q0, int Lq, int Lk,
-                                          bool causal) {
-  const int n = (Lk + FA_B - 1) / FA_B;
-  if (!causal) return n;
-  const int limit = min(q0 + FA_B, Lq) - 1 + (Lk - Lq);
-  return limit < 0 ? 0 : min(n, limit / FA_B + 1);
-}
-
-// ------------------------------ forward ---------------------------------
-
-template <typename T, int NC>
-__global__ void __launch_bounds__(FA_THREADS)
-fa_fwd_kernel(const T* __restrict__ qs, const T* __restrict__ k,
-              const T* __restrict__ v, const float* __restrict__ km,
-              int heads, bool causal, T* __restrict__ out,
-              float* __restrict__ lse, int Lq, int Lk, int D) {
-  const int qb = blockIdx.x;
-  const int bh = blockIdx.y;
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
-  const int ld = D + 1;
-  const int offset = Lk - Lq;
-  const int q0 = qb * FA_B;
-  extern __shared__ float smem[];
-  float* q_s = smem;                 // [64][ld]
-  float* k_s = q_s + FA_B * ld;      // [64][ld]
-  float* v_s = k_s + FA_B * ld;      // [64][ld]
-  float* p_s = v_s + FA_B * ld;      // [64][FA_LDP]
-  const T* kg = k + (long long)bh * Lk * D;
-  const T* vg = v + (long long)bh * Lk * D;
-  const float* kmr = km ? km + (long long)(bh / heads) * Lk : nullptr;
-  fa_load_tile(qs + (long long)bh * Lq * D, q0, Lq, D, q_s, ld);
-
-  float m[4], l[4], acc[4][NC];
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    m[r] = FA_NEG_INF;
-    l[r] = 0.f;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) acc[r][c] = 0.f;
-  }
-  const int n_kb = fa_k_tiles(q0, Lq, Lk, causal);
-  for (int kb = 0; kb < n_kb; ++kb) {
-    const int k0 = kb * FA_B;
-    __syncthreads();  // q_s written; the previous tiles consumed
-    fa_load_tile(kg, k0, Lk, D, k_s, ld);
-    fa_load_tile(vg, k0, Lk, D, v_s, ld);
-    __syncthreads();
-    float s[4][4];
-    fa_dots<false>(q_s, k_s, nullptr, nullptr, ld, D, ty, tx, s, s);
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int i = ty * 4 + r;
-      float mx = FA_NEG_INF;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        s[r][c] = fa_mask(s[r][c], q0 + i, k0 + tx + 16 * c, Lq, Lk, kmr,
-                          causal, offset);
-        mx = fmaxf(mx, s[r][c]);
-      }
-      const float m_cur = fmaxf(m[r], fa_half_max(mx));
-      const float alpha = expf(m[r] - m_cur);  // rescale of the old state
-      float psum = 0.f;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const float p =
-            s[r][c] <= FA_NEG_INF * 0.5f ? 0.f : expf(s[r][c] - m_cur);
-        psum += p;
-        p_s[i * FA_LDP + tx + 16 * c] = fa_round<T>(p);
-      }
-      l[r] = l[r] * alpha + fa_half_sum(psum);
-      m[r] = m_cur;
-#pragma unroll
-      for (int c = 0; c < NC; ++c) acc[r][c] *= alpha;
-    }
-    __syncthreads();
-    for (int j = 0; j < FA_B; ++j) {
-      float pr[4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) pr[r] = p_s[(ty * 4 + r) * FA_LDP + j];
-#pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        const int d = tx + 16 * c;
-        if (d < D) {
-          const float vv = v_s[j * ld + d];
-#pragma unroll
-          for (int r = 0; r < 4; ++r) acc[r][c] = fmaf(pr[r], vv, acc[r][c]);
-        }
-      }
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int row = q0 + ty * 4 + r;
-    if (row >= Lq) continue;
-    const float safe_l = l[r] > 0.f ? l[r] : 1.f;
-    T* orow = out + ((long long)bh * Lq + row) * D;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      const int d = tx + 16 * c;
-      if (d < D) orow[d] = fa_out<T>(acc[r][c] / safe_l);
-    }
-    if (tx == 0)
-      lse[(long long)bh * Lq + row] =
-          l[r] > 0.f ? m[r] + logf(safe_l) : FA_NEG_INF;
-  }
-}
-
-// ---------------------------- backward ----------------------------------
+// ---------------------------- building blocks -----------------------------
 
 #define FB_M 64          // rows of the owned tile: 4 warps x 16
 #define FB_N 32          // rows of a walked tile
 #define FB_THREADS 128
 
-// Row width in elements of a backward tile for head dims up to DMAX: at
+// Row width in elements of a tile for head dims up to DMAX: at
 // least 8 chunks of 16 bytes, so the XOR swizzle stays inside the row.
 template <typename T, int DMAX>
 __host__ __device__ constexpr int fb_width() {
@@ -592,6 +421,157 @@ __device__ __forceinline__ void fb_accumulate(float p[FB_N / 8][4],
   }
 }
 
+// ------------------------------ forward ---------------------------------
+
+// Block b owns q tile n_q - 1 - b / BH (the highest first: under causal
+// they walk the most K tiles) of head b % BH.
+template <typename T, int NC>
+__global__ void __launch_bounds__(FB_THREADS, 3)
+fa_fwd_kernel(const T* __restrict__ qs, const T* __restrict__ k,
+              const T* __restrict__ v, const float* __restrict__ km,
+              int heads, bool causal, T* __restrict__ out,
+              float* __restrict__ lse, int BH, int Lq, int Lk, int D) {
+  constexpr int DMAX = 16 * NC;
+  constexpr int W = fb_width<T, DMAX>();
+  constexpr int NT = FB_N / 8, DT = DMAX / 8;
+  const int bh = blockIdx.x % BH;
+  const int n_q = (Lq + FB_M - 1) / FB_M;
+  const int q0 = (n_q - 1 - (int)(blockIdx.x / BH)) * FB_M;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int offset = Lk - Lq;
+
+  extern __shared__ __align__(16) unsigned char fb_smem[];
+  T* q_s = reinterpret_cast<T*>(fb_smem);  // [FB_M][W]
+  T* ys = q_s + FB_M * W;                  // 2 buffers x {K, V} [FB_N][W]
+  float* km_s = reinterpret_cast<float*>(ys + 4 * FB_N * W);  // 2 x FB_N
+
+  const T* qg = qs + (long long)bh * Lq * D;
+  const T* kg = k + (long long)bh * Lk * D;
+  const T* vg = v + (long long)bh * Lk * D;
+  const float* kmr = km ? km + (long long)(bh / heads) * Lk : nullptr;
+  const int mode_k = fb_copy_mode(kg, D), mode_v = fb_copy_mode(vg, D);
+
+  // the K tiles the block walks (up to its last row's causal limit), and
+  // those this warp's 16 rows see
+  const int n_walk = (Lk + FB_N - 1) / FB_N;
+  auto tiles_to = [&](int last_row) {
+    if (!causal) return n_walk;
+    const int limit = last_row + offset;
+    return limit < 0 ? 0 : min(n_walk, limit / FB_N + 1);
+  };
+  const int w_end = tiles_to(min(q0 + FB_M, Lq) - 1);
+  const int r0 = q0 + warp * 16;
+  const int w_warp = r0 >= Lq ? 0 : tiles_to(min(r0 + 16, Lq) - 1);
+
+  auto stage = [&](int w, int buf) {
+    T* kb = ys + buf * 2 * FB_N * W;
+    fb_load_tile<T, W, FB_N>(kg, w * FB_N, Lk, D, kb, mode_k);
+    fb_load_tile<T, W, FB_N>(vg, w * FB_N, Lk, D, kb + FB_N * W, mode_v);
+    if (kmr) fb_load_row(kmr, w * FB_N, Lk, km_s + buf * FB_N);
+  };
+
+  float m[2] = {FA_NEG_INF, FA_NEG_INF}, l[2] = {0.f, 0.f};
+  float acc[DT][4];
+#pragma unroll
+  for (int dt = 0; dt < DT; ++dt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[dt][e] = 0.f;
+
+  if (w_end > 0) {
+    fb_load_tile<T, W, FB_M>(qg, q0, Lq, D, q_s, fb_copy_mode(qg, D));
+    stage(0, 0);
+  }
+  fb_commit();
+  const FbLane<T, W> lane_off(lane);
+  const T* xa = q_s + warp * 16 * W;
+  for (int w = 0; w < w_end; ++w) {
+    const int buf = w & 1;
+    if (w + 1 < w_end) stage(w + 1, buf ^ 1);
+    fb_commit();
+    fb_wait<1>();  // tile w (and Q) arrived
+    __syncthreads();
+    if (w < w_warp) {
+      const T* kt = ys + buf * 2 * FB_N * W;
+      const T* vt = kt + FB_N * W;
+      const float* kmt = km_s + buf * FB_N;
+      float s[NT][4];
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
+      fb_scores<T, DMAX, W>(xa, kt, s, lane_off);
+      // mask; each row's max over the tile (rows g + 8h, h = e / 2)
+      float mx[2] = {FA_NEG_INF, FA_NEG_INF};
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int cw = 8 * nt + 2 * t + (e & 1);
+          s[nt][e] = fa_mask(s[nt][e], r0 + g + 8 * (e >> 1), w * FB_N + cw,
+                             Lq, Lk, kmr ? kmt[cw] : 0.f, causal, offset);
+          mx[e >> 1] = fmaxf(mx[e >> 1], s[nt][e]);
+        }
+      float m_new[2], alpha[2], psum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+        m_new[h] = fmaxf(m[h], mx[h]);
+        alpha[h] = expf(m[h] - m_new[h]);  // rescale of the old state
+      }
+      // p = exp(s - m_new), exactly 0 where masked; l sums the f32 p,
+      // P.V takes p rounded to T
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = s[nt][e] <= FA_NEG_INF * 0.5f
+                              ? 0.f
+                              : expf(s[nt][e] - m_new[e >> 1]);
+          psum[e >> 1] += p;
+          s[nt][e] = fa_round<T>(p);
+        }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        psum[h] += __shfl_xor_sync(0xffffffffu, psum[h], 1);
+        psum[h] += __shfl_xor_sync(0xffffffffu, psum[h], 2);
+        l[h] = l[h] * alpha[h] + psum[h];
+        m[h] = m_new[h];
+      }
+#pragma unroll
+      for (int dt = 0; dt < DT; ++dt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[dt][e] *= alpha[e >> 1];
+      fb_accumulate<T, DMAX, W>(s, vt, acc, lane_off);
+    }
+    __syncthreads();  // buffer buf consumed before it is staged again
+  }
+  fb_wait<0>();
+
+  // out = acc / l in T; lse = m + log(l), or NEG_INF with out 0 for a row
+  // that sees no key
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = r0 + g + 8 * h;
+    if (r >= Lq) continue;
+    const float safe_l = l[h] > 0.f ? l[h] : 1.f;
+    T* orow = out + ((long long)bh * Lq + r) * D;
+#pragma unroll
+    for (int dt = 0; dt < DT; ++dt)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int d = 8 * dt + 2 * t + j;
+        if (d < D) orow[d] = fa_out<T>(acc[dt][2 * h + j] / safe_l);
+      }
+    if (t == 0)
+      lse[(long long)bh * Lq + r] =
+          l[h] > 0.f ? m[h] + logf(safe_l) : FA_NEG_INF;
+  }
+}
+
+// ---------------------------- backward ----------------------------------
+
 // The body of both backward kernels.  DQ = false (dK/dV): the block owns
 // 64 keys (K, V) and walks the q tiles that see them; out1 = dk, out2 =
 // dv.  DQ = true: the block owns 64 q rows (Q, dO, lse, delta) and walks
@@ -775,10 +755,15 @@ fa_dq_kernel(const T* __restrict__ qs, const T* __restrict__ k,
 
 // ------------------------------ launches --------------------------------
 
-// dynamic shared memory of each kernel at head dim D (kept equal to
-// paddle_tpu_torch/ops/flash_attention.py::kernel_smem_bytes)
-static size_t fa_smem_fwd(int D) {
-  return sizeof(float) * (3 * FA_B * (D + 1) + FA_B * FA_LDP);
+// dynamic shared memory of each kernel at column count NC, dtype T (the
+// largest is kept equal to
+// paddle_tpu_torch/ops/flash_attention.py::kernel_smem_bytes).
+// Forward: the Q tile of FB_M rows, two buffers of the K and V tiles of
+// FB_N rows, two buffers of the key-mask row of FB_N
+template <typename T, int NC>
+static size_t fa_smem_fwd() {
+  return sizeof(T) * fb_width<T, 16 * NC>() * (FB_M + 4 * FB_N) +
+         sizeof(float) * 2 * FB_N;
 }
 // both backward kernels at column count NC, dtype T: two owned tiles of
 // FB_M rows, two buffers of two walked tiles of FB_N rows, two buffers of
@@ -806,15 +791,15 @@ static int fa_fwd_launch(const void* qs, const void* k, const void* v,
                          void* lse, int BH, int Lq, int Lk, int D,
                          cudaStream_t st) {
   static bool allowed = false;
-  const int rc = fa_allow(fa_fwd_kernel<T, NC>, fa_smem_fwd(16 * NC),
-                          &allowed);
+  const size_t smem = fa_smem_fwd<T, NC>();
+  const int rc = fa_allow(fa_fwd_kernel<T, NC>, smem, &allowed);
   if (rc) return rc;
-  dim3 grid((Lq + FA_B - 1) / FA_B, BH);
-  fa_fwd_kernel<T, NC><<<grid, FA_THREADS, fa_smem_fwd(D), st>>>(
+  const unsigned blocks = (unsigned)((Lq + FB_M - 1) / FB_M) * BH;
+  fa_fwd_kernel<T, NC><<<blocks, FB_THREADS, smem, st>>>(
       static_cast<const T*>(qs), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const float*>(km), heads,
-      causal != 0, static_cast<T*>(out), static_cast<float*>(lse), Lq, Lk,
-      D);
+      causal != 0, static_cast<T*>(out), static_cast<float*>(lse), BH, Lq,
+      Lk, D);
   return (int)cudaGetLastError();
 }
 

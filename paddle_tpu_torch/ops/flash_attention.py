@@ -39,8 +39,7 @@ import torch
 from . import _build
 
 NEG_INF = -1e30
-BLOCK = 64              # FA_B: the forward's q and K tiles
-BWD_OWNED, BWD_WALKED = 64, 32   # FB_M, FB_N: the backward's tiles
+OWNED, WALKED = 64, 32   # FB_M, FB_N: the owned and the walked tiles
 MAX_HEAD_DIM = 128
 SMEM_PER_BLOCK = 232448  # an H100 block's dynamic shared-memory ceiling
 _LIB = "flash_attention"
@@ -51,15 +50,16 @@ _LIB = "flash_attention"
 
 def kernel_smem_bytes(d):
     """The largest dynamic shared memory the three kernels ask for at head
-    dim `d` (fa_smem_fwd, fa_smem_bwd in the source).  Forward: q, k, v
-    tiles of BLOCK rows padded to d + 1 floats and a [BLOCK, BLOCK + 1]
-    weight tile.  Backward (fp32, the larger dtype): rows of d rounded up
-    to 32, 64 or 128 floats; two owned tiles of BWD_OWNED rows, two
-    buffers of two walked tiles of BWD_WALKED rows, and two buffers of
-    two f32 rows of BWD_WALKED (lse and delta, or the key mask)."""
-    fwd = 3 * BLOCK * (d + 1) + BLOCK * (BLOCK + 1)
+    dim `d` (fa_smem_fwd, fa_smem_bwd in the source), at fp32, the larger
+    dtype: tile rows of d rounded up to 32, 64 or 128 floats.  Forward:
+    the Q tile of OWNED rows, two buffers of the K and V tiles of WALKED
+    rows and two buffers of the key-mask row of WALKED.  Backward: two
+    owned tiles of OWNED rows, two buffers of two walked tiles of WALKED
+    rows, and two buffers of two f32 rows of WALKED (lse and delta, or the
+    key mask)."""
     width = 32 if d <= 32 else 64 if d <= 64 else 128
-    bwd = width * (2 * BWD_OWNED + 4 * BWD_WALKED) + 4 * BWD_WALKED
+    fwd = width * (OWNED + 4 * WALKED) + 2 * WALKED
+    bwd = width * (2 * OWNED + 4 * WALKED) + 4 * WALKED
     return 4 * max(fwd, bwd)
 
 
@@ -178,8 +178,8 @@ def _check_shapes(qs, k, v, km, heads, **rows):
 def _check_kernel_args(qs, k, v, km, **rows):
     """Refuse what the CUDA kernels do not take: tensors off qs's device
     or not contiguous, q/k/v (and dO) not all float32 or all bfloat16,
-    head dims past MAX_HEAD_DIM, BH past the grid's 65535, or a key mask,
-    lse or delta not float32."""
+    head dims past MAX_HEAD_DIM, BH past the kernels' 65535, or a key
+    mask, lse or delta not float32."""
     dev = qs.device
     named = {"qs": qs, "k": k, "v": v, **rows}
     if km is not None:

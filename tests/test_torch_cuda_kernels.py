@@ -498,6 +498,22 @@ def test_flash_backward_is_deterministic():
         assert torch.equal(a, b), name
 
 
+def test_flash_forward_is_deterministic():
+    """The forward kernel run twice on the same inputs at the training
+    shape gives bitwise-equal out and lse: each row's softmax state and
+    output are summed by one warp in a fixed order, with no atomics."""
+    _need_card()
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    qs, k, v, _, _ = _flash_case(np.random.default_rng(13), 96, 512, 512,
+                                 64, torch.float32)
+    runs = [fa.flash_attention_fwd_kernel(qs, k, v, None, True, 12)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    for name, a, b in zip(("out", "lse"), *runs):
+        assert torch.equal(a, b), name
+
+
 def test_flash_kernels_refuse_what_they_do_not_take():
     _need_card()
     from paddle_tpu_torch.ops import flash_attention as fa

@@ -177,10 +177,12 @@ def test_shape_gate_reads_head_dims_and_shared_memory_only():
     assert not fa.shapes_fit_kernels(512, 512, 129)
     assert not fa.shapes_fit_kernels(0, 512, 64)
     assert fa.kernel_smem_bytes(128) <= fa.SMEM_PER_BLOCK
-    # D 64: the forward (q, k, v tiles of 64 rows of 65 floats and a
-    # 64 x 65 weight tile) outgrows the backward (2 owned tiles of 64
-    # rows of 64 floats, 2 x 2 walked tiles of 32, 2 x 2 rows of 32)
-    assert fa.kernel_smem_bytes(64) == 4 * (3 * 64 * 65 + 64 * 65)
+    # D 64: the backward (2 owned tiles of 64 rows of 64 floats, 2 x 2
+    # walked tiles of 32, 2 x 2 rows of 32) outgrows the forward (one
+    # owned Q tile, 2 x 2 walked K and V tiles, 2 key-mask rows of 32:
+    # 4 * (64 * (64 + 4 * 32) + 2 * 32) = 49,408 bytes)
+    assert fa.kernel_smem_bytes(64) == 4 * (64 * (2 * 64 + 4 * 32)
+                                            + 4 * 32)
     # D 128: the backward is the largest, its rows 128 floats wide
     assert fa.kernel_smem_bytes(128) == 4 * (128 * (2 * 64 + 4 * 32)
                                              + 4 * 32)
@@ -263,6 +265,102 @@ def test_3xtf32_model_of_the_backward_kernels_keeps_fp32_parity(capsys):
     worst = max(float((g - w).abs().max()) for g, w in zip(split, want))
     with capsys.disabled():
         print(f"\n  one-pass TF32 max|diff| {errs}; 3xTF32 {worst:.2e}")
+
+
+def _fwd_model(mm, qs, k, v, km, heads, round_p=lambda p: p,
+               sum_rounded=False):
+    """out (f32), lse of the forward kernel's arithmetic (causal): the
+    online softmax over tiles of WALKED keys, S and P.V through `mm`.
+    Per tile: S with the key mask and NEG_INF above the diagonal, m_new =
+    max(m, rowmax S), alpha = exp(m - m_new), p = exp(S - m_new) (0 where
+    masked), l = alpha l + rowsum(p) of the f32 p, acc = alpha acc +
+    round_p(p).V (with `sum_rounded`, l sums round_p(p) instead); then
+    out = acc / l, lse = m + log l (NEG_INF, out 0, where l = 0)."""
+    bh, lq, d = qs.shape
+    lk = k.shape[1]
+    qs, k, v = qs.float(), k.float(), v.float()
+    kmr = km.reshape(km.shape[0], lk)[torch.arange(bh) // heads][:, None]
+    rows = torch.arange(lq)[:, None] + (lk - lq)
+    m = torch.full((bh, lq, 1), fa.NEG_INF)
+    l = torch.zeros((bh, lq, 1))
+    acc = torch.zeros((bh, lq, d))
+    for k0 in range(0, lk, fa.WALKED):
+        keys = torch.arange(k0, min(k0 + fa.WALKED, lk))
+        s = mm(qs, k[:, keys].transpose(1, 2)) + kmr[..., keys]
+        s = torch.where(rows >= keys[None, :], s,
+                        torch.full_like(s, fa.NEG_INF))
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.where(s <= fa.NEG_INF / 2, torch.zeros_like(s),
+                        torch.exp(s - m_new))
+        l = l * alpha + (round_p(p) if sum_rounded else p).sum(
+            -1, keepdim=True)
+        acc = acc * alpha + mm(round_p(p), v[:, keys])
+        m = m_new
+    safe_l = torch.where(l > 0, l, torch.ones_like(l))
+    lse = torch.where(l > 0, m + torch.log(safe_l),
+                      torch.full_like(l, fa.NEG_INF))
+    return acc / safe_l, lse[..., 0]
+
+
+def test_3xtf32_model_of_the_forward_kernel_keeps_fp32_parity(capsys):
+    """The forward kernel's arithmetic on the CPU (online softmax over
+    tiles of 32 keys, S and P.V through the 3xTF32 split) keeps out and
+    lse within the card's FLASH_TOL (2e-5) of the plain version at BH 4,
+    L 200, D 64, causal with the key mask.  One-pass TF32's error is
+    printed, not asserted, since it depends on the case."""
+    qs, k, v, _, km = (None if x is None else torch.from_numpy(x)
+                       for x in _inputs(4, 2, 200, 200, 64, True, seed=5))
+    want = fa.flash_attention_fwd_torch(qs, k, v, km, True, 2)
+    split = _fwd_model(_mm_3xtf32, qs, k, v, km, 2)
+    for name, got, w in zip(("out", "lse"), split, want):
+        torch.testing.assert_close(got, w, **TOL,
+                                   msg=lambda m, n=name: f"{n}: {m}")
+    assert (split[0][:2] == 0).all() and (split[1][:2] == fa.NEG_INF).all()
+    one = _fwd_model(_mm_tf32, qs, k, v, km, 2)
+    errs = {n: float((g - w).abs().max())
+            for n, g, w in zip(("out", "lse"), one, want)}
+    worst = max(float((g - w).abs().max()) for g, w in zip(split, want))
+    with capsys.disabled():
+        print(f"\n  forward: one-pass TF32 max|diff| {errs}; 3xTF32 "
+              f"{worst:.2e}")
+
+
+def test_bf16_model_of_the_forward_kernel_keeps_the_pallas_rule(capsys):
+    """bf16 inputs: the forward kernel rounds p to bf16 before P.V and
+    sums l from the unrounded f32 p, as the Pallas body does
+    (``p.astype(v.dtype)``; ``jnp.sum(p)``).  The model of that rule
+    (bf16 products are exact in f32) agrees with the Pallas kernel in
+    interpret mode and with the plain version: out within 2e-2 (bf16
+    outputs), lse within 2e-5, which a running sum of the rounded p
+    misses (its error printed)."""
+    qs, k, v, _, km = _inputs(4, 2, 200, 200, 64, True, seed=6)
+    tq, tk, tv = (torch.from_numpy(x).to(torch.bfloat16)
+                  for x in (qs, k, v))
+    tkm = torch.from_numpy(km)
+    jout, jlse = J._flash_fwd_call(
+        *(jnp.asarray(x).astype(jnp.bfloat16) for x in (qs, k, v)),
+        jnp.asarray(km), True, 2, True)
+    pallas = (torch.from_numpy(np.array(jout, np.float32)),
+              torch.from_numpy(np.array(jlse, np.float32))[..., 0])
+    plain = [x.float() for x in
+             fa.flash_attention_fwd_torch(tq, tk, tv, tkm, True, 2)]
+
+    def bf16(p):
+        return p.to(torch.bfloat16).float()
+
+    out, lse = _fwd_model(torch.matmul, tq, tk, tv, tkm, 2, round_p=bf16)
+    for ref in (pallas, plain):
+        torch.testing.assert_close(bf16(out), ref[0], **BF16_TOL)
+        torch.testing.assert_close(lse, ref[1], **TOL)
+    # l from the rounded p, as a kernel that summed the weights it
+    # multiplied would have it
+    _, lse_r = _fwd_model(torch.matmul, tq, tk, tv, tkm, 2, round_p=bf16,
+                          sum_rounded=True)
+    with capsys.disabled():
+        print(f"\n  bf16 forward model: lse max|diff| vs Pallas "
+              f"{float((lse - pallas[1]).abs().max()):.2e}; with l from "
+              f"the rounded p {float((lse_r - pallas[1]).abs().max()):.2e}")
 
 
 def test_sdpa_takes_flash_only_through_its_gate(monkeypatch):
