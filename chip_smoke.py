@@ -8,14 +8,18 @@ carries on:
 1. environment: the card's name and power limit; build every CUDA kernel
    of the port from the sources in this checkout, one nvcc (sm_90a) per
    source, all at once, printing ptxas's registers, shared memory and
-   spills; where the toolkit has cuobjdump, the count of tensor-core
+   spills, failing if any instantiation of the ragged kernel spills;
+   where the toolkit has cuobjdump, the count of tensor-core
    instructions (HMMA) in the SASS of each flash kernel (forward, dK/dV
    and dQ), none failing;
 2. every kernel against its plain PyTorch version, on CUDA tensors, at
    small edge shapes and at the main paths' shapes: the paged kernels
    within max |diff| 2e-5 on float32, bfloat16 and int8 pools (int8:
    zero-scale pages, misaligned pools, both layouts; and an int8 pool
-   without its scales must raise); the flash kernels elementwise within
+   without its scales must raise); the ragged kernel also on one decode
+   row over 4,100 keys (a pages bucket of 272), 32 decode rows and a
+   64-row chunk whose tiles straddle its key splits, and launched twice
+   on every case, the two outputs bitwise equal; the flash kernels elementwise within
    atol = rtol = 2e-5 (out, lse) and 1e-4 (dq, dk, dv) in fp32, 2e-2 in
    bf16;
 3. the engine at GPT-2-small width on the card: 8 requests (6 greedy, 2
@@ -50,8 +54,10 @@ carries on:
    loss finite and falling, and each flash kernel's launches equal to
    num_layers x steps;
 8. numbers: each kernel's and its plain version's times at its main
-   path's shape beside its bound (the paged kernels on float32 and on
-   int8 pools; for the flash kernels, PyTorch's
+   path's shape beside its bound (the paged kernels on float32, int8
+   and bfloat16 pools, the ragged kernel with its live and launched
+   blocks; for
+   the flash kernels, PyTorch's
    scaled_dot_product_attention forward and backward at that shape, the
    fp32 bound at the 3xTF32 rate with the fp32 FMA share beside it, the
    forward and the whole backward through autograd against sdpa's in
@@ -317,12 +323,23 @@ def kernel_cases(rng):
                                  **MAIN)),
         ("main_bf16_kernel", dict(desc=mixed, kv_dtype=torch.bfloat16,
                                   layout="kernel", **MAIN)),
+        # the ragged kernel's split of a walk across blocks: a long decode
+        # row (65 splits of 4 pages), many decode rows, and a chunk at
+        # positions 100..163 whose 16-row tiles straddle key 128
+        ("long_decode_4100", dict(desc=[(1, 4100)],
+                                  **{**MAIN, "num_pages": 300,
+                                     "pages_bucket": 272})),
+        ("decode_32_rows", dict(desc=[(1, int(kv)) for kv in
+                                      rng.integers(16, 633, 32)],
+                                **{**MAIN, "num_pages": 1400})),
+        ("chunk_64_straddling", dict(desc=[(64, 164), (1, 70)], **MAIN)),
     ]
     return cases + int8_variants(cases, [
         "d8_ps4_token", "d8_ps4_kernel", "d128_ps64", "d100_ps5_odd",
         "d6_ps4_token", "d30_ps16_kernel", "misaligned_token",
         "misaligned_kernel_bf16", "main_mixed_token", "main_mixed_kernel",
-        "main_padding_desc"])
+        "main_padding_desc", "long_decode_4100", "decode_32_rows",
+        "chunk_64_straddling"])
 
 
 def int8_variants(cases, names):
@@ -512,7 +529,14 @@ def phase_kernels(pa, rng):
             owned[st:st + ln] = True
         if not bool((ker[~owned] == 0).all()):
             fail("ragged kernel wrote rows no descriptor owns")
-        return f" S={case['lens'].numel():2d} unowned rows zero=True"
+        # the split merge runs in a fixed order: a second launch on the
+        # same inputs gives the same bits
+        again = pa.ragged_paged_attention_kernel(
+            *attn_args(case), layout=case["layout"], **case["scales"])
+        if not torch.equal(again, ker):
+            fail("two ragged launches on the same inputs differ")
+        return (f" S={case['lens'].numel():2d} unowned rows zero=True "
+                f"repeat bitwise=True")
 
     def zero_rows(case, ker):
         dummy = case["seq_lens"] == 0
@@ -1437,13 +1461,28 @@ def paged_numbers(pa, card, kv_dtype, tag):
         plain_ms = time_ms(lambda: plain(*args, **kw), 50)
         bound_ms, bound_by, nbytes, flops = bound_fn(case)
         numbers[name + tag] = (ms, plain_ms, bound_ms, bound_by, None)
+        blocks = (ragged_blocks(pa, case)
+                  if name == "ragged_paged_attention" else "")
         log(f"  [{card}] {name} ({dtype} pools) at the main-path shape "
             f"({shape}, H=12, D=64, page_size=16, pages bucket 64): "
             f"{ms * 1e3:.1f} us (launch-paced {paced * 1e3:.1f} us); plain "
             f"version {plain_ms * 1e3:.1f} us; bound {bound_ms * 1e3:.2f} us "
             f"by {bound_by} ({nbytes} B, {flops} flop) = "
-            f"{bound_ms / ms:.1%} of bound")
+            f"{bound_ms / ms:.1%} of bound{blocks}")
     return numbers
+
+
+def ragged_blocks(pa, case):
+    """The ragged kernel's blocks for `case`: live ones (its work items
+    times the heads, by the host mirror of its split) of those launched
+    (the grid, from shapes alone)."""
+    t, h, _ = case["q"].shape
+    s_n, max_pages = case["page_tables"].shape
+    items = pa.ragged_work_items(
+        case["starts"].tolist(), case["lens"].tolist(),
+        case["kv_lens"].tolist(), MAIN["ps"], max_pages, t)
+    grid = pa.ragged_grid_blocks(t, s_n, h, max_pages, MAIN["ps"])
+    return f"; blocks {len(items) * h} live of {grid} launched"
 
 
 def write_numbers(card):
@@ -1491,6 +1530,30 @@ def write_numbers(card):
     log(f"  [{card}] int8 write of one layer's K and V (72 rows into 512 "
         f"pages of 16, H=12, D=64; plain torch ops): {what}; launch-paced "
         f"{paced * 1e3:.1f} us per layer on this host")
+
+
+def check_ragged_spills(build):
+    """Fail if ptxas spilled in any instantiation of the ragged kernel.
+    Its report comes from this run's build or, if the library was built
+    before, from compiling the source once more into the build
+    directory."""
+    report = build.build_logs.get("ragged_paged_attention")
+    if report is None:
+        out = build.BUILD_DIR / "ragged_ptxas_report.so"
+        report = subprocess.run(
+            [build.find_nvcc(), *build.NVCC_FLAGS, "-o", str(out),
+             str(build.CSRC_DIR / "ragged_paged_attention.cu")],
+            capture_output=True, text=True, check=True, timeout=600).stdout
+        out.unlink(missing_ok=True)
+    entries = [line for line in report.splitlines()
+               if "Compiling entry" in line and "rpa_kernel" in line]
+    spills = [line.strip() for line in report.splitlines()
+              if "spill" in line
+              and "0 bytes spill stores, 0 bytes spill loads" not in line]
+    log(f"  ragged kernel: {len(entries)} instantiations, "
+        f"{'spills: ' + '; '.join(spills) if spills else 'no spills'}")
+    if not entries or spills:
+        fail("a ragged instantiation spills (or ptxas printed no report)")
 
 
 def check_tensor_cores(build, lib):
@@ -1559,6 +1622,7 @@ def main():
             if ("registers" in line or "spill" in line
                     or "Compiling entry" in line):
                 log(f"    ptxas {name}: {line.strip()}")
+    check_ragged_spills(_build)
     check_tensor_cores(_build, libs[lib_names.index("flash_attention")])
 
     rng = np.random.default_rng(0)
@@ -1619,6 +1683,7 @@ def main():
     phase("phase 8: numbers")
     numbers = paged_numbers(pa, card, torch.float32, "")
     numbers.update(paged_numbers(pa, card, torch.int8, "_int8"))
+    paged_numbers(pa, card, torch.bfloat16, "_bf16")  # printed only
     log(f"  [{card}] library call: none for the paged kernels — no single "
         f"PyTorch call reads a paged KV cache through page tables")
     write_numbers(card)

@@ -303,6 +303,78 @@ inline int pa_allow_smem(Kernel kernel, size_t smem) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
+// ---- Raw staging: cp.async copies of pool bytes, converted on read ----
+//
+// Kernels that keep page loads in flight copy K/V rows into shared memory
+// as they lie in the pool (16-byte cp.async, no registers held) and
+// convert each element when they read it: bf16 upcast, int8 times its page
+// factor, so the operands entering the products are the same f32 values
+// the staging above produces.
+
+__device__ __forceinline__ void pa_cp16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void pa_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void pa_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Whether a pool pair takes 16-byte copies: a row of D elements is a whole
+// number of 16-byte units (then so is every page, row and head stride) and
+// both pools start on a 16-byte boundary.
+template <typename KV>
+inline bool pa_async16(const void* k_pool, const void* v_pool, int D) {
+  return (D * sizeof(KV)) % 16 == 0 &&
+         reinterpret_cast<size_t>(k_pool) % 16 == 0 &&
+         reinterpret_cast<size_t>(v_pool) % 16 == 0;
+}
+
+// 16 raw bytes at p (shared memory, 16-byte aligned).
+__device__ __forceinline__ uint4 pa_raw16(const void* p) {
+  return *reinterpret_cast<const uint4*>(p);
+}
+
+// Elements 4 g .. 4 g + 3 of 16 raw bytes of KV elements as f32, int8
+// times `factor` (g < 16 / (4 sizeof(KV)), a compile-time constant where
+// unrolled).
+template <typename KV>
+__device__ __forceinline__ float4 pa_unpack4(uint4 raw, int g,
+                                             float factor) {
+  if constexpr (std::is_same<KV, float>::value) {
+    return make_float4(__uint_as_float(raw.x), __uint_as_float(raw.y),
+                       __uint_as_float(raw.z), __uint_as_float(raw.w));
+  } else if constexpr (std::is_same<KV, __nv_bfloat16>::value) {
+    const unsigned a = g == 0 ? raw.x : raw.z, b = g == 0 ? raw.y : raw.w;
+    // a bf16 is the top half of an f32
+    return make_float4(__uint_as_float(a << 16),
+                       __uint_as_float(a & 0xffff0000u),
+                       __uint_as_float(b << 16),
+                       __uint_as_float(b & 0xffff0000u));
+  } else {
+    const unsigned w =
+        g == 0 ? raw.x : g == 1 ? raw.y : g == 2 ? raw.z : raw.w;
+    // sign-extend byte i of the word, then the page factor
+    return make_float4((float)((int)(w << 24) >> 24) * factor,
+                       (float)((int)(w << 16) >> 24) * factor,
+                       (float)((int)(w << 8) >> 24) * factor,
+                       (float)((int)w >> 24) * factor);
+  }
+}
+
+// a + dot(q, x) over 4 elements, in order
+__device__ __forceinline__ float pa_dot4(float4 q, float4 x, float a) {
+  a = fmaf(q.x, x.x, a);
+  a = fmaf(q.y, x.y, a);
+  a = fmaf(q.z, x.z, a);
+  return fmaf(q.w, x.w, a);
+}
+
 // The pool dtype codes of the C entry points.
 enum PaKvDtype { PA_KV_F32 = 0, PA_KV_BF16 = 1, PA_KV_INT8 = 2 };
 

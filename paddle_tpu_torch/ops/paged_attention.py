@@ -1,6 +1,7 @@
 """Paged attention over the KV page pools: three hand-written CUDA
 kernels, each with its wrapper and its plain PyTorch version, and the
-host mirror of the ragged kernel's tile rule.
+host mirrors of the ragged kernel's work split and of the JAX package's
+score-block metric.
 
 - `ragged_paged_attention_kernel` (plain: `ragged_paged_attention_torch`),
   ``csrc/ragged_paged_attention.cu``, replaces the Pallas
@@ -30,10 +31,13 @@ H100.
   dequantizes a pool.
 - The plain versions are the gather-and-mask constructions of the JAX
   references, on any device.
-- `ragged_score_blocks` counts on the host the [QB, page_size] score
-  blocks per head the ragged kernel computes.
+- `ragged_work_items` lists on the host the (tile, split) items the
+  ragged kernel runs per head; `ragged_score_blocks` counts the
+  [8, page_size] score blocks of the JAX package's
+  ``generation.step_score_blocks`` metric.
 """
 import ctypes
+import collections
 import math
 
 import torch
@@ -42,8 +46,13 @@ from . import _build
 
 NEG_INF = -1e30
 
-# query rows per CUDA block: RPA_QB in the kernel source
+# query rows of the JAX ragged kernel's tile: the unit of the
+# ``generation.step_score_blocks`` metric (`ragged_score_blocks`)
 RAGGED_Q_BLOCK = 8
+# the CUDA ragged kernel's work split (RPA_QB, RPA_SPLIT_KEYS in its
+# source): rows of a multi-row tile, least keys of a split
+RAGGED_TILE_ROWS = 16
+RAGGED_SPLIT_KEYS = 64
 MAX_HEAD_DIM = 128
 MAX_PAGE_SIZE = 64
 # int8 dequant factor 1/127 in float32, bit-equal to
@@ -340,11 +349,19 @@ def ragged_paged_attention_kernel(q, k_pool, v_pool, page_tables, starts,
     t, h, d = q.shape
     s_n, max_pages = page_tables.shape
     out = torch.zeros_like(q)
+    # the split partials (m, l, acc) and the per-(tile, head) arrival
+    # counters, sized from shapes alone: no device value is read
+    ms = ragged_max_splits(max_pages, page_size)
+    record = -(-(d + 2) // 4) * 4      # acc [D], m, l; 16-byte aligned
+    ws = torch.empty(t * h * ms * record, dtype=torch.float32,
+                     device=q.device)
+    counters = torch.zeros(t * h, dtype=torch.int32, device=q.device)
     _launch(ragged_paged_attention_kernel, _RAGGED_LIB,
             "rpa_ragged_paged_attention", q, k_pool, v_pool, layout,
             page_size, page_tables.data_ptr(), max_pages, starts.data_ptr(),
-            lens.data_ptr(), kv_lens.data_ptr(), out.data_ptr(), t, s_n, h,
-            d, scale=scale, k_scale=k_scale, v_scale=v_scale)
+            lens.data_ptr(), kv_lens.data_ptr(), out.data_ptr(),
+            ws.data_ptr(), counters.data_ptr(), t, s_n, h, d, scale=scale,
+            k_scale=k_scale, v_scale=v_scale)
     return out
 
 
@@ -430,7 +447,7 @@ def chunk_prefill_attention_kernel(q, k_pool, v_pool, page_table, start,
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ENTRIES = {
     _RAGGED_LIB: ("rpa_ragged_paged_attention",
-                  [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I]),
+                  [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I]),
     _DECODE_LIB: ("pda_paged_decode_attention", [_P, _I, _P, _P, _I, _I, _I]),
     _CHUNK_LIB: ("cpa_chunk_prefill_attention", [_P, _I, _I, _P, _I, _I, _I]),
 }
@@ -451,18 +468,86 @@ def _load(name):
     return lib
 
 
+def ragged_split_pages(page_size):
+    """Pages of one split of the CUDA ragged kernel: whole pages, at
+    least RAGGED_SPLIT_KEYS keys."""
+    return -(-RAGGED_SPLIT_KEYS // int(page_size))
+
+
+def ragged_max_splits(max_pages, page_size):
+    """Most splits a tile's walk of `max_pages` pages is cut into."""
+    return -(-int(max_pages) // ragged_split_pages(page_size))
+
+
+def ragged_grid_blocks(n_rows, n_desc, n_heads, max_pages, page_size):
+    """The CUDA ragged kernel's grid: an upper bound on its items from
+    shapes alone (tiles: at most one per row, and at most
+    ceil(T / RAGGED_TILE_ROWS) + S), times the heads.  Blocks past the
+    live items exit at once."""
+    t = int(n_rows)
+    tiles = min(t, -(-t // RAGGED_TILE_ROWS) + int(n_desc))
+    return tiles * ragged_max_splits(max_pages, page_size) * int(n_heads)
+
+
+RaggedItem = collections.namedtuple(
+    "RaggedItem", "desc row0 n_rows qpos0 split n_splits page_lo page_hi")
+
+
+def ragged_work_items(starts, lens, kv_lens, page_size, max_pages, n_rows):
+    """Host mirror of the CUDA ragged kernel's work split: the items it
+    runs for each head, in its order.  Not used on the serving path.
+
+    Descriptor s is cut into RAGGED_TILE_ROWS-row tiles from its first
+    row (a one-row tile is a decode row); a tile walks pages ``0 ..
+    qpos_last // page_size`` (at most `max_pages`), where qpos_last is
+    the position of its last row, cut into splits of
+    `ragged_split_pages` pages.  Each item is a `RaggedItem`: packed rows
+    ``[row0, row0 + n_rows)`` at positions ``qpos0, qpos0 + 1, ...``,
+    split `split` of the tile's `n_splits`, over the descriptor's page
+    table entries ``[page_lo, page_hi)``.  Tiles whose rows see no key
+    (len 0, or every position negative) have no item.  The items of
+    multi-row tiles come first (they take longest), then those of
+    one-row tiles, each class in descriptor, tile and split order.
+    `n_rows` (T) only checks that every item's rows lie on the packed
+    axis."""
+    ps = int(page_size)
+    sp = ragged_split_pages(ps)
+    qb = RAGGED_TILE_ROWS
+    multi, one = [], []
+    for s, (st, ln, kv) in enumerate(zip(starts, lens, kv_lens)):
+        st, ln, kv = int(st), int(ln), int(kv)
+        for off in range(0, max(ln, 0), qb):
+            rows = min(qb, ln - off)
+            qpos0 = kv - ln + off
+            qlast = qpos0 + rows - 1
+            if qlast < 0:
+                continue
+            if not (0 <= st + off and st + off + rows <= int(n_rows)):
+                raise ValueError(f"descriptor {s} owns rows past the "
+                                 f"packed axis of {n_rows}")
+            pages = min(qlast // ps + 1, int(max_pages))
+            n_splits = -(-pages // sp)
+            (one if rows == 1 else multi).extend(
+                RaggedItem(s, st + off, rows, qpos0, k, n_splits, k * sp,
+                           min((k + 1) * sp, pages))
+                for k in range(n_splits))
+    return multi + one
+
+
 def ragged_score_blocks(starts, lens, kv_lens, page_size, n_pages, n_rows,
                         q_block=RAGGED_Q_BLOCK):
-    """Host mirror of the CUDA kernel's tile rule — the FLOP proxy
-    ``generation.step_score_blocks`` is set from.
+    """The score blocks of the JAX package's ``generation.step_score_blocks``
+    metric (``paddle_tpu/ops/pallas/paged_attention.py::ragged_score_blocks``),
+    a FLOP proxy in units of the JAX ragged kernel's [q_block, page_size]
+    tile; the CUDA kernel's own work split is `ragged_work_items`.
 
     Returns ``(tiled, untiled)``: the [q_block, page_size] score blocks
-    per head the kernel computes for these descriptors — each descriptor
-    is cut into q_block-row tiles counted from ITS first row, and a tile
-    visits pages ``0 .. qpos_max // page_size`` where qpos_max is the
-    position of its last row — and, in the same units, what an untiled
-    kernel (the full packed axis of `n_rows` rows per live (descriptor,
-    page) cell) would compute."""
+    per head for these descriptors — each descriptor is cut into
+    q_block-row tiles counted from ITS first row, and a tile visits pages
+    ``0 .. qpos_max // page_size`` where qpos_max is the position of its
+    last row — and, in the same units, what an untiled kernel (the full
+    packed axis of `n_rows` rows per live (descriptor, page) cell) would
+    compute."""
     import numpy as np
 
     qb = max(1, min(int(q_block), int(n_rows)))

@@ -264,6 +264,68 @@ def test_ragged_kernel_int8_matches_plain_version(layout, h, d, ps):
     assert bool((ker[0] == 0).all()) and bool((ker[-1] == 0).all())
 
 
+def _ragged_pools(kind, args, rng, layout, h):
+    """The pools of `args` as `kind` ("float32", "bfloat16" or "int8",
+    with its scales); returns the scale keywords."""
+    if kind == "int8":
+        return _int8(args, rng, layout, h)
+    args[1], args[2] = (a.to(getattr(torch, kind)) for a in args[1:3])
+    return {}
+
+
+@pytest.mark.parametrize("kind", ["float32", "bfloat16", "int8"])
+def test_ragged_kernel_is_deterministic(kind):
+    """The kernel merges a tile's key splits in a fixed order with no
+    float atomics: two launches on the same inputs give the same bits."""
+    _need_card()
+    rng = np.random.default_rng(13)
+    args = _case(rng, 12, 64, 16, "token", torch.float32,
+                 [(1, 516), (1, 68), (1, 300), (64, 600), (0, 5)],
+                 num_pages=128)
+    sc = _ragged_pools(kind, args, rng, "token", 12)
+    first = pa.ragged_paged_attention_kernel(*args, **sc)
+    second = pa.ragged_paged_attention_kernel(*args, **sc)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    torch.testing.assert_close(
+        first, pa.ragged_paged_attention_torch(*args, **sc), atol=TOL,
+        rtol=TOL)
+
+
+@pytest.mark.parametrize("kind", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("layout", ["token", "kernel"])
+def test_ragged_kernel_long_context(kind, layout):
+    """One decode row over 4,100 keys (65 splits of 4 pages, a page table
+    of 257 entries) and a 3-row chunk at the end of 4,003 keys."""
+    _need_card()
+    rng = np.random.default_rng(14)
+    args = _case(rng, 2, 64, 16, layout, torch.float32,
+                 [(1, 4100), (3, 4003)], num_pages=600)
+    assert args[3].shape[1] >= 256
+    sc = _ragged_pools(kind, args, rng, layout, 2)
+    ker = pa.ragged_paged_attention_kernel(*args, layout=layout, **sc)
+    plain = pa.ragged_paged_attention_torch(*args, layout=layout, **sc)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(ker, plain, atol=TOL, rtol=TOL)
+
+
+def test_ragged_kernel_call_has_no_host_sync():
+    """One wrapper call under torch's sync debug mode "error": the grid
+    and the workspace come from shapes alone, so nothing reads a device
+    value back to the host."""
+    _need_card()
+    args = _case(np.random.default_rng(15), 12, 64, 16, "token",
+                 torch.float32, [(1, 200), (40, 300)], num_pages=64)
+    pa.ragged_paged_attention_kernel(*args)      # builds and loads first
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pa.ragged_paged_attention_kernel(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
+
 @pytest.mark.parametrize("layout", ["token", "kernel"])
 @pytest.mark.parametrize("h,d,ps", SHAPES)
 def test_decode_kernel_int8_matches_plain_version(layout, h, d, ps):

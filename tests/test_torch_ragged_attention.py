@@ -7,6 +7,8 @@ Tolerance atol = rtol = 2e-5: fp32 throughout, but the online-softmax
 kernel and the two frameworks' einsums sum in different orders.  Rows
 no descriptor owns must be exactly 0 on every path.
 """
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -267,3 +269,268 @@ def test_kernel_argument_checks_raise(bad):
         pa._check_kernel_args(q, pool, pool, "token", **scales,
                               page_tables=pt, starts=desc, lens=desc,
                               kv_lens=desc)
+
+
+# ---- the CUDA kernel's work split and merge, modelled in torch ----------
+#
+# The kernel cuts each descriptor into tiles of RAGGED_TILE_ROWS rows (or
+# one decode row) and each tile's visible keys into splits of whole pages
+# (`ragged_work_items`); every item computes its rows' partial (m, l, acc)
+# over its split, and the partials of a tile are merged in split order.
+# The model below repeats that arithmetic on the CPU: it has to agree with
+# the plain version and with the JAX package on every pool dtype and
+# layout, which shows that the split and the merge lose nothing.
+
+SPLIT_CASES = {
+    # page 4: a padding descriptor, a chunk from position 0 (kv_len ==
+    # len), horizons mid-page, a 1-row tail tile (17 rows)
+    "ps4": (4, 2, 8, [(1, 13), (0, 9), (5, 12), (1, 1), (17, 17),
+                      (7, 70)]),
+    # page 5: splits of 13 pages (65 keys); tiles whose rows straddle a
+    # split boundary
+    "ps5": (5, 2, 6, [(3, 17), (1, 5), (17, 140), (0, 3), (20, 20)]),
+    # page 16: splits of 4 pages; a 33-row chunk at positions 117..149
+    # (tile 0 crosses the key-128 boundary), kv_len 64 and 65
+    "ps16": (16, 2, 16, [(1, 200), (33, 150), (1, 64), (1, 65), (0, 0)]),
+    # page 64: one page a split
+    "ps64": (64, 2, 32, [(1, 130), (20, 200), (1, 64), (16, 16)]),
+    # one decode row over 4100 keys and a short chunk at its end
+    "long": (16, 2, 8, [(1, 4100), (3, 4003)]),
+}
+
+
+def _split_fixture(name, kv_dtype, layout, seed=11):
+    ps, h, d, desc = SPLIT_CASES[name]
+    rng = np.random.default_rng(seed)
+    lens = np.array([ln for ln, _ in desc], np.int32)
+    kv_lens = np.array([kv for _, kv in desc], np.int32)
+    # row 0 and the last row are owned by no descriptor
+    starts = (np.concatenate([[0], np.cumsum(lens)[:-1]]) + 1).astype(
+        np.int32)
+    t = int(lens.sum()) + 2
+    need = [max(1, -(-int(kv) // ps)) for kv in kv_lens]
+    n_pages = sum(need) + 3
+    pt = np.zeros((len(desc), max(need)), np.int32)
+    perm = rng.permutation(n_pages)
+    used = 0
+    for i, n in enumerate(need):
+        pt[i, :n] = perm[used:used + n]
+        used += n
+    shape = (n_pages, ps, h, d)
+    pools, scales = [], {}
+    for key in ("k_scale", "v_scale"):
+        if kv_dtype == "int8":
+            pools.append(rng.integers(-127, 128, shape).astype(np.int8))
+            sc = rng.uniform(0.5, 4.0, (n_pages, h))
+            sc[::3] = 0.0
+            scales[key] = sc.astype(np.float32)
+        else:
+            p = rng.standard_normal(shape).astype(np.float32)
+            if kv_dtype == "bfloat16":   # values a bf16 pool holds exactly
+                p = np.array(jnp.asarray(p, jnp.bfloat16).astype(jnp.float32))
+            pools.append(p)
+    if layout == "kernel":
+        pools = [np.ascontiguousarray(p.transpose(2, 0, 1, 3)) for p in pools]
+    return dict(q=rng.standard_normal((t, h, d)).astype(np.float32),
+                k_pool=pools[0], v_pool=pools[1], page_tables=pt,
+                starts=starts, lens=lens, kv_lens=kv_lens, page_size=ps,
+                scales=scales)
+
+
+def _torch_args(fx, kv_dtype):
+    dt = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+          "int8": torch.int8}[kv_dtype]
+    args = [torch.from_numpy(fx[k]) for k in
+            ("q", "k_pool", "v_pool", "page_tables", "starts", "lens",
+             "kv_lens")]
+    args[1], args[2] = args[1].to(dt), args[2].to(dt)
+    return args, {k: torch.from_numpy(v) for k, v in fx["scales"].items()}
+
+
+def _split_keys(pool, scale, table, layout):
+    """[keys, H, D] f32 of the pages `table`, as the kernel reads them:
+    bf16 upcast, int8 times ``scale[page, h] * (1/127)`` per element."""
+    g = pool[:, table].permute(1, 2, 0, 3) if layout == "kernel" \
+        else pool[table]                                  # [np, ps, H, D]
+    g = g.to(torch.float32)
+    if scale is not None:
+        g = g * (scale[table] * pa.INV_QMAX)[:, None, :, None]
+    return g.reshape(-1, g.shape[2], g.shape[3])
+
+
+def _split_partial(q, k_pool, v_pool, page_tables, item, page_size, layout,
+                   scale, k_scale=None, v_scale=None):
+    """One item's (m, l, acc) for its rows and every head: m the row's
+    largest visible score of the split (-1e30 if none), l and acc the
+    sums of exp(score - m) and exp(score - m) * v over its visible keys;
+    masked keys weigh exactly 0."""
+    table = page_tables[item.desc, item.page_lo:item.page_hi].long()
+    k = _split_keys(k_pool, k_scale, table, layout)
+    v = _split_keys(v_pool, v_scale, table, layout)
+    rows = slice(item.row0, item.row0 + item.n_rows)
+    s = torch.einsum("nhd,khd->hnk", q[rows] * scale, k)
+    col = item.page_lo * page_size + torch.arange(k.shape[0])
+    qpos = item.qpos0 + torch.arange(item.n_rows)
+    vis = (col[None, :] <= qpos[:, None])[None]            # [1, n, K]
+    m = torch.where(vis, s, torch.full_like(s, pa.NEG_INF)).amax(-1)
+    p = torch.where(vis, torch.exp(s - m[..., None]), torch.zeros_like(s))
+    return m, p.sum(-1), torch.einsum("hnk,khd->hnd", p, v)
+
+
+def _merge(partials):
+    """The kernel's merge of one tile's split partials, in split order: a
+    running (M, L, acc) starting at (-1e30, 0, 0); split i rescales it by
+    exp(M - M') and adds its own by exp(m_i - M'), M' = max(M, m_i);
+    out = acc / L (0 where nothing was seen)."""
+    mm = torch.full_like(partials[0][0], pa.NEG_INF)
+    ll = torch.zeros_like(mm)
+    acc = torch.zeros_like(partials[0][2])
+    for m, l, a in partials:
+        m_new = torch.maximum(mm, m)
+        c_old, c_new = torch.exp(mm - m_new), torch.exp(m - m_new)
+        ll = ll * c_old + l * c_new
+        acc = acc * c_old[..., None] + a * c_new[..., None]
+        mm = m_new
+    inv = torch.where(ll > 0, 1.0 / ll, torch.zeros_like(ll))
+    return acc * inv[..., None]
+
+
+def _split_model(q, k_pool, v_pool, page_tables, starts, lens, kv_lens,
+                 page_size, layout="token", k_scale=None, v_scale=None):
+    """The CUDA kernel's arithmetic: its items (`ragged_work_items`),
+    each item's partial, each tile's partials merged in split order."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    out = torch.zeros_like(q)
+    items = pa.ragged_work_items(starts.tolist(), lens.tolist(),
+                                 kv_lens.tolist(), page_size,
+                                 page_tables.shape[1], q.shape[0])
+    tiles = {}
+    for it in items:
+        tiles.setdefault(it.row0, []).append(_split_partial(
+            q, k_pool, v_pool, page_tables, it, page_size, layout, scale,
+            k_scale, v_scale))
+    for it in items:
+        if it.split == 0:
+            rows = slice(it.row0, it.row0 + it.n_rows)
+            out[rows] = _merge(tiles[it.row0]).permute(1, 0, 2)
+    return out
+
+
+@pytest.mark.parametrize("kv_dtype", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("layout", ["token", "kernel"])
+@pytest.mark.parametrize("name", list(SPLIT_CASES))
+def test_split_model_matches_plain_version_and_jax(name, layout, kv_dtype):
+    """The split-and-merge model of the CUDA kernel against the plain
+    version and the JAX reference within 2e-5 (fp32; the summation
+    order differs), and against the Pallas kernel in interpret mode
+    within 2e-5 on f32 and int8 pools and 1e-2 on bf16 ones (the Pallas
+    body rounds its softmax weights to bf16 before P.V, as
+    `test_bf16_pool_matches_jax` says)."""
+    fx = _split_fixture(name, kv_dtype, layout)
+    args, scales = _torch_args(fx, kv_dtype)
+    model = _split_model(*args, fx["page_size"], layout, **scales).numpy()
+    plain = pa.ragged_paged_attention_torch(*args, layout=layout,
+                                            **scales).numpy()
+    np.testing.assert_allclose(model, plain, **TOL)
+    jargs = [fx[k] for k in ("q", "k_pool", "v_pool", "page_tables",
+                             "starts", "lens", "kv_lens")]
+    if kv_dtype == "bfloat16":
+        jargs[1] = jnp.asarray(jargs[1], jnp.bfloat16)
+        jargs[2] = jnp.asarray(jargs[2], jnp.bfloat16)
+    ref = np.asarray(jax_ragged_reference(*jargs, layout=layout,
+                                          **fx["scales"]))
+    pallas = np.asarray(jax_ragged(*jargs, use_kernel=True, interpret=True,
+                                   layout=layout, **fx["scales"]))
+    np.testing.assert_allclose(model, ref, **TOL)
+    bf16 = dict(atol=1e-2, rtol=1e-2)
+    np.testing.assert_allclose(model, pallas,
+                               **(bf16 if kv_dtype == "bfloat16" else TOL))
+    assert np.all(model[_unowned_rows(fx)] == 0.0)
+
+
+def _random_descriptors(rng, page_size):
+    """A packed step of random descriptors: decode rows, chunks (some from
+    position 0), len-0 padding, rows no descriptor owns."""
+    lens, kvs = [], []
+    for _ in range(int(rng.integers(1, 9))):
+        kind = rng.integers(0, 4)
+        ln = [1, int(rng.integers(2, 40)), 0, int(rng.integers(1, 20))][kind]
+        kv = ln if kind == 3 else ln + int(rng.integers(0, 300))
+        lens.append(ln)
+        kvs.append(kv)
+    gaps = rng.integers(0, 2, len(lens))
+    starts, row = [], 0
+    for ln, gap in zip(lens, gaps):
+        row += int(gap)
+        starts.append(row)
+        row += ln
+    max_pages = max(-(-kv // page_size) for kv in kvs) + int(
+        rng.integers(0, 3))
+    return starts, lens, kvs, max(max_pages, 1), row + 1
+
+
+@pytest.mark.parametrize("page_size", [4, 5, 16, 64])
+def test_work_items_cover_each_visible_pair_once(page_size):
+    """Over seeded random steps, the items cover every visible (row, key)
+    pair exactly once and nothing else, every item sees at least one key
+    of its split, its pages are whole and at least 64 keys unless it is
+    its tile's last split, and the items fit in the kernel's grid."""
+    rng = np.random.default_rng(page_size)
+    for _ in range(25):
+        starts, lens, kvs, max_pages, t = _random_descriptors(rng, page_size)
+        items = pa.ragged_work_items(starts, lens, kvs, page_size,
+                                     max_pages, t)
+        kmax = max_pages * page_size
+        seen = np.zeros((t, kmax), np.int64)
+        want = np.zeros((t, kmax), np.int64)
+        for st, ln, kv in zip(starts, lens, kvs):
+            for r in range(ln):
+                want[st + r, :min(kv - ln + r + 1, kmax)] = 1
+        for it in items:
+            keys = np.arange(it.page_lo * page_size, it.page_hi * page_size)
+            assert it.page_hi > it.page_lo
+            if it.split < it.n_splits - 1:
+                assert len(keys) >= pa.RAGGED_SPLIT_KEYS
+            assert it.n_rows in range(1, pa.RAGGED_TILE_ROWS + 1)
+            pos = it.qpos0 + np.arange(it.n_rows)
+            vis = keys[None, :] <= pos[:, None]
+            assert vis.any(), f"empty item {it}"
+            rows = it.row0 + np.arange(it.n_rows)
+            seen[rows[:, None], keys[None, :]] += vis
+        np.testing.assert_array_equal(seen, want)
+        assert len(items) <= pa.ragged_grid_blocks(t, len(lens), 1,
+                                                   max_pages, page_size)
+
+
+def test_fully_masked_split_merges_as_identity():
+    """A split a row cannot see leaves (m, l, acc) = (-1e30, 0, 0), and
+    the merge takes it as the identity wherever it stands: the result is
+    bitwise that of the merge without it.  A row that sees no split at
+    all comes out as zeros."""
+    rng = np.random.default_rng(5)
+    h, n, d = 2, 3, 8
+    parts = [(torch.from_numpy(rng.standard_normal((h, n))).float(),
+              torch.from_numpy(rng.uniform(1, 5, (h, n))).float(),
+              torch.from_numpy(rng.standard_normal((h, n, d))).float())
+             for _ in range(3)]
+    masked = (torch.full((h, n), pa.NEG_INF), torch.zeros(h, n),
+              torch.zeros(h, n, d))
+    want = _merge(parts)
+    for at in range(len(parts) + 1):
+        got = _merge(parts[:at] + [masked] + parts[at:])
+        assert torch.equal(got, want)
+    assert torch.equal(_merge([masked, masked]), torch.zeros(h, n, d))
+    # and through the model: the 7-row tile at positions 63..69 (page 4,
+    # splits of 64 keys) has a second split its first row cannot see
+    fx = _split_fixture("ps4", "float32", "token")
+    args, _ = _torch_args(fx, "float32")
+    items = pa.ragged_work_items(*(x.tolist() for x in args[4:7]), 4,
+                                 args[3].shape[1], args[0].shape[0])
+    blind = [it for it in items
+             if it.qpos0 < it.page_lo * 4 and it.n_splits > 1]
+    assert blind, "the fixture has no tile with a split its first row misses"
+    m, l, acc = _split_partial(args[0], args[1], args[2], args[3], blind[0],
+                               4, "token", 1.0 / math.sqrt(8))
+    assert float(m[:, 0].max()) == float(np.float32(pa.NEG_INF))
+    assert float(l[:, 0].abs().max()) == 0.0
+    assert float(acc[:, 0].abs().max()) == 0.0
