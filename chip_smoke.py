@@ -8,7 +8,8 @@ carries on:
 1. environment: the card's name and power limit; build every CUDA kernel
    of the port from the sources in this checkout, one nvcc (sm_90a) per
    source, all at once, printing ptxas's registers, shared memory and
-   spills, failing if any instantiation of the ragged kernel spills;
+   spills, failing if any instantiation of the ragged, chunk-prefill or
+   paged-decode kernel spills (12 each: they share one split walk);
    where the toolkit has cuobjdump, the count of tensor-core
    instructions (HMMA) in the SASS of each flash kernel (forward, dK/dV
    and dQ), none failing;
@@ -18,8 +19,10 @@ carries on:
    zero-scale pages, misaligned pools, both layouts; and an int8 pool
    without its scales must raise); the ragged kernel also on one decode
    row over 4,100 keys (a pages bucket of 272), 32 decode rows and a
-   64-row chunk whose tiles straddle its key splits, and launched twice
-   on every case, the two outputs bitwise equal; the flash kernels elementwise within
+   64-row chunk whose tiles straddle its key splits, the decode kernel
+   also on one row over 4,100 keys and the chunk kernel on a chunk whose
+   tiles straddle its key splits; each paged kernel launched twice on
+   every case, the two outputs bitwise equal; the flash kernels elementwise within
    atol = rtol = 2e-5 (out, lse) and 1e-4 (dq, dk, dv) in fp32, 2e-2 in
    bf16;
 3. the engine at GPT-2-small width on the card: 8 requests (6 greedy, 2
@@ -55,8 +58,10 @@ carries on:
    num_layers x steps;
 8. numbers: each kernel's and its plain version's times at its main
    path's shape beside its bound (the paged kernels on float32, int8
-   and bfloat16 pools, the ragged kernel with its live and launched
-   blocks; for
+   and bfloat16 pools, each with its live and launched blocks (from the
+   host mirrors of its items) and its counters' zero-fill alone; the
+   decode and chunk kernels also at 1, 2, 4 rows and 16, 32 chunk rows;
+   for
    the flash kernels, PyTorch's
    scaled_dot_product_attention forward and backward at that shape, the
    fp32 bound at the 3xTF32 rate with the fp32 FMA share beside it, the
@@ -441,12 +446,16 @@ def decode_cases(rng):
                                   **MAIN)),
         ("main_decode_dummy_rows", dict(lens=main_lens[:5] + [0, 0, 0],
                                         **MAIN)),
+        # the split walk: one row over 4,100 keys (65 splits of 4 pages)
+        ("long_decode_4100", dict(lens=[4100, 0],
+                                  **{**MAIN, "num_pages": 300,
+                                     "pages_bucket": 272})),
     ]
     return cases + int8_variants(cases, [
         "d8_ps4_token", "d8_ps4_kernel", "d128_ps64", "d100_ps5",
         "d6_ps4_token", "d30_ps16_kernel", "misaligned_token",
         "misaligned_kernel_bf16", "main_decode_token", "main_decode_kernel",
-        "main_decode_dummy_rows"])
+        "main_decode_dummy_rows", "long_decode_4100"])
 
 
 def chunk_cases():
@@ -479,12 +488,17 @@ def chunk_cases():
                                  **MAIN)),
         ("main_chunk_last_padded", dict(start=576, n=64, length=24,
                                         **MAIN)),
+        # the split walk: 64 rows at 100..163, whose 16-row tiles straddle
+        # key 128, and 17 rows ending in a one-row tile
+        ("chunk_64_straddling", dict(start=100, n=64, **MAIN)),
+        ("chunk_17_one_row_tile", dict(start=47, n=17, **MAIN)),
     ]
     return cases + int8_variants(cases, [
         "d8_ps4_start0", "d8_ps4_kernel_mid_page", "d128_ps64_padding",
         "d100_ps5", "d6_ps4_token_padding", "d30_ps16_kernel",
         "misaligned_token", "misaligned_kernel_bf16", "main_chunk_token",
-        "main_chunk_kernel", "main_chunk_last_padded"])
+        "main_chunk_kernel", "main_chunk_last_padded",
+        "chunk_64_straddling"])
 
 
 def decode_args(case):
@@ -522,6 +536,22 @@ def check_cases(name, cases, make, args_of, kernel, plain, extra=None):
 def phase_kernels(pa, rng):
     """Every kernel against its plain version over its cases; returns the
     worst max |diff| of each."""
+    def repeat(name, kernel, args_of):
+        """The split merge runs in a fixed order: a second launch on the
+        same inputs gives the same bits."""
+        def check(case, ker):
+            again = kernel(*args_of(case), layout=case["layout"],
+                           **case["scales"])
+            if not torch.equal(again, ker):
+                fail(f"two {name} launches on the same inputs differ")
+            return " repeat bitwise=True"
+        return check
+
+    ragged_again = repeat("ragged", pa.ragged_paged_attention_kernel,
+                          attn_args)
+    decode_again = repeat("decode", pa.paged_decode_attention_kernel,
+                          decode_args)
+
     def unowned_zero(case, ker):
         owned = torch.zeros(case["q"].shape[0], dtype=torch.bool,
                             device=case["q"].device)
@@ -529,22 +559,17 @@ def phase_kernels(pa, rng):
             owned[st:st + ln] = True
         if not bool((ker[~owned] == 0).all()):
             fail("ragged kernel wrote rows no descriptor owns")
-        # the split merge runs in a fixed order: a second launch on the
-        # same inputs gives the same bits
-        again = pa.ragged_paged_attention_kernel(
-            *attn_args(case), layout=case["layout"], **case["scales"])
-        if not torch.equal(again, ker):
-            fail("two ragged launches on the same inputs differ")
-        return (f" S={case['lens'].numel():2d} unowned rows zero=True "
-                f"repeat bitwise=True")
+        return (f" S={case['lens'].numel():2d} unowned rows zero=True"
+                + ragged_again(case, ker))
 
     def zero_rows(case, ker):
+        note = decode_again(case, ker)
         dummy = case["seq_lens"] == 0
         if not bool(dummy.any()):
-            return ""
+            return note
         if not bool((ker[dummy] == 0).all()):
             fail("paged decode kernel wrote non-zeros for a length-0 row")
-        return " len-0 rows zero=True"
+        return " len-0 rows zero=True" + note
 
     ragged = check_cases(
         "ragged", kernel_cases(rng), lambda **spec: make_case(rng, **spec),
@@ -558,7 +583,8 @@ def phase_kernels(pa, rng):
     chunk = check_cases(
         "chunk ", chunk_cases(),
         lambda **spec: make_chunk_case(rng, **spec), chunk_args,
-        pa.chunk_prefill_attention_kernel, pa.chunk_prefill_attention_torch)
+        pa.chunk_prefill_attention_kernel, pa.chunk_prefill_attention_torch,
+        repeat("chunk", pa.chunk_prefill_attention_kernel, chunk_args))
     # an int8 pool without its scales must raise, never decode raw codes
     case = make_decode_case(rng, h=2, d=8, ps=4, lens=[5, 3], num_pages=8,
                             kv_dtype=torch.int8)
@@ -1459,29 +1485,77 @@ def paged_numbers(pa, card, kv_dtype, tag):
         ms = time_ms(lambda: kernel(*args, **kw), 200)
         paced = time_ms(lambda: kernel(*args, **kw), 200, queued=False)
         plain_ms = time_ms(lambda: plain(*args, **kw), 50)
+        # the wrapper's zero-fill of its arrival counters, one per (row,
+        # head), alone: a kernel launch of its own before each call
+        fill_ms = time_ms(lambda: torch.zeros(
+            case["q"].shape[0] * case["q"].shape[1], dtype=torch.int32,
+            device="cuda"), 200)
         bound_ms, bound_by, nbytes, flops = bound_fn(case)
         numbers[name + tag] = (ms, plain_ms, bound_ms, bound_by, None)
-        blocks = (ragged_blocks(pa, case)
-                  if name == "ragged_paged_attention" else "")
+        blocks = paged_blocks(pa, name, case)
         log(f"  [{card}] {name} ({dtype} pools) at the main-path shape "
             f"({shape}, H=12, D=64, page_size=16, pages bucket 64): "
-            f"{ms * 1e3:.1f} us (launch-paced {paced * 1e3:.1f} us); plain "
+            f"{ms * 1e3:.1f} us (launch-paced {paced * 1e3:.1f} us; its "
+            f"counters' zero-fill alone {fill_ms * 1e3:.1f} us); plain "
             f"version {plain_ms * 1e3:.1f} us; bound {bound_ms * 1e3:.2f} us "
             f"by {bound_by} ({nbytes} B, {flops} flop) = "
             f"{bound_ms / ms:.1%} of bound{blocks}")
     return numbers
 
 
-def ragged_blocks(pa, case):
-    """The ragged kernel's blocks for `case`: live ones (its work items
+def paged_scaling(pa, card, kv_dtype):
+    """The decode and chunk kernels as their work grows, through the
+    wrappers: decode over the first 1, 2, 4 and 8 of the main path's
+    rows, and the main path's prompt's last 16, 32 and 64 rows as one
+    chunk, each with its live blocks.  Where time grows more slowly than
+    blocks, the chain of dependent steps within a block sets it."""
+    dtype = str(kv_dtype).replace("torch.", "")
+    lens = main_decode_lens(np.random.default_rng(4))
+    parts = []
+    for b in (1, 2, 4, 8):
+        case = make_decode_case(np.random.default_rng(5), lens=lens[:b],
+                                kv_dtype=kv_dtype, **MAIN)
+        ms = time_ms(lambda: pa.paged_decode_attention_kernel(
+            *decode_args(case), **case["scales"]), 200)
+        live = len(pa.decode_work_items(
+            lens[:b], MAIN["ps"], MAIN["pages_bucket"])) * MAIN["h"]
+        parts.append(f"B={b} {ms * 1e3:.1f} us ({live} blocks)")
+    log(f"  [{card}] paged_decode_attention ({dtype} pools) by batch: "
+        + ", ".join(parts))
+    parts = []
+    for n in (16, 32, 64):
+        case = make_chunk_case(np.random.default_rng(5), start=600 - n, n=n,
+                               kv_dtype=kv_dtype, **MAIN)
+        ms = time_ms(lambda: pa.chunk_prefill_attention_kernel(
+            *chunk_args(case), **case["scales"]), 200)
+        live = pa.chunk_grid_blocks(n, 600 - n, MAIN["h"], MAIN["ps"],
+                                    MAIN["pages_bucket"])
+        parts.append(f"n={n} {ms * 1e3:.1f} us ({live} blocks)")
+    log(f"  [{card}] chunk_prefill_attention ({dtype} pools) by chunk rows "
+        f"(ending at key 600): " + ", ".join(parts))
+
+
+def paged_blocks(pa, name, case):
+    """A paged kernel's blocks for `case`: live ones (its work items
     times the heads, by the host mirror of its split) of those launched
-    (the grid, from shapes alone)."""
-    t, h, _ = case["q"].shape
-    s_n, max_pages = case["page_tables"].shape
-    items = pa.ragged_work_items(
-        case["starts"].tolist(), case["lens"].tolist(),
-        case["kv_lens"].tolist(), MAIN["ps"], max_pages, t)
-    grid = pa.ragged_grid_blocks(t, s_n, h, max_pages, MAIN["ps"])
+    (its grid)."""
+    rows, h, _ = case["q"].shape
+    ps = MAIN["ps"]
+    if name == "ragged_paged_attention":
+        s_n, max_pages = case["page_tables"].shape
+        items = pa.ragged_work_items(
+            case["starts"].tolist(), case["lens"].tolist(),
+            case["kv_lens"].tolist(), ps, max_pages, rows)
+        grid = pa.ragged_grid_blocks(rows, s_n, h, max_pages, ps)
+    elif name == "paged_decode_attention":
+        max_pages = case["page_tables"].shape[1]
+        items = pa.decode_work_items(case["seq_lens"].tolist(), ps,
+                                     max_pages)
+        grid = pa.decode_grid_blocks(rows, h, max_pages, ps)
+    else:
+        max_pages = case["page_table"].shape[0]
+        items = pa.chunk_work_items(rows, case["start"], ps, max_pages)
+        grid = pa.chunk_grid_blocks(rows, case["start"], h, ps, max_pages)
     return f"; blocks {len(items) * h} live of {grid} launched"
 
 
@@ -1532,28 +1606,38 @@ def write_numbers(card):
         f"{paced * 1e3:.1f} us per layer on this host")
 
 
-def check_ragged_spills(build):
-    """Fail if ptxas spilled in any instantiation of the ragged kernel.
-    Its report comes from this run's build or, if the library was built
-    before, from compiling the source once more into the build
-    directory."""
-    report = build.build_logs.get("ragged_paged_attention")
-    if report is None:
-        out = build.BUILD_DIR / "ragged_ptxas_report.so"
-        report = subprocess.run(
-            [build.find_nvcc(), *build.NVCC_FLAGS, "-o", str(out),
-             str(build.CSRC_DIR / "ragged_paged_attention.cu")],
-            capture_output=True, text=True, check=True, timeout=600).stdout
-        out.unlink(missing_ok=True)
-    entries = [line for line in report.splitlines()
-               if "Compiling entry" in line and "rpa_kernel" in line]
-    spills = [line.strip() for line in report.splitlines()
-              if "spill" in line
-              and "0 bytes spill stores, 0 bytes spill loads" not in line]
-    log(f"  ragged kernel: {len(entries)} instantiations, "
-        f"{'spills: ' + '; '.join(spills) if spills else 'no spills'}")
-    if not entries or spills:
-        fail("a ragged instantiation spills (or ptxas printed no report)")
+# the paged kernels' libraries and their kernels' names: 12 instantiations
+# each (f32, bf16, int8 x 16-byte or plain-load staging x D up to 64 or
+# 128) of the one split walk
+PAGED_ENTRIES = {"ragged_paged_attention": "rpa_kernel",
+                 "chunk_prefill_attention": "cpa_kernel",
+                 "paged_decode_attention": "pda_kernel"}
+
+
+def check_paged_spills(build):
+    """Fail if ptxas spilled in any instantiation of the ragged, chunk or
+    decode kernel, or reported other than 12 of one.  Each report comes
+    from this run's build or, if the library was built before, from
+    compiling the source once more into the build directory."""
+    for lib, kernel in PAGED_ENTRIES.items():
+        report = build.build_logs.get(lib)
+        if report is None:
+            out = build.BUILD_DIR / f"{lib}_ptxas_report.so"
+            report = subprocess.run(
+                [build.find_nvcc(), *build.NVCC_FLAGS, "-o", str(out),
+                 str(build.CSRC_DIR / f"{lib}.cu")],
+                capture_output=True, text=True, check=True,
+                timeout=600).stdout
+            out.unlink(missing_ok=True)
+        entries = [line for line in report.splitlines()
+                   if "Compiling entry" in line and kernel in line]
+        spills = [line.strip() for line in report.splitlines()
+                  if "spill" in line
+                  and "0 bytes spill stores, 0 bytes spill loads" not in line]
+        log(f"  {kernel}: {len(entries)} instantiations, "
+            f"{'spills: ' + '; '.join(spills) if spills else 'no spills'}")
+        if len(entries) != 12 or spills:
+            fail(f"{kernel}: want 12 instantiations and no spill")
 
 
 def check_tensor_cores(build, lib):
@@ -1622,7 +1706,7 @@ def main():
             if ("registers" in line or "spill" in line
                     or "Compiling entry" in line):
                 log(f"    ptxas {name}: {line.strip()}")
-    check_ragged_spills(_build)
+    check_paged_spills(_build)
     check_tensor_cores(_build, libs[lib_names.index("flash_attention")])
 
     rng = np.random.default_rng(0)
@@ -1684,6 +1768,8 @@ def main():
     numbers = paged_numbers(pa, card, torch.float32, "")
     numbers.update(paged_numbers(pa, card, torch.int8, "_int8"))
     paged_numbers(pa, card, torch.bfloat16, "_bf16")  # printed only
+    for kv_dtype in (torch.float32, torch.int8):
+        paged_scaling(pa, card, kv_dtype)
     log(f"  [{card}] library call: none for the paged kernels — no single "
         f"PyTorch call reads a paged KV cache through page tables")
     write_numbers(card)

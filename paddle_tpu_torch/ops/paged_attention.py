@@ -1,6 +1,6 @@
 """Paged attention over the KV page pools: three hand-written CUDA
 kernels, each with its wrapper and its plain PyTorch version, and the
-host mirrors of the ragged kernel's work split and of the JAX package's
+host mirrors of the kernels' work split and of the JAX package's
 score-block metric.
 
 - `ragged_paged_attention_kernel` (plain: `ragged_paged_attention_torch`),
@@ -31,9 +31,11 @@ H100.
   dequantizes a pool.
 - The plain versions are the gather-and-mask constructions of the JAX
   references, on any device.
-- `ragged_work_items` lists on the host the (tile, split) items the
-  ragged kernel runs per head; `ragged_score_blocks` counts the
-  [8, page_size] score blocks of the JAX package's
+- The three kernels run one split walk (``csrc/paged_attention_common.cuh``):
+  `ragged_work_items`, `chunk_work_items` and `decode_work_items` list
+  on the host the (tile, split) items each runs per head, and the
+  ``*_grid_blocks`` functions their grids; `ragged_score_blocks` counts
+  the [8, page_size] score blocks of the JAX package's
   ``generation.step_score_blocks`` metric.
 """
 import ctypes
@@ -349,13 +351,7 @@ def ragged_paged_attention_kernel(q, k_pool, v_pool, page_tables, starts,
     t, h, d = q.shape
     s_n, max_pages = page_tables.shape
     out = torch.zeros_like(q)
-    # the split partials (m, l, acc) and the per-(tile, head) arrival
-    # counters, sized from shapes alone: no device value is read
-    ms = ragged_max_splits(max_pages, page_size)
-    record = -(-(d + 2) // 4) * 4      # acc [D], m, l; 16-byte aligned
-    ws = torch.empty(t * h * ms * record, dtype=torch.float32,
-                     device=q.device)
-    counters = torch.zeros(t * h, dtype=torch.int32, device=q.device)
+    ws, counters = _split_scratch(q, max_pages, page_size)
     _launch(ragged_paged_attention_kernel, _RAGGED_LIB,
             "rpa_ragged_paged_attention", q, k_pool, v_pool, layout,
             page_size, page_tables.data_ptr(), max_pages, starts.data_ptr(),
@@ -363,6 +359,21 @@ def ragged_paged_attention_kernel(q, k_pool, v_pool, page_tables, starts,
             ws.data_ptr(), counters.data_ptr(), t, s_n, h, d, scale=scale,
             k_scale=k_scale, v_scale=v_scale)
     return out
+
+
+def _split_scratch(q, max_pages, page_size):
+    """The split walk's workspace and arrival counters for q's rows [*, H,
+    D], sized from shapes alone (no device value is read): the split
+    partials (acc, m, l) as ``[rows, H, max splits, D + 2 rounded up to
+    16 bytes]`` float32, and one int32 counter per (row, head), zero (the
+    kernels leave them zero)."""
+    rows, h, d = q.shape
+    ms = ragged_max_splits(max_pages, page_size)
+    record = -(-(d + 2) // 4) * 4
+    ws = torch.empty(rows * h * ms * record, dtype=torch.float32,
+                     device=q.device)
+    counters = torch.zeros(rows * h, dtype=torch.int32, device=q.device)
+    return ws, counters
 
 
 @_counted
@@ -396,11 +407,14 @@ def paged_decode_attention_kernel(q, k_pool, v_pool, page_tables, seq_lens,
     out = torch.empty_like(q)
     if b == 0:
         return out
+    max_pages = page_tables.shape[1]
+    ws, counters = _split_scratch(q, max_pages, page_size)
     _launch(paged_decode_attention_kernel, _DECODE_LIB,
             "pda_paged_decode_attention", q, k_pool, v_pool, layout,
-            page_size, page_tables.data_ptr(), page_tables.shape[1],
-            seq_lens.data_ptr(), out.data_ptr(), b, h, d, scale=scale,
-            k_scale=k_scale, v_scale=v_scale)
+            page_size, page_tables.data_ptr(), max_pages,
+            seq_lens.data_ptr(), out.data_ptr(), ws.data_ptr(),
+            counters.data_ptr(), b, h, d, scale=scale, k_scale=k_scale,
+            v_scale=v_scale)
     return out
 
 
@@ -433,11 +447,13 @@ def chunk_prefill_attention_kernel(q, k_pool, v_pool, page_table, start,
     out = torch.empty_like(q)
     if n == 0:
         return out
+    max_pages = page_table.shape[0]
+    ws, counters = _split_scratch(q, max_pages, page_size)
     _launch(chunk_prefill_attention_kernel, _CHUNK_LIB,
             "cpa_chunk_prefill_attention", q, k_pool, v_pool, layout,
-            page_size, page_table.data_ptr(), page_table.shape[0], start,
-            out.data_ptr(), n, h, d, scale=scale, k_scale=k_scale,
-            v_scale=v_scale)
+            page_size, page_table.data_ptr(), max_pages, start,
+            out.data_ptr(), ws.data_ptr(), counters.data_ptr(), n, h, d,
+            scale=scale, k_scale=k_scale, v_scale=v_scale)
     return out
 
 
@@ -448,8 +464,10 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _ENTRIES = {
     _RAGGED_LIB: ("rpa_ragged_paged_attention",
                   [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I]),
-    _DECODE_LIB: ("pda_paged_decode_attention", [_P, _I, _P, _P, _I, _I, _I]),
-    _CHUNK_LIB: ("cpa_chunk_prefill_attention", [_P, _I, _I, _P, _I, _I, _I]),
+    _DECODE_LIB: ("pda_paged_decode_attention",
+                  [_P, _I, _P, _P, _P, _P, _I, _I, _I]),
+    _CHUNK_LIB: ("cpa_chunk_prefill_attention",
+                 [_P, _I, _I, _P, _P, _P, _I, _I, _I]),
 }
 
 
@@ -493,6 +511,33 @@ RaggedItem = collections.namedtuple(
     "RaggedItem", "desc row0 n_rows qpos0 split n_splits page_lo page_hi")
 
 
+def ragged_tile_splits(length, kv_len, tile, page_size, max_pages):
+    """Splits of tile `tile` (rows ``[16 tile, 16 tile + 16)`` of
+    `length`) of a sequence whose `length` rows end at its `kv_len`-th
+    key: its keys up to its last row's position (at most `max_pages`
+    pages) in `ragged_split_pages` pages a split; 0 when no row of the
+    tile sees a key.  The host mirror of the kernels' ``rpa_tile_splits``."""
+    off = int(tile) * RAGGED_TILE_ROWS
+    length, kv_len, ps = int(length), int(kv_len), int(page_size)
+    qlast = kv_len - length + off + min(RAGGED_TILE_ROWS, length - off) - 1
+    if qlast < 0:
+        return 0
+    return -(-min(qlast // ps + 1, int(max_pages)) // ragged_split_pages(ps))
+
+
+def _tile_items(desc, row0, length, kv_len, tile, page_size, max_pages):
+    """The items of one tile in split order, its rows at ``row0 + 16
+    tile`` on q's row axis."""
+    ps, sp = int(page_size), ragged_split_pages(page_size)
+    off = int(tile) * RAGGED_TILE_ROWS
+    rows = min(RAGGED_TILE_ROWS, length - off)
+    qpos0 = kv_len - length + off
+    n_splits = ragged_tile_splits(length, kv_len, tile, ps, max_pages)
+    pages = min((qpos0 + rows - 1) // ps + 1, int(max_pages))
+    return [RaggedItem(desc, row0 + off, rows, qpos0, k, n_splits, k * sp,
+                       min((k + 1) * sp, pages)) for k in range(n_splits)]
+
+
 def ragged_work_items(starts, lens, kv_lens, page_size, max_pages, n_rows):
     """Host mirror of the CUDA ragged kernel's work split: the items it
     runs for each head, in its order.  Not used on the serving path.
@@ -501,37 +546,67 @@ def ragged_work_items(starts, lens, kv_lens, page_size, max_pages, n_rows):
     row (a one-row tile is a decode row); a tile walks pages ``0 ..
     qpos_last // page_size`` (at most `max_pages`), where qpos_last is
     the position of its last row, cut into splits of
-    `ragged_split_pages` pages.  Each item is a `RaggedItem`: packed rows
-    ``[row0, row0 + n_rows)`` at positions ``qpos0, qpos0 + 1, ...``,
-    split `split` of the tile's `n_splits`, over the descriptor's page
-    table entries ``[page_lo, page_hi)``.  Tiles whose rows see no key
-    (len 0, or every position negative) have no item.  The items of
-    multi-row tiles come first (they take longest), then those of
-    one-row tiles, each class in descriptor, tile and split order.
-    `n_rows` (T) only checks that every item's rows lie on the packed
-    axis."""
-    ps = int(page_size)
-    sp = ragged_split_pages(ps)
-    qb = RAGGED_TILE_ROWS
+    `ragged_split_pages` pages (`ragged_tile_splits`).  Each item is a
+    `RaggedItem`: packed rows ``[row0, row0 + n_rows)`` at positions
+    ``qpos0, qpos0 + 1, ...``, split `split` of the tile's `n_splits`,
+    over the descriptor's page table entries ``[page_lo, page_hi)``.
+    Tiles whose rows see no key (len 0, or every position negative) have
+    no item.  The items of multi-row tiles come first (they take
+    longest), then those of one-row tiles, each class in descriptor, tile
+    and split order.  `n_rows` (T) only checks that every item's rows lie
+    on the packed axis."""
     multi, one = [], []
     for s, (st, ln, kv) in enumerate(zip(starts, lens, kv_lens)):
         st, ln, kv = int(st), int(ln), int(kv)
-        for off in range(0, max(ln, 0), qb):
-            rows = min(qb, ln - off)
-            qpos0 = kv - ln + off
-            qlast = qpos0 + rows - 1
-            if qlast < 0:
-                continue
-            if not (0 <= st + off and st + off + rows <= int(n_rows)):
+        for t in range(-(-max(ln, 0) // RAGGED_TILE_ROWS)):
+            items = _tile_items(s, st, ln, kv, t, page_size, max_pages)
+            if items and not (0 <= items[0].row0 and items[0].row0
+                              + items[0].n_rows <= int(n_rows)):
                 raise ValueError(f"descriptor {s} owns rows past the "
                                  f"packed axis of {n_rows}")
-            pages = min(qlast // ps + 1, int(max_pages))
-            n_splits = -(-pages // sp)
-            (one if rows == 1 else multi).extend(
-                RaggedItem(s, st + off, rows, qpos0, k, n_splits, k * sp,
-                           min((k + 1) * sp, pages))
-                for k in range(n_splits))
+            (one if items and items[0].n_rows == 1 else multi).extend(items)
     return multi + one
+
+
+def chunk_work_items(n, start, page_size, max_pages):
+    """Host mirror of the CUDA chunk-prefill kernel's items for each head:
+    the ragged kernel's items of one descriptor (``lens = [n]``,
+    ``kv_lens = [start + n]``, rows from 0), its tiles from the last (the
+    most splits) to the first, each in split order.  Item i of the list
+    is the one block i of a head runs.  Not used on the serving path."""
+    n, start = int(n), int(start)
+    return [it for t in reversed(range(-(-n // RAGGED_TILE_ROWS)))
+            for it in _tile_items(0, 0, n, start + n, t, page_size,
+                                  max_pages)]
+
+
+def chunk_grid_blocks(n, start, n_heads, page_size, max_pages):
+    """The CUDA chunk-prefill kernel's grid: exactly its items (every
+    tile's splits, counted on the host from `n` and `start`) times the
+    heads."""
+    n, start = int(n), int(start)
+    return int(n_heads) * sum(
+        ragged_tile_splits(n, start + n, t, page_size, max_pages)
+        for t in range(-(-n // RAGGED_TILE_ROWS)))
+
+
+def decode_work_items(seq_lens, page_size, max_pages):
+    """Host mirror of the CUDA paged-decode kernel's live items for each
+    head: the ragged kernel's items of one-row descriptors (row b over
+    ``seq_lens[b]`` keys, at position ``seq_lens[b] - 1``), in row and
+    split order.  A row that sees no key has none.  Not used on the
+    serving path."""
+    return [it for b, kv in enumerate(seq_lens)
+            for it in _tile_items(b, b, 1, int(kv), 0, page_size,
+                                  max_pages)]
+
+
+def decode_grid_blocks(n_rows, n_heads, max_pages, page_size):
+    """The CUDA paged-decode kernel's grid, from shapes alone (the host
+    reads no seq_len): every row's most splits times the heads.  Blocks
+    past their row's splits exit at once."""
+    return (int(n_rows) * ragged_max_splits(max_pages, page_size)
+            * int(n_heads))
 
 
 def ragged_score_blocks(starts, lens, kv_lens, page_size, n_pages, n_rows,

@@ -129,6 +129,12 @@ def test_decode_kernel_matches_plain_version(layout, kv_dtype, h, d, ps):
     assert bool((ker[0] == 0).all())
 
 
+# start 0, a chunk ending mid-page, 33 rows at 117..149 (16-row tiles
+# that straddle key 128, a split boundary at page 4, 16 and 64, and a
+# one-row last tile), the main path's chunk
+CHUNKS = [(8, 0), (13, 21), (33, 117), (64, 536)]
+
+
 def _chunk_case(rng, h, d, ps, layout, kv_dtype, n, start):
     """One sequence holding start + n keys (and two spare table slots of
     page 0), its chunk's n query rows."""
@@ -146,12 +152,13 @@ def _chunk_case(rng, h, d, ps, layout, kv_dtype, n, start):
 @pytest.mark.parametrize("kv_dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("h,d,ps", [(2, 8, 4), (12, 64, 16), (2, 128, 64),
                                     (2, 6, 4), (3, 30, 16), (2, 100, 5)])
-@pytest.mark.parametrize("n,start", [(8, 0), (13, 21), (64, 536)])
+@pytest.mark.parametrize("n,start", CHUNKS)
 def test_chunk_kernel_matches_plain_version(layout, kv_dtype, h, d, ps, n,
                                             start):
-    """Start 0, a chunk ending mid-page, the main path's 64-row chunk at
-    position 536; every row (padding rows compute at their nominal
-    positions in both versions)."""
+    """Start 0, a chunk ending mid-page, tiles that straddle their key
+    splits, the main path's 64-row chunk at position 536; every row
+    (padding rows compute at their nominal positions in both
+    versions)."""
     _need_card()
     args = _chunk_case(np.random.default_rng(3), h, d, ps, layout, kv_dtype,
                        n, start)
@@ -346,7 +353,7 @@ def test_decode_kernel_int8_matches_plain_version(layout, h, d, ps):
 
 @pytest.mark.parametrize("layout", ["token", "kernel"])
 @pytest.mark.parametrize("h,d,ps", SHAPES)
-@pytest.mark.parametrize("n,start", [(8, 0), (13, 21), (64, 536)])
+@pytest.mark.parametrize("n,start", CHUNKS)
 def test_chunk_kernel_int8_matches_plain_version(layout, h, d, ps, n,
                                                  start):
     _need_card()
@@ -362,6 +369,78 @@ def test_chunk_kernel_int8_matches_plain_version(layout, h, d, ps, n,
     assert pa.chunk_prefill_attention_kernel.launches_by_dtype["int8"] == \
         before + 1
     torch.testing.assert_close(ker, plain, atol=TOL, rtol=TOL)
+
+
+@pytest.mark.parametrize("kind", ["float32", "bfloat16", "int8"])
+def test_decode_and_chunk_kernels_are_deterministic(kind):
+    """Both kernels merge a tile's key splits in a fixed order with no
+    float atomics: two launches on the same inputs give the same bits.
+    The main path's shapes: 8 decode rows over 16..632 keys and a dummy
+    row (exact zeros), the 64-row chunk at position 536."""
+    _need_card()
+    rng = np.random.default_rng(17)
+    dec = _decode_case(rng, 12, 64, 16, "token", torch.float32,
+                       [516, 68, 0, 300, 16, 632, 100, 250, 17],
+                       num_pages=400)
+    chunk = _chunk_case(rng, 12, 64, 16, "token", torch.float32, 64, 536)
+    outs = []
+    for kernel, plain, args, extra in (
+            (pa.paged_decode_attention_kernel,
+             pa.paged_decode_attention_torch, dec, ()),
+            (pa.chunk_prefill_attention_kernel,
+             pa.chunk_prefill_attention_torch, chunk, (536,))):
+        sc = _ragged_pools(kind, args, rng, "token", 12)
+        first = kernel(*args, *extra, **sc)
+        second = kernel(*args, *extra, **sc)
+        torch.cuda.synchronize()
+        assert torch.equal(first, second)
+        torch.testing.assert_close(first, plain(*args, *extra, **sc),
+                                   atol=TOL, rtol=TOL)
+        outs.append(first)
+    assert bool((outs[0][2] == 0).all())
+
+
+@pytest.mark.parametrize("kind", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("layout", ["token", "kernel"])
+def test_decode_kernel_long_context(kind, layout):
+    """One decode row over 4,100 keys (65 splits of 4 pages, a page table
+    of 259 entries) beside a seq_len 0 row (exact zeros) and a short
+    one."""
+    _need_card()
+    rng = np.random.default_rng(18)
+    args = _decode_case(rng, 2, 64, 16, layout, torch.float32,
+                        [4100, 0, 3], num_pages=600)
+    assert args[3].shape[1] >= 256
+    sc = _ragged_pools(kind, args, rng, layout, 2)
+    ker = pa.paged_decode_attention_kernel(*args, layout=layout, **sc)
+    plain = pa.paged_decode_attention_torch(*args, layout=layout, **sc)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(ker, plain, atol=TOL, rtol=TOL)
+    assert bool((ker[1] == 0).all())
+
+
+def test_decode_and_chunk_kernel_calls_have_no_host_sync():
+    """One call of each wrapper under torch's sync debug mode "error":
+    the decode grid and both workspaces come from shapes alone, the
+    chunk's items from host ints, so nothing reads a device value back
+    to the host."""
+    _need_card()
+    rng = np.random.default_rng(19)
+    dec = _decode_case(rng, 12, 64, 16, "token", torch.float32,
+                       [200, 0, 333], num_pages=64)
+    chunk = _chunk_case(rng, 12, 64, 16, "token", torch.float32, 40, 300)
+    calls = (lambda: pa.paged_decode_attention_kernel(*dec),
+             lambda: pa.chunk_prefill_attention_kernel(*chunk, 300))
+    for call in calls:      # builds and loads first
+        call()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for call in calls:
+            call()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
 
 
 @pytest.mark.parametrize("layout", ["token", "kernel"])

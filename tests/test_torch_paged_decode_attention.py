@@ -21,6 +21,7 @@ from paddle_tpu_torch.generation.decode_attention import (
     paged_decode_attention, paged_decode_attention_reference)
 from paddle_tpu_torch.ops import _build
 from paddle_tpu_torch.ops import paged_attention as pa
+from test_torch_ragged_attention import _items_model
 
 TOL = dict(atol=2e-5, rtol=2e-5)
 # lengths: a ragged tail over 4 pages, a dummy row, exactly one page, two
@@ -198,3 +199,132 @@ def test_kernel_argument_checks_raise(bad):
     with pytest.raises(ValueError):
         pa._check_kernel_args(q, pool, pool, "token", page_tables=pt,
                               seq_lens=lens)
+
+
+# ---- the CUDA kernel's items and split walk, modelled in torch ----------
+#
+# The kernel runs the ragged kernel's split walk over one-row descriptors
+# (lens 1, kv_lens seq_lens): `decode_work_items` lists its live items,
+# and the split-and-merge model of tests/test_torch_ragged_attention.py
+# over those items has to agree with the plain version and with the JAX
+# package.
+
+# (page_size, H, D, seq_lens)
+SPLIT_CASES = {
+    # page 4: splits of 16 pages; dummy rows, one page, 64 and 65 keys
+    "ps4": (4, 2, 8, [0, 13, 70, 1, 64, 65]),
+    # page 5: splits of 13 pages (65 keys)
+    "ps5": (5, 2, 6, [66, 0, 5, 130]),
+    # page 16: splits of 4 pages
+    "ps16": (16, 2, 16, [200, 0, 64, 65, 1]),
+    # one row over 4,100 keys (65 splits): a page table of 257 entries
+    "long": (16, 2, 8, [4100, 0, 3]),
+}
+
+
+def _split_fixture(name, kv_dtype, layout, seed=51):
+    """The case's rows over distinct random pages of a pool of random
+    values (bf16: values a bf16 pool holds exactly; int8: random codes
+    with [P, H] scales, every third page's 0); the table axis padded
+    with page 0 by one column."""
+    ps, h, d, lens = SPLIT_CASES[name]
+    rng = np.random.default_rng(seed)
+    need = [-(-n // ps) for n in lens]
+    n_pages = sum(need) + 3
+    pt = np.zeros((len(lens), max(need) + 1), np.int32)
+    perm = rng.permutation(n_pages)
+    used = 0
+    for i, k in enumerate(need):
+        pt[i, :k] = perm[used:used + k]
+        used += k
+    shape = (n_pages, ps, h, d)
+    pools, scales = [], {}
+    for key in ("k_scale", "v_scale"):
+        if kv_dtype == "int8":
+            pools.append(rng.integers(-127, 128, shape).astype(np.int8))
+            sc = rng.uniform(0.5, 4.0, (n_pages, h))
+            sc[::3] = 0.0
+            scales[key] = sc.astype(np.float32)
+        else:
+            p = rng.standard_normal(shape).astype(np.float32)
+            if kv_dtype == "bfloat16":
+                p = np.array(jnp.asarray(p, jnp.bfloat16).astype(jnp.float32))
+            pools.append(p)
+    if layout == "kernel":
+        pools = [np.ascontiguousarray(p.transpose(2, 0, 1, 3)) for p in pools]
+    return dict(q=rng.standard_normal((len(lens), h, d)).astype(np.float32),
+                k_pool=pools[0], v_pool=pools[1], page_tables=pt,
+                seq_lens=np.asarray(lens, np.int32), page_size=ps,
+                scales=scales)
+
+
+@pytest.mark.parametrize("kv_dtype", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("layout", ["token", "kernel"])
+@pytest.mark.parametrize("name", list(SPLIT_CASES))
+def test_split_model_matches_plain_version_and_jax(name, layout, kv_dtype):
+    """The split walk over the decode kernel's items against the plain
+    version and the JAX reference within 2e-5, and the Pallas kernel in
+    interpret mode within 2e-5 (f32, int8) or 1e-2 (bf16: the Pallas body
+    rounds its softmax weights to bf16 before P.V); a seq_len 0 row has
+    no item and comes out as exact zeros."""
+    fx = _split_fixture(name, kv_dtype, layout)
+    dt = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+          "int8": torch.int8}[kv_dtype]
+    args = [torch.from_numpy(fx[k]) for k in
+            ("q", "k_pool", "v_pool", "page_tables", "seq_lens")]
+    args[1], args[2] = args[1].to(dt), args[2].to(dt)
+    scales = {k: torch.from_numpy(v) for k, v in fx["scales"].items()}
+    items = pa.decode_work_items(fx["seq_lens"].tolist(), fx["page_size"],
+                                 fx["page_tables"].shape[1])
+    model = _items_model(*args[:4], items, fx["page_size"], layout,
+                         **scales).numpy()
+    plain = pa.paged_decode_attention_torch(*args, layout=layout,
+                                            **scales).numpy()
+    np.testing.assert_allclose(model, plain, **TOL)
+    jargs = _args(fx)
+    if kv_dtype == "bfloat16":
+        jargs[1] = jnp.asarray(jargs[1], jnp.bfloat16)
+        jargs[2] = jnp.asarray(jargs[2], jnp.bfloat16)
+    ref = np.asarray(jax_decode_reference(*jargs, layout=layout,
+                                          **fx["scales"]))
+    pallas = np.asarray(jax_decode(*jargs, use_kernel=True, interpret=True,
+                                   layout=layout, **fx["scales"]))
+    np.testing.assert_allclose(model, ref, **TOL)
+    np.testing.assert_allclose(
+        model, pallas,
+        **(dict(atol=1e-2, rtol=1e-2) if kv_dtype == "bfloat16" else TOL))
+    dummy = fx["seq_lens"] == 0
+    assert dummy.any() and np.all(model[dummy] == 0.0)
+
+
+@pytest.mark.parametrize("page_size", [4, 5, 16, 64])
+def test_decode_work_items_are_the_ragged_items_of_one_row_descriptors(
+        page_size):
+    """Over seeded random batches (seq_len 0 rows, lengths past the
+    table included): the kernel's live items are exactly the ragged
+    kernel's items of one-row descriptors (lens 1, kv_lens seq_lens), in
+    the same order; a seq_len 0 row has none; they cover each visible
+    (row, key) pair once; and they fit in the grid, which is fixed by
+    shapes alone."""
+    rng = np.random.default_rng(page_size)
+    for _ in range(30):
+        b = int(rng.integers(1, 10))
+        lens = [int(x) for x in rng.integers(0, 700, b)]
+        lens[int(rng.integers(0, b))] = 0
+        max_pages = max(-(-max(lens) // page_size)
+                        + int(rng.integers(-2, 3)), 1)
+        items = pa.decode_work_items(lens, page_size, max_pages)
+        assert items == pa.ragged_work_items(range(b), [1] * b, lens,
+                                             page_size, max_pages, b)
+        assert not any(lens[it.row0] == 0 for it in items)
+        assert len(items) * 3 <= pa.decode_grid_blocks(b, 3, max_pages,
+                                                       page_size)
+        kmax = max_pages * page_size
+        seen = np.zeros((b, kmax), np.int64)
+        for it in items:
+            assert it.n_rows == 1 and it.qpos0 == lens[it.row0] - 1
+            keys = np.arange(it.page_lo * page_size, it.page_hi * page_size)
+            seen[it.row0, keys] += keys <= it.qpos0
+        visible = (np.arange(kmax)[None, :]
+                   < np.asarray(lens)[:, None]).astype(np.int64)
+        np.testing.assert_array_equal(seen, visible)

@@ -399,11 +399,20 @@ def _split_model(q, k_pool, v_pool, page_tables, starts, lens, kv_lens,
                  page_size, layout="token", k_scale=None, v_scale=None):
     """The CUDA kernel's arithmetic: its items (`ragged_work_items`),
     each item's partial, each tile's partials merged in split order."""
-    scale = 1.0 / math.sqrt(q.shape[-1])
-    out = torch.zeros_like(q)
     items = pa.ragged_work_items(starts.tolist(), lens.tolist(),
                                  kv_lens.tolist(), page_size,
                                  page_tables.shape[1], q.shape[0])
+    return _items_model(q, k_pool, v_pool, page_tables, items, page_size,
+                        layout, k_scale, v_scale)
+
+
+def _items_model(q, k_pool, v_pool, page_tables, items, page_size,
+                 layout="token", k_scale=None, v_scale=None):
+    """The split walk's arithmetic over `items` (each tile's listed in
+    split order): each item's partial, each tile's partials merged in
+    split order; rows no item covers are 0."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    out = torch.zeros_like(q)
     tiles = {}
     for it in items:
         tiles.setdefault(it.row0, []).append(_split_partial(
