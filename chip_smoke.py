@@ -56,7 +56,18 @@ carries on:
    card, B=8, L=512, 3 warm-up and 10 timed steps on one batch: the
    loss finite and falling, and each flash kernel's launches equal to
    num_layers x steps;
-8. numbers: each kernel's and its plain version's times at its main
+8. encoder pretraining (the JAX package's ``bench_bert`` configuration:
+   BERT-base, vocab 30522, 12 layers of 768, 12 heads, FFN 3072, AdamW,
+   bf16 amp; attention on the composite path, as in the JAX package):
+   (a) BERT-base at dropout 0, then ERNIE-base (vocab 18000, task
+   embeddings, labels from ``apply_knowledge_mask`` with -100 off the
+   masked spans), the card's first three steps under a LinearWarmup over
+   PolynomialDecay schedule against the same weights and batch on the
+   CPU (B=2, L=128), held by phase 7's rule; (b) the bench's run on the
+   card, dropout 0.1, lr 1e-4 constant, B=64, L=128, 3 warm-up and 10
+   timed steps on one batch: the loss finite and falling, and no kernel
+   of the port launched;
+9. numbers: each kernel's and its plain version's times at its main
    path's shape beside its bound (the paged kernels on float32, int8
    and bfloat16 pools, each with its live and launched blocks (from the
    host mirrors of its items) and its counters' zero-fill alone; the
@@ -68,9 +79,11 @@ carries on:
    forward and the whole backward through autograd against sdpa's in
    turns, with the names of sdpa's forward and backward kernels), the
    int8 write's time per layer, each engine's tokens/s, ms per step and
-   time to first token (float32 and int8), and the trainer's tokens/s,
-   ms per step, peak memory and device idle share;
-9. the result line.
+   time to first token (float32 and int8), the GPT trainer's tokens/s,
+   ms per step, peak memory and device idle share, and BERT-base's
+   samples/s, tokens/s, ms per step, peak memory, model TFLOP/s
+   (bench.py's formula), device idle share and top kernels;
+10. the result line.
 
 Each phase prints its wall seconds.
 
@@ -129,6 +142,14 @@ TRAIN = dict(lr=1e-4, batch=8, seq=512, warmup=3, iters=10, profiled=3,
              dropout=0.1, held_batch=2, held_steps=2)
 TRAIN_LOSS_TOL = 1e-4   # card vs CPU losses, relative (bf16 amp on both)
 TRAIN_GNORM_TOL = 1e-3  # card vs CPU step-1 gradient norm, relative
+# encoder pretraining: bench.py's bench_bert configuration (BERT-base,
+# AdamW lr 1e-4 constant, bf16 amp, dropout 0.1, B 64, L 128, 3 warm-up
+# and 10 timed steps); the held check at dropout 0, B 2, under a
+# LinearWarmup over PolynomialDecay schedule
+ENCODER = dict(lr=1e-4, batch=64, seq=128, warmup=3, iters=10, profiled=3,
+               dropout=0.1, held_batch=2, held_steps=3)
+ERNIE_MODEL = dict(vocab_size=18000, use_task_id=True)
+ERNIE_MASK_ID = 3       # the masked spans' id in apply_knowledge_mask
 # the flash kernels' main-path case: the trainer's attention
 FLASH_MAIN = dict(bh=96, heads=12, lq=512, lk=512, d=64, causal=True)
 
@@ -1347,13 +1368,34 @@ def grad_norm(model):
                          for p in model.parameters()))
 
 
-def make_trainer(model, device, seed=0):
+def make_trainer(model, device, lr, seed=0):
+    """`TrainStep` over ``model.loss(*batch)`` with AdamW at `lr` (a
+    number or a scheduler) and bf16 amp."""
     from paddle_tpu_torch.optimizer import AdamW
     from paddle_tpu_torch.parallel import TrainStep
 
-    return TrainStep(model, lambda m, i, l, generator: m.loss(
-        i, l, generator=generator), AdamW(learning_rate=TRAIN["lr"]),
+    return TrainStep(model, lambda m, *batch, generator: m.loss(
+        *batch, generator=generator), AdamW(learning_rate=lr),
         amp_dtype=torch.bfloat16, seed=seed, device=device)
+
+
+def profile_steps(step, n):
+    """`n` calls of `step` under torch.profiler: wall seconds, kernel
+    seconds on the device, and the ten kernels that took the most."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    per_kernel = device_kernels(prof)
+    busy = sum(us for us, _ in per_kernel.values()) / 1e6
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:10]
+    return wall, busy, top
 
 
 def phase_training_held():
@@ -1371,7 +1413,7 @@ def phase_training_held():
         model = (cpu_model if device == "cpu" else
                  GPTForPretraining.from_numpy_params(
                      cpu_model.numpy_params(), cfg, device="cuda"))
-        tr = make_trainer(model, device)
+        tr = make_trainer(model, device, TRAIN["lr"])
         t0 = time.perf_counter()
         losses, gnorm = [], None
         for _ in range(TRAIN["held_steps"]):
@@ -1398,14 +1440,12 @@ def phase_training_run():
     """The bench's run on the card at dropout 0.1: warm-up and timed
     steps on one batch, every count set to 0 just before and read just
     after; then TRAIN["profiled"] more steps under torch.profiler."""
-    from torch.profiler import ProfilerActivity, profile
-
     from paddle_tpu_torch.models import GPTConfig, GPTForPretraining
 
     cfg = GPTConfig(dropout=TRAIN["dropout"], **TRAIN_MODEL)
     model = GPTForPretraining(cfg, seed=0, device="cuda")
     n_params = sum(p.numel() for p in model.parameters())
-    tr = make_trainer(model, "cuda")
+    tr = make_trainer(model, "cuda", TRAIN["lr"])
     ids, lbl = (x.cuda() for x in train_batch(TRAIN["batch"], TRAIN["seq"],
                                                cfg.vocab_size))
     torch.cuda.synchronize()
@@ -1437,20 +1477,167 @@ def phase_training_run():
                  f"num_layers x steps = {want}")
     if any(launches[k["name"]] for k in KERNELS):
         fail("the train step launched a paged-attention kernel")
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
-        p0 = time.perf_counter()
-        for _ in range(TRAIN["profiled"]):
-            tr.step(ids, lbl)
-        torch.cuda.synchronize()
-        p_wall = time.perf_counter() - p0
-    per_kernel = device_kernels(prof)
-    busy = sum(us for us, _ in per_kernel.values()) / 1e6
-    top = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:10]
+    p_wall, busy, top = profile_steps(lambda: tr.step(ids, lbl),
+                                      TRAIN["profiled"])
     return dict(wall=wall, iters=TRAIN["iters"], launches=launches,
                 peak=peak, losses=losses, p_wall=p_wall, busy=busy, top=top,
                 tokens=TRAIN["batch"] * TRAIN["seq"], n_params=n_params)
+
+
+def encoder_schedule():
+    """The held check's schedule: a warm-up over two steps from 1e-5,
+    then a polynomial decay from 1e-4 (steps at 1e-5, 5.5e-5, 1e-4)."""
+    from paddle_tpu_torch.optimizer import lr
+
+    return lr.LinearWarmup(lr.PolynomialDecay(
+        ENCODER["lr"], decay_steps=10, end_lr=1e-5), warmup_steps=2,
+        start_lr=1e-5, end_lr=ENCODER["lr"])
+
+
+def knowledge_batch(batch, seq, vocab):
+    """ERNIE's pretraining batch: random ids (RandomState(0)), rows cut
+    into spans of 1-3 tokens, spans masked whole by
+    apply_knowledge_mask (labels -100 elsewhere), and sentence-order
+    labels."""
+    from paddle_tpu_torch.models import apply_knowledge_mask
+
+    rng = np.random.RandomState(0)
+    ids = rng.randint(4, vocab, (batch, seq)).astype(np.int64)
+    spans = []
+    for _ in range(batch):
+        cuts = [0] + [int(c) for c in np.cumsum(rng.randint(1, 4, seq))
+                      if c < seq] + [seq]
+        spans.append(list(zip(cuts[:-1], cuts[1:])))
+    masked, labels = apply_knowledge_mask(ids, spans, ERNIE_MASK_ID,
+                                          rng=rng)
+    sop = rng.randint(0, 2, batch).astype(np.int64)
+    return tuple(torch.from_numpy(x) for x in (masked, labels, sop))
+
+
+def phase_encoder_held():
+    """BERT-base and then ERNIE-base at dropout 0: the card's first
+    ENCODER["held_steps"] steps (AdamW under `encoder_schedule`, bf16
+    amp) against the same weights and batch on the CPU."""
+    from paddle_tpu_torch.models import (BertForPretraining,
+                                         ErnieForPretraining, bert_base,
+                                         ernie_base)
+
+    b, seq = ENCODER["held_batch"], ENCODER["seq"]
+    for label, cls, cfg in (
+            ("BERT-base", BertForPretraining, bert_base(dropout=0.0)),
+            ("ERNIE-base", ErnieForPretraining,
+             ernie_base(dropout=0.0, **ERNIE_MODEL))):
+        if cls is BertForPretraining:
+            batch = train_batch(b, seq, cfg.vocab_size)
+        else:
+            batch = knowledge_batch(b, seq, cfg.vocab_size)
+            log(f"  {label}: {int((batch[1] != -100).sum())} of "
+                f"{batch[1].numel()} positions labelled")
+        runs = {}
+        cpu_model = cls(cfg, seed=0, device="cpu")
+        for device in ("cuda", "cpu"):
+            model = (cpu_model if device == "cpu" else
+                     cls.from_numpy_params(cpu_model.numpy_params(), cfg,
+                                           device="cuda"))
+            sched = encoder_schedule()
+            tr = make_trainer(model, device, sched)
+            t0 = time.perf_counter()
+            losses, rates, gnorm = [], [], None
+            for _ in range(ENCODER["held_steps"]):
+                rates.append(tr.optimizer.get_lr())
+                losses.append(float(tr.step(*batch)))
+                if gnorm is None:
+                    gnorm = grad_norm(model)
+            runs[device] = (losses, gnorm)
+            log(f"  {label} {device}: B={b}, L={seq}, dropout 0, lr "
+                f"{rates}: losses {losses}, step-1 gradient norm "
+                f"{gnorm:.6f} ({time.perf_counter() - t0:.1f} s)")
+            del tr, model
+        (card_l, card_g), (cpu_l, cpu_g) = runs["cuda"], runs["cpu"]
+        for i, (x, y) in enumerate(zip(card_l, cpu_l)):
+            if not math.isfinite(x) or abs(x - y) > TRAIN_LOSS_TOL * abs(y):
+                fail(f"{label} step {i + 1}: card loss {x} vs CPU {y}, "
+                     f"past {TRAIN_LOSS_TOL} relative")
+        if abs(card_g - cpu_g) > TRAIN_GNORM_TOL * cpu_g:
+            fail(f"{label} step-1 gradient norm: card {card_g} vs CPU "
+                 f"{cpu_g}, past {TRAIN_GNORM_TOL} relative")
+        del cpu_model
+
+
+def phase_encoder_run():
+    """bench_bert's run on the card: BERT-base at dropout 0.1, AdamW lr
+    1e-4, bf16 amp, B 64, L 128, one random batch; every count set to 0
+    just before the warm-up and timed steps and read just after (the
+    path is composite attention: no kernel of the port may launch); then
+    ENCODER["profiled"] more steps under torch.profiler."""
+    from paddle_tpu_torch.models import BertForPretraining, bert_base
+
+    cfg = bert_base(dropout=ENCODER["dropout"])
+    model = BertForPretraining(cfg, seed=0, device="cuda")
+    n_params = sum(p.numel() for p in model.parameters())
+    tr = make_trainer(model, "cuda", ENCODER["lr"])
+    ids, lbl = (x.cuda() for x in train_batch(ENCODER["batch"],
+                                               ENCODER["seq"],
+                                               cfg.vocab_size))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    losses = [tr.step(ids, lbl) for _ in range(ENCODER["warmup"])]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses += [tr.step(ids, lbl) for _ in range(ENCODER["iters"])]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    losses = [float(x) for x in losses]
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  {n_params / 1e6:.1f} M parameters; "
+        f"{ENCODER['warmup'] + ENCODER['iters']} steps at "
+        f"B={ENCODER['batch']}, L={ENCODER['seq']}, dropout "
+        f"{ENCODER['dropout']}: losses {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f}; launches {launches}")
+    if not all(math.isfinite(x) for x in losses) or losses[-1] >= losses[0]:
+        fail(f"BERT loss not finite and falling: {losses}")
+    if any(launches.values()):
+        fail(f"the BERT train step launched a kernel of the port: "
+             f"{launches}")
+    p_wall, busy, top = profile_steps(lambda: tr.step(ids, lbl),
+                                      ENCODER["profiled"])
+    return dict(wall=wall, peak=peak, p_wall=p_wall, busy=busy, top=top,
+                n_params=n_params, cfg=cfg)
+
+
+def encoder_numbers(card, run):
+    """bench_bert's numbers from `run`: samples/s, tokens/s, ms per step,
+    peak memory, model TFLOP/s by bench.py's formula, and the idle share
+    and top kernels under torch.profiler."""
+    cfg, b, seq = run["cfg"], ENCODER["batch"], ENCODER["seq"]
+    step_s = run["wall"] / ENCODER["iters"]
+    flops = 3 * (2 * run["n_params"] * b * seq
+                 + 4 * b * seq * seq * cfg.hidden_size * cfg.num_layers)
+    log(f"  [{card}] BERT-base pretraining ({run['n_params'] / 1e6:.1f} M "
+        f"parameters, B={b}, L={seq}, bf16 amp, composite attention, "
+        f"dropout {ENCODER['dropout']}): {b / step_s:.2f} samples/s, "
+        f"{b * seq / step_s:.1f} tokens/s, {step_s * 1e3:.2f} ms per step "
+        f"over {ENCODER['iters']} steps; peak memory "
+        f"{run['peak'] / 2**30:.2f} GiB; {flops / 1e12:.3f} TFLOP of model "
+        f"flops per step (bench.py's formula) -> "
+        f"{flops / step_s / 1e12:.1f} TFLOP/s = "
+        f"{flops / step_s / FP32_FLOPS_PER_S:.1%} of the fp32 CUDA-core "
+        f"peak")
+    if run["busy"] > 0:
+        busy_ms = run["busy"] / ENCODER["profiled"] * 1e3
+        log(f"  [{card}] BERT-base under torch.profiler "
+            f"({ENCODER['profiled']} steps): wall {run['p_wall']:.3f} s, "
+            f"kernels busy {run['busy']:.3f} s on the device, idle share "
+            f"{1 - run['busy'] / run['p_wall']:.1%}; kernel time per step "
+            f"{busy_ms:.2f} ms = {busy_ms / (step_s * 1e3):.1%} of the "
+            f"unprofiled step")
+        for key, (us, count) in run["top"]:
+            log(f"    {us / 1e3:9.2f} ms  {count:6d} calls  {key[:90]}")
+    else:
+        log(f"  [{card}] BERT-base: torch.profiler recorded no device "
+            f"time: device idle share not measured")
 
 
 # ------------------------------ main ------------------------------------
@@ -1764,7 +1951,15 @@ def main():
     log("  the bench's run on the card")
     train = phase_training_run()
 
-    phase("phase 8: numbers")
+    phase("phase 8: encoder pretraining at BERT-base and ERNIE-base width "
+          "(bench_bert's configuration, bf16 amp, AdamW)")
+    log("  held check: the card's first three scheduled steps against the "
+        "CPU's")
+    phase_encoder_held()
+    log("  the bench's run on the card")
+    encoder = phase_encoder_run()
+
+    phase("phase 9: numbers")
     numbers = paged_numbers(pa, card, torch.float32, "")
     numbers.update(paged_numbers(pa, card, torch.int8, "_int8"))
     paged_numbers(pa, card, torch.bfloat16, "_bf16")  # printed only
@@ -1831,6 +2026,7 @@ def main():
     else:
         log(f"  [{card}] trainer: torch.profiler recorded no device time: "
             f"device idle share not measured")
+    encoder_numbers(card, encoder)
     phase(None)
     log(f"  whole run {time.perf_counter() - t_start:.1f} s wall")
     launches = {"ragged_paged_attention": gpu["launches"],

@@ -1,10 +1,13 @@
 """paddle_tpu_torch: the PyTorch/CUDA port of paddle_tpu.
 
 It serves the generation engine's ragged and legacy steps on an NVIDIA
-GPU, with the ragged, paged-decode and chunk-prefill attention kernels,
-and trains GPT (``models.GPTForPretraining``, ``optimizer.AdamW``,
+GPU, with the ragged, paged-decode and chunk-prefill attention kernels;
+trains GPT (``models.GPTForPretraining``, ``optimizer.AdamW``,
 ``parallel.TrainStep``) through the flash-attention forward, dK/dV and
-dQ kernels, all written by hand in CUDA C++ for sm_90a (ops/, csrc/).
+dQ kernels, all written by hand in CUDA C++ for sm_90a (ops/, csrc/);
+and pretrains BERT and ERNIE (``models.BertForPretraining``,
+``ErnieForPretraining``) on the transformer layers of ``nn``, under the
+compiled step's update rules and LR schedulers (``optimizer``).
 It imports torch and numpy, never jax and never paddle_tpu.  Entry
 points run on the card unless the caller asks for the CPU
 (``device="cpu"``), where every kernel call takes the kernel's plain

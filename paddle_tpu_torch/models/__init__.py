@@ -1,6 +1,15 @@
-"""Models of the training slice."""
+"""Models of the training slices: GPT, BERT and ERNIE."""
+from .bert import (BertConfig, BertEmbeddings, BertForPretraining, BertModel,
+                   bert_base, bert_tiny)
+from .ernie import (ErnieConfig, ErnieEmbeddings, ErnieForPretraining,
+                    ErnieForSequenceClassification, ErnieModel,
+                    apply_knowledge_mask, ernie_base, ernie_tiny)
 from .gpt import (GPTConfig, GPTForPretraining, GPTModel, gpt2_medium,
                   gpt2_small, gpt_tiny)
 
-__all__ = ["GPTConfig", "GPTForPretraining", "GPTModel", "gpt2_medium",
-           "gpt2_small", "gpt_tiny"]
+__all__ = ["BertConfig", "BertEmbeddings", "BertForPretraining", "BertModel",
+           "ErnieConfig", "ErnieEmbeddings", "ErnieForPretraining",
+           "ErnieForSequenceClassification", "ErnieModel", "GPTConfig",
+           "GPTForPretraining", "GPTModel", "apply_knowledge_mask",
+           "bert_base", "bert_tiny", "ernie_base", "ernie_tiny",
+           "gpt2_medium", "gpt2_small", "gpt_tiny"]

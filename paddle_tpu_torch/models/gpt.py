@@ -10,7 +10,6 @@ owns it).  Options of the JAX model this port does not run raise at
 build: mixture of experts, context parallelism (``cp_mode``), and the
 XLA compile strategies ``scan_layers`` and ``remat`` (the same
 arithmetic as the plain loop)."""
-import numpy as np
 import torch
 from torch import nn
 
@@ -20,6 +19,7 @@ from ..nn import (ColumnParallelLinear, Dropout, Embedding, LayerNorm,
                   VocabParallelEmbedding)
 from ..nn import functional as F
 from ..ops.attention import scaled_dot_product_attention
+from .weights import NumpyWeights
 
 
 class GPTConfig:
@@ -152,11 +152,13 @@ class GPTModel(nn.Module):
                                          generator))
 
 
-class GPTForPretraining(nn.Module):
+class GPTForPretraining(NumpyWeights, nn.Module):
     """GPT with its LM head tied to the token embedding, on `device`
     (None means the card; without one it raises).  Weights are drawn on
     the CPU from `seed` and then moved, so one seed gives the same
-    weights on every device."""
+    weights on every device.  Weights move between the packages by
+    `from_numpy_params` and `numpy_params` (names like
+    ``gpt.blocks.0.attn.qkv.weight``)."""
 
     def __init__(self, config, seed=0, device=None):
         super().__init__()
@@ -165,33 +167,6 @@ class GPTForPretraining(nn.Module):
         self.config = config
         self.gpt = GPTModel(config, torch.Generator().manual_seed(seed))
         self.to(dev)
-
-    @classmethod
-    def from_numpy_params(cls, named, config, device=None):
-        """A model on `device` holding `named`: the JAX model's
-        ``named_parameters()`` as numpy arrays (names like
-        ``gpt.blocks.0.attn.qkv.weight``, linear weights [in, out])."""
-        dev = resolve_device(device, "GPTForPretraining")
-        model = cls(config, device="cpu")
-        params = dict(model.named_parameters())
-        if set(named) != set(params):
-            raise ValueError(f"parameter names differ: missing "
-                             f"{sorted(set(params) - set(named))}, "
-                             f"unknown {sorted(set(named) - set(params))}")
-        with torch.no_grad():
-            for name, p in params.items():
-                value = torch.as_tensor(np.array(named[name]))
-                if value.shape != p.shape:
-                    raise ValueError(f"{name}: shape {tuple(value.shape)} "
-                                     f"!= {tuple(p.shape)}")
-                p.copy_(value)
-        return model.to(dev)
-
-    def numpy_params(self):
-        """``{name: numpy array}`` of every parameter: the inverse of
-        `from_numpy_params`."""
-        return {n: p.detach().cpu().numpy()
-                for n, p in self.named_parameters()}
 
     def lm_logits(self, h):
         """Final norm + the tied LM head: ``ln_f(h) @ wteᵀ``."""

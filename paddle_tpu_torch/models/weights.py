@@ -1,0 +1,39 @@
+"""Weights carried between the packages as numpy arrays, under the JAX
+models' ``named_parameters()`` names."""
+import numpy as np
+import torch
+
+from ..device import resolve_device
+
+
+class NumpyWeights:
+    """`from_numpy_params` and `numpy_params` for a model class built as
+    ``cls(config, ..., device=...)``."""
+
+    @classmethod
+    def from_numpy_params(cls, named, config, device=None, **kwargs):
+        """A model on `device` (None means the card) holding `named`: the
+        JAX model's ``named_parameters()`` as numpy arrays, linear weights
+        [in, out]; `kwargs` go to the constructor.  A missing or unknown
+        name, or a shape that differs, raises ValueError."""
+        dev = resolve_device(device, cls.__name__)
+        model = cls(config, device="cpu", **kwargs)
+        params = dict(model.named_parameters())
+        if set(named) != set(params):
+            raise ValueError(f"parameter names differ: missing "
+                             f"{sorted(set(params) - set(named))}, "
+                             f"unknown {sorted(set(named) - set(params))}")
+        with torch.no_grad():
+            for name, p in params.items():
+                value = torch.as_tensor(np.array(named[name]))
+                if value.shape != p.shape:
+                    raise ValueError(f"{name}: shape {tuple(value.shape)} "
+                                     f"!= {tuple(p.shape)}")
+                p.copy_(value)
+        return model.to(dev)
+
+    def numpy_params(self):
+        """``{name: numpy array}`` of every parameter: the inverse of
+        `from_numpy_params`."""
+        return {n: p.detach().cpu().numpy()
+                for n, p in self.named_parameters()}

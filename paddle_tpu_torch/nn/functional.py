@@ -1,7 +1,7 @@
-"""The functional ops GPT needs, with the JAX package's semantics
-(``paddle_tpu/ops/nn_ops.py``, ``ops/loss.py``).  Mixed dtypes promote
-as JAX promotes them: a bfloat16 operand meeting a float32 one computes
-in float32."""
+"""The functional ops GPT, BERT and ERNIE need, with the JAX package's
+semantics (``paddle_tpu/ops/nn_ops.py``, ``ops/loss.py``).  Mixed dtypes
+promote as JAX promotes them: a bfloat16 operand meeting a float32 one
+computes in float32."""
 import torch
 
 
@@ -25,6 +25,14 @@ def layer_norm(x, weight, bias, epsilon=1e-5):
 def gelu(x):
     """Exact GELU, ``0.5 x (1 + erf(x / sqrt 2))`` (approximate=False)."""
     return torch.nn.functional.gelu(x)
+
+
+def relu(x):
+    return torch.relu(x)
+
+
+def tanh(x):
+    return torch.tanh(x)
 
 
 def dropout(x, p, training=True, generator=None):

@@ -1,6 +1,7 @@
-"""Layers GPT is built from (the JAX package's ``nn/layers/common.py``,
-``nn/layers/norm.py`` and the single-card forms of
-``distributed/fleet/meta_parallel/mp_layers.py``).
+"""Layers GPT, BERT and ERNIE are built from (the JAX package's
+``nn/layers/common.py``, ``nn/layers/norm.py``, ``nn/layers/activation.py``
+and the single-card forms of ``distributed/fleet/meta_parallel/
+mp_layers.py``).
 
 Weights are drawn on the CPU from the `generator` each layer is given,
 with the JAX package's distributions (XavierNormal for linears, Normal(0,
@@ -98,3 +99,8 @@ class Dropout(nn.Module):
     def forward(self, x, generator=None):
         return F.dropout(x, self.p, training=self.training,
                          generator=generator)
+
+
+class Tanh(nn.Module):
+    def forward(self, x):
+        return F.tanh(x)

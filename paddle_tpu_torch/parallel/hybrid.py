@@ -3,7 +3,10 @@ on a single device, where the JAX step's ZeRO stage resolves to 0.
 
 A step computes the loss at the parameters before the update, the
 backward pass, then the optimizer's fused update, and returns the loss.
-The gradients stay in each parameter's ``.grad`` until the next step.
+The gradients stay in each parameter's ``.grad`` until the next step; a
+parameter the loss does not reach (BERT's pooler without NSP labels)
+gets a zero gradient, as ``jax.value_and_grad`` gives it, so its
+optimizer state advances and weight decay applies.
 With ``amp_dtype`` the floating parameters of more than one dimension
 enter the loss rounded to that dtype (the JAX step's cast at entry; it
 enters no autocast): a float32 activation meeting a rounded weight
@@ -11,12 +14,15 @@ computes in float32, as JAX promotes, and the gradients reach the
 float32 parameters through the rounding.  Dropout draws from a
 ``torch.Generator`` the step owns on its device, seeded from `seed` (in
 place of the JAX step's ``rng_guard`` key folded with the step count).
+The learning rate is read before the update; an ``LRScheduler`` learning
+rate is stepped after it, as the JAX step does.
 """
 import torch
 from torch import nn
 from torch.func import functional_call
 
 from ..device import resolve_device
+from ..optimizer.lr import LRScheduler
 
 
 class _LossView(nn.Module):
@@ -33,8 +39,8 @@ class _LossView(nn.Module):
 
 
 class TrainStep:
-    """``loss_fn(model, *batch, generator=...) -> scalar``; `optimizer` an
-    ``optimizer.Adam`` or ``AdamW``.  The model's parameters must lie on
+    """``loss_fn(model, *batch, generator=...) -> scalar``; `optimizer` one
+    of ``optimizer``'s update rules.  The model's parameters must lie on
     `device` (None means the card; without one it raises)."""
 
     def __init__(self, model, loss_fn, optimizer, amp_dtype=None, seed=0,
@@ -76,6 +82,9 @@ class TrainStep:
             p.grad = None
         loss = self.loss(*batch)
         loss.backward()
+        for p in self.params.values():
+            if p.grad is None:      # off the loss's path: JAX's zero grad
+                p.grad = torch.zeros_like(p)
         lr = self.optimizer.get_lr()
         with torch.no_grad():
             new_params, self.opt_state = self.optimizer.fused_update(
@@ -84,5 +93,7 @@ class TrainStep:
                 self.opt_state, lr)
             for n, p in self.params.items():
                 p.copy_(new_params[n])
+        if isinstance(self.optimizer.learning_rate, LRScheduler):
+            self.optimizer.learning_rate.step()
         self.step_count += 1
         return loss.detach()
