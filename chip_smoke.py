@@ -67,7 +67,27 @@ carries on:
    card, dropout 0.1, lr 1e-4 constant, B=64, L=128, 3 warm-up and 10
    timed steps on one batch: the loss finite and falling, and no kernel
    of the port launched;
-9. numbers: each kernel's and its plain version's times at its main
+9. static ResNet-50 (the JAX package's ``bench_resnet`` configuration:
+   B 64, 224x224, 1000 classes, Momentum(0.1, 0.9), static bf16 AMP,
+   through ``static.Program``, ``append_backward`` and the ``Executor``;
+   convolutions are PyTorch's, no kernel of the port is on this path):
+   (a) at full width and depth, B 2, the card's startup scope carried to
+   a CPU executor: the fp32 program's three steps card vs CPU, each from
+   the CPU's scope, its loss within 1e-4 relative, every BN running stat
+   after it within 1e-4 of the tensor's largest magnitude and the
+   step's gradients within 0.1 as one norm over all of them; at step 1
+   op by op, each op on the card from the CPU run's values of its
+   inputs (``replay_held``), every output within 1e-4 of its tensor's
+   largest magnitude (every activation and gradient, each updated
+   parameter with the stem filter, each velocity and running stat),
+   and the count of ReLU outputs that took the other side of 0 end to
+   end; the AMP program's step-1 loss within 1e-2, and op by op at step
+   1 every bfloat16 output within 1e-2 and every float32 one within
+   1e-4; (b) the bench's run on the
+   card: the feed staged once, a warm-up ``run_chained`` of 20 steps,
+   three timed chains, 1 + 3 stepped runs, every loss finite; no kernel
+   of the port launched in (a) or (b);
+10. numbers: each kernel's and its plain version's times at its main
    path's shape beside its bound (the paged kernels on float32, int8
    and bfloat16 pools, each with its live and launched blocks (from the
    host mirrors of its items) and its counters' zero-fill alone; the
@@ -82,8 +102,13 @@ carries on:
    time to first token (float32 and int8), the GPT trainer's tokens/s,
    ms per step, peak memory and device idle share, and BERT-base's
    samples/s, tokens/s, ms per step, peak memory, model TFLOP/s
-   (bench.py's formula), device idle share and top kernels;
-10. the result line.
+   (bench.py's formula), device idle share and top kernels; and
+   ResNet-50's images/s chained and synced, ms per step, model TFLOP/s
+   by bench.py's formula and by ``cost_analysis`` with the share of the
+   dense bf16 peak, peak memory, and under torch.profiler over one chain
+   its idle share, the device time the executor's host loop leaves
+   idle per step and its top kernels;
+11. the result line.
 
 Each phase prints its wall seconds.
 
@@ -149,6 +174,28 @@ TRAIN_GNORM_TOL = 1e-3  # card vs CPU step-1 gradient norm, relative
 ENCODER = dict(lr=1e-4, batch=64, seq=128, warmup=3, iters=10, profiled=3,
                dropout=0.1, held_batch=2, held_steps=3)
 ERNIE_MODEL = dict(vocab_size=18000, use_task_id=True)
+# ResNet-50 through the static Program/Executor: bench.py's bench_resnet
+# (B 64, 224x224, 1000 classes, Momentum(0.1, 0.9), static bf16 AMP,
+# chains of 20 steps: one warm-up and 3 timed, then 3 stepped runs); the
+# held check at B 2, three steps card vs CPU, fp32 and AMP
+RESNET = dict(batch=64, chain=20, timed=3, stepped=3, held_batch=2,
+              held_steps=3)
+# fp32 card vs CPU, each step from one state: the loss relative, and the
+# BN running stats after it within this share of each tensor's largest
+# magnitude; op by op (each op on the card from the CPU run's values of
+# its inputs), every float32 output within this share too
+RESNET_TOL = 1e-4
+# op by op, every bfloat16 output of the AMP program: 2.5 bf16 ulps of the
+# tensor's largest magnitude
+RESNET_BF16_TOL = 1e-2
+# the step's gradients end to end, ||card - CPU|| / ||CPU|| over all of
+# them: batch norm over 2 rows per channel turns last-bit differences into
+# ReLUs on the other side of 0, so the same step summed in another order
+# moves them (step 1 on an NVIDIA H100 80GB HBM3 host: the CPU on 1 thread
+# against 8 by 5.8e-3, the card against the CPU by 3.1e-2); each op's
+# arithmetic is held by the op-by-op check
+RESNET_GRAD_TOL = 1e-1
+RESNET_AMP_TOL = 1e-2   # AMP step-1 loss, relative: two bf16 roundings
 ERNIE_MASK_ID = 3       # the masked spans' id in apply_knowledge_mask
 # the flash kernels' main-path case: the trainer's attention
 FLASH_MAIN = dict(bh=96, heads=12, lq=512, lk=512, d=64, causal=True)
@@ -1381,7 +1428,7 @@ def make_trainer(model, device, lr, seed=0):
 
 def profile_steps(step, n):
     """`n` calls of `step` under torch.profiler: wall seconds, kernel
-    seconds on the device, and the ten kernels that took the most."""
+    seconds on the device, and the 15 kernels that took the most."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -1394,7 +1441,7 @@ def profile_steps(step, n):
         wall = time.perf_counter() - t0
     per_kernel = device_kernels(prof)
     busy = sum(us for us, _ in per_kernel.values()) / 1e6
-    top = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:10]
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:15]
     return wall, busy, top
 
 
@@ -1482,6 +1529,390 @@ def phase_training_run():
     return dict(wall=wall, iters=TRAIN["iters"], launches=launches,
                 peak=peak, losses=losses, p_wall=p_wall, busy=busy, top=top,
                 tokens=TRAIN["batch"] * TRAIN["seq"], n_params=n_params)
+
+
+def build_static_resnet(static, momentum_cls, batch, depths=(3, 4, 6, 3),
+                        base=64, image=224, classes=1000, amp=True):
+    """ResNet-50 through the static Program/Executor path, line for line
+    ``bench.py::_build_static_resnet50`` with the static module and the
+    Momentum class passed in (either package's), and its widths, depth,
+    image size and classes as arguments (ResNet-50 by default).  Returns
+    (main, startup, loss_var, fwd_flops_per_image)."""
+    flops = [0]
+
+    def conv_bn(x, cout, k, stride=1, pad=0, act=None):
+        cin = x.shape[1]
+        y = static.nn.conv2d(x, cout, k, stride=stride, padding=pad,
+                             bias_attr=False)
+        flops[0] += 2 * cout * y.shape[2] * y.shape[3] * cin * k * k
+        return static.nn.batch_norm(y, act=act)
+
+    def bottleneck(x, width, stride=1, downsample=False):
+        out = conv_bn(x, width, 1, act="relu")
+        out = conv_bn(out, width, 3, stride=stride, pad=1, act="relu")
+        out = conv_bn(out, width * 4, 1)
+        if downsample:
+            x = conv_bn(x, width * 4, 1, stride=stride)
+        return static.nn.relu(out + x)
+
+    main, startup = static.Program(), static.Program()
+    with static.program_guard(main, startup):
+        img = static.data("image", [batch, 3, image, image])
+        label = static.data("label", [batch, 1], dtype="int64")
+        x = conv_bn(img, base, 7, stride=2, pad=3, act="relu")
+        x = static.nn.pool2d(x, pool_size=3, pool_type="max", pool_stride=2,
+                             pool_padding=1)
+        for width, blocks, stride in zip(
+                (base, 2 * base, 4 * base, 8 * base), depths, (1, 2, 2, 2)):
+            for i in range(blocks):
+                x = bottleneck(x, width, stride=stride if i == 0 else 1,
+                               downsample=(i == 0))
+        x = static.nn.pool2d(x, global_pooling=True, pool_type="avg")
+        x = static.nn.flatten(x, axis=1)
+        logits = static.nn.fc(x, classes)
+        flops[0] += 2 * x.shape[1] * classes
+        loss = static.nn.softmax_with_cross_entropy(logits, label)
+        loss = static.nn.mean(loss)
+        opt = momentum_cls(learning_rate=0.1, momentum=0.9)
+        if amp:
+            opt = static.amp.decorate(opt)
+        opt.minimize(loss)
+    return main, startup, loss, flops[0]
+
+
+def resnet_batch(batch):
+    """Random images and labels as bench_resnet makes them
+    (RandomState(0))."""
+    rng = np.random.RandomState(0)
+    img = rng.rand(batch, 3, 224, 224).astype(np.float32)
+    lab = rng.randint(0, 1000, (batch, 1)).astype(np.int64)
+    return img, lab
+
+
+def worst_share(a, b, names):
+    """The largest `share` of the tensors `names` of numpy dicts a, b."""
+    return max(share(torch.from_numpy(a[n]), torch.from_numpy(b[n]))
+               for n in names)
+
+
+def rel_l2(a, b, names):
+    """||a - b|| / ||b|| over the tensors `names` taken together."""
+    diff = sum(float(np.square(a[n] - b[n], dtype=np.float64).sum())
+               for n in names)
+    ref = sum(float(np.square(b[n], dtype=np.float64).sum()) for n in names)
+    return math.sqrt(diff / ref)
+
+
+def share(got, want):
+    """|got - want| at its largest over want's largest magnitude."""
+    got, want = got.double(), want.double()
+    return ((got - want).abs().max() / want.abs().max().clamp_min(
+        1e-30)).item()
+
+
+def replay_held(static, main, env, after, device):
+    """Each op of `main` on `device` (`static.replay_ops`) from a
+    reference run's values of its inputs (`env`: the scope before the
+    step, the feed and every var the step computes, on the CPU; `after`:
+    the scope after it), each output held to the reference's value: within
+    RESNET_TOL of the tensor's largest magnitude for float32, within
+    RESNET_BF16_TOL for bfloat16, and of the same dtype.
+
+    One case is told apart: a batch norm with a fused relu whose output
+    takes the other side of 0 at an element (its value within RESNET_TOL
+    of the largest on both sides, the two statistics differing in their
+    last bits).  Its grad op then passes or stops that element's
+    cotangent, so that op's gradients are held over the other channels
+    only, and those channels are counted.  Returns the worst share of
+    each op type, the outputs past their bound, and (elements, channels)
+    taken out."""
+    tol = {torch.float32: RESNET_TOL, torch.bfloat16: RESNET_BF16_TOL}
+    worst, past, flipped, taken = {}, [], {}, [0, 0]
+    for idx, op, outs in static.replay_ops(main, env, device):
+        skip = flipped.get(getattr(op, "forward_op", None))
+        for n, got in zip(op.out_order, outs):
+            want = after[n] if n in after else env[n]
+            got = got.cpu()
+            if op.type == "batch_norm" and op.attrs.get("act") == "relu" \
+                    and n == op.out_order[0]:
+                sides = (got > 0) != (want > 0)
+                if sides.any():
+                    near = torch.maximum(got.float().abs(),
+                                         want.float().abs())[sides].max()
+                    if near > RESNET_TOL * want.float().abs().max():
+                        past.append((op.type, n, "other side of 0",
+                                     near.item()))
+                    channels = sides.transpose(0, 1).flatten(1).any(1)
+                    flipped[idx] = channels
+                    taken[0] += int(sides.sum())
+                    taken[1] += int(channels.sum())
+            if skip is not None:
+                dim = 1 if got.dim() > 1 else 0
+                keep = (~skip).nonzero().flatten()
+                if not bool(torch.isfinite(got.float()).all()):
+                    past.append((op.type, n, "not finite", None))
+                got, want_held = (got.index_select(dim, keep),
+                                  want.index_select(dim, keep))
+            else:
+                want_held = want
+            err = share(got, want_held)
+            worst[op.type] = max(worst.get(op.type, 0.0), err)
+            if got.dtype != want.dtype or not err <= tol[want.dtype]:
+                past.append((op.type, n, str(got.dtype), err))
+            env[n] = want
+    return worst, past, tuple(taken)
+
+
+def phase_resnet_held():
+    """ResNet-50 at full width and depth, B 2, from the card's startup
+    scope carried to a CPU executor.  The fp32 program's three steps:
+    before each the card takes the CPU's scope, so each step is held from
+    one state: its loss within RESNET_TOL relative, the BN running stats
+    after it within RESNET_TOL of each tensor's largest magnitude, and
+    the step's gradients (the velocities after step 1) within
+    RESNET_GRAD_TOL, ||card - CPU|| / ||CPU|| over all of them together
+    (at step 1 with the CPU's own spread beside it: one thread against
+    its default, the same arithmetic summed in another order).  At step
+    1, op by op: every op of the step on the card from the CPU run's
+    values of its inputs, each output (every activation, every gradient,
+    each updated parameter with the stem filter, each velocity and
+    running stat) within RESNET_TOL of the CPU's (`replay_held`; a batch
+    norm+relu output within rounding of 0 on the other side leaves its
+    channel out of that grad op); and end to end the ReLU outputs on
+    the other side of 0 counted.  Then the AMP program:
+    its step-1 loss within RESNET_AMP_TOL, and op by op at step 1 each
+    bfloat16 output within RESNET_BF16_TOL and each float32 one within
+    RESNET_TOL, every dtype the CPU's; steps 2-3 printed.  No kernel of
+    the port launched."""
+    from paddle_tpu_torch import optimizer as popt
+    from paddle_tpu_torch import static
+    from paddle_tpu_torch.models import scope_from_numpy, scope_to_numpy
+
+    b, n = RESNET["held_batch"], RESNET["held_steps"]
+    img, lab = resnet_batch(b)
+    feed = {"image": img, "label": lab}
+    reset_launches()
+    card, cpu = static.Executor(), static.Executor("cpu")
+
+    def step(exe, main, loss, arrays, device, names=()):
+        scope = scope_from_numpy(arrays, device)
+        out = exe.run(main, feed=feed, fetch_list=[loss] + list(names),
+                      scope=scope, return_numpy=False)
+        return (float(out[0][0]), scope_to_numpy(scope),
+                dict(zip(names, out[1:])))
+
+    def replay(main, loss, arrays):
+        """The CPU's step from `arrays` fetching every var of the step,
+        then each op on the card from its values."""
+        names = [n_ for n_, v in main.global_block().vars.items()
+                 if not v.is_data and not v.persistable]
+        cpu_l, cpu_s, vals = step(cpu, main, loss, arrays, "cpu", names)
+        env = {n_: torch.from_numpy(v) for n_, v in arrays.items()}
+        env.update({n_: torch.from_numpy(v) for n_, v in feed.items()})
+        env.update(vals)
+        t0 = time.perf_counter()
+        worst, past, (elements, channels) = replay_held(
+            static, main, env,
+            {n_: torch.from_numpy(v) for n_, v in cpu_s.items()}, "cuda")
+        ranked = sorted(worst.items(), key=lambda kv: -kv[1])[:6]
+        log(f"  op by op on the card from the CPU's inputs ({len(worst)} "
+            f"op types): worst shares "
+            + ", ".join(f"{k} {v:.2e}" for k, v in ranked)
+            + f"; {elements} batch-norm+relu outputs on the other side of "
+            f"0, their {channels} channels' gradients left out "
+            f"({time.perf_counter() - t0:.1f} s)")
+        if past:
+            fail(f"ResNet-50 op by op: {len(past)} outputs past their "
+                 f"bound or of another dtype, first {past[:5]}")
+        return cpu_l, cpu_s, vals
+
+    main, startup, loss, _ = build_static_resnet(static, popt.Momentum, b,
+                                                 amp=False)
+    start_scope = static.Scope()
+    card.run(startup, scope=start_scope)
+    state = scope_to_numpy(start_scope)
+    stats = [n_ for n_ in state if n_.startswith("bn_")]
+    velocities = [n_ for n_ in state if n_.endswith("_velocity")]
+    # the ReLUs' outputs: relu ops and batch norms with a fused relu
+    relus = [op.out_order[0] for op in main.global_block().ops
+             if op.type == "relu" or (op.type == "batch_norm"
+                                      and op.attrs.get("act") == "relu")]
+    for i in range(n):
+        t0 = time.perf_counter()
+        card_l, card_s, card_v = step(card, main, loss, state, "cuda",
+                                      relus if i == 0 else ())
+        if i == 0:
+            cpu_l, cpu_s, cpu_v = replay(main, loss, state)
+            # end to end, the elements that took the other side of 0
+            sides = [((card_v[r].cpu() > 0) != (cpu_v[r] > 0))
+                     for r in relus]
+            flipped = sum(int(f.sum()) for f in sides)
+            largest = max((float(torch.maximum(
+                card_v[r].cpu()[f].abs(), cpu_v[r][f].abs()).max())
+                for r, f in zip(relus, sides) if f.any()), default=0.0)
+            log(f"  fp32 step 1: {flipped} of "
+                f"{sum(cpu_v[r].numel() for r in relus)} ReLU outputs on "
+                f"the other side of 0 on the card (the largest of them "
+                f"{largest:.2e})")
+        else:
+            cpu_l, cpu_s, _ = step(cpu, main, loss, state, "cpu")
+        loss_err = abs(card_l - cpu_l) / abs(cpu_l)
+        stat_err = worst_share(card_s, cpu_s, stats)
+        grad_err = rel_l2(card_s, cpu_s, velocities)
+        stem_err = worst_share(card_s, cpu_s, ["param_1"])
+        spread = ""
+        if i == 0:
+            threads = torch.get_num_threads()
+            torch.set_num_threads(1)
+            _, one_s, _ = step(cpu, main, loss, state, "cpu")
+            torch.set_num_threads(threads)
+            spread = (f"; CPU 1 thread vs {threads}: gradients "
+                      f"{rel_l2(one_s, cpu_s, velocities):.2e}, worst "
+                      f"tensor {worst_share(one_s, cpu_s, velocities):.2e}")
+        log(f"  fp32 step {i + 1}: loss card {card_l:.6f} CPU {cpu_l:.6f} "
+            f"({loss_err:.2e}); BN running stats {stat_err:.2e}; gradients "
+            f"{grad_err:.2e} (worst tensor "
+            f"{worst_share(card_s, cpu_s, velocities):.2e}), stem filter "
+            f"{stem_err:.2e}{spread} ({time.perf_counter() - t0:.1f} s)")
+        if not math.isfinite(card_l) or loss_err > RESNET_TOL:
+            fail(f"ResNet-50 fp32 step {i + 1}: card loss {card_l} vs CPU "
+                 f"{cpu_l}, past {RESNET_TOL} relative")
+        if stat_err > RESNET_TOL:
+            fail(f"ResNet-50 fp32 step {i + 1}: BN running stats {stat_err}"
+                 f" past {RESNET_TOL}")
+        if grad_err > RESNET_GRAD_TOL:
+            fail(f"ResNet-50 fp32 step {i + 1}: gradients {grad_err} past "
+                 f"{RESNET_GRAD_TOL}")
+        state = cpu_s
+
+    main, startup, loss, _ = build_static_resnet(static, popt.Momentum, b,
+                                                 amp=True)
+    start_scope = static.Scope()
+    card.run(startup, scope=start_scope)
+    arrays = scope_to_numpy(start_scope)
+    replay(main, loss, arrays)
+    losses = {}
+    for name, exe, device in (("card", card, "cuda"), ("cpu", cpu, "cpu")):
+        scope = scope_from_numpy(arrays, device)
+        losses[name] = [float(exe.run(main, feed=feed, fetch_list=[loss],
+                                      scope=scope)[0][0]) for _ in range(n)]
+    err = abs(losses["card"][0] - losses["cpu"][0]) / abs(losses["cpu"][0])
+    log(f"  AMP losses card {losses['card']}, CPU {losses['cpu']}: step 1 "
+        f"{err:.2e} relative")
+    if not all(math.isfinite(x) for x in losses["card"]) \
+            or err > RESNET_AMP_TOL:
+        fail(f"ResNet-50 AMP step-1 loss: card {losses['card'][0]} vs CPU "
+             f"{losses['cpu'][0]}, past {RESNET_AMP_TOL} relative")
+    launches = read_launches()
+    if any(launches.values()):
+        fail(f"the static ResNet-50 launched a kernel of the port: "
+             f"{launches}")
+
+
+def phase_resnet_run():
+    """bench_resnet's run on the card: B 64, AMP, the feed staged on the
+    card once; every count set to 0 just before and read just after a
+    warm-up chain of 20, three timed chains and 1 + 3 stepped runs (no
+    kernel of the port may launch); then cost_analysis and one chain
+    under torch.profiler."""
+    from paddle_tpu_torch import optimizer as popt
+    from paddle_tpu_torch import static
+
+    b, chain = RESNET["batch"], RESNET["chain"]
+    main, startup, loss, fwd_flops = build_static_resnet(
+        static, popt.Momentum, b)
+    exe, scope = static.Executor(), static.Scope()
+    exe.run(startup, scope=scope)
+    img, lab = resnet_batch(b)
+    feed = {"image": torch.from_numpy(img).cuda(),
+            "label": torch.from_numpy(lab).cuda()}
+
+    def run_chain():
+        return exe.run_chained(main, feed=feed, fetch_list=[loss],
+                               n_steps=chain, scope=scope)[0].ravel()
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    losses = list(run_chain())
+    warm = time.perf_counter() - t0
+    chains = []
+    for _ in range(RESNET["timed"]):
+        t0 = time.perf_counter()
+        losses += list(run_chain())
+        chains.append(time.perf_counter() - t0)
+    losses.append(float(exe.run(main, feed=feed, fetch_list=[loss],
+                                scope=scope)[0][0]))
+    stepped = []
+    for _ in range(RESNET["stepped"]):
+        t0 = time.perf_counter()
+        losses.append(float(exe.run(main, feed=feed, fetch_list=[loss],
+                                    scope=scope)[0][0]))
+        stepped.append(time.perf_counter() - t0)
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  B={b}, AMP: warm-up chain of {chain} in {warm:.2f} s; chains "
+        f"{[round(c, 4) for c in chains]} s; stepped runs "
+        f"{[round(x, 4) for x in stepped]} s; loss {losses[0]:.4f} at the "
+        f"first chained step, {losses[(1 + RESNET['timed']) * chain - 1]:.4f}"
+        f" at the last; launches {launches}")
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"ResNet-50 losses not finite: {losses}")
+    if any(launches.values()):
+        fail(f"the static ResNet-50 launched a kernel of the port: "
+             f"{launches}")
+    cost = exe.cost_analysis(main, feed={"image": img, "label": lab},
+                             fetch_list=[loss], scope=scope)
+    p_wall, busy, top = profile_steps(run_chain, 1)
+    n_params = sum(scope.get(v.name).numel()
+                   for v in main.global_block().all_parameters()
+                   if not v.stop_gradient)
+    return dict(chain_s=min(chains), stepped_s=sorted(stepped)[
+        len(stepped) // 2], peak=peak, fwd_flops=fwd_flops, cost=cost,
+        p_wall=p_wall, busy=busy, top=top, n_params=n_params)
+
+
+def resnet_numbers(card, run):
+    """bench_resnet's numbers from `run`: images/s chained and synced, ms
+    per step, model TFLOP/s by the bench's formula and by cost_analysis,
+    peak memory, and the idle share, host gap and top kernels under
+    torch.profiler."""
+    b, chain = RESNET["batch"], RESNET["chain"]
+    step_s = run["chain_s"] / chain
+    formula = 3 * run["fwd_flops"] * b
+    counted = run["cost"]["flops"] if run["cost"] else None
+    log(f"  [{card}] ResNet-50 static training ({run['n_params'] / 1e6:.2f} "
+        f"M parameters, B={b}, 224x224, Momentum, static bf16 AMP, NCHW): "
+        f"{b / step_s:.1f} images/s chained ({step_s * 1e3:.2f} ms per step, "
+        f"the fastest of {RESNET['timed']} chains of {chain}), "
+        f"{b / run['stepped_s']:.1f} images/s synced per step (median "
+        f"{run['stepped_s'] * 1e3:.2f} ms); peak memory "
+        f"{run['peak'] / 2**30:.2f} GiB")
+    for what, flops in (("the bench's formula (3 x forward)", formula),
+                        ("cost_analysis (FlopCounterMode)", counted)):
+        if flops is None:
+            log(f"  [{card}] model flops by {what}: not counted")
+            continue
+        rate = flops / step_s
+        log(f"  [{card}] {flops / 1e12:.3f} TFLOP per step by {what} -> "
+            f"{rate / 1e12:.1f} TFLOP/s = {rate / BF16_FLOPS_PER_S:.1%} of "
+            f"the dense bf16 tensor-core peak")
+    if run["busy"] > 0:
+        busy_ms = run["busy"] / chain * 1e3
+        wall_ms = run["p_wall"] / chain * 1e3
+        log(f"  [{card}] one chain of {chain} under torch.profiler: wall "
+            f"{run['p_wall']:.3f} s, kernels busy {run['busy']:.3f} s on the "
+            f"device, idle share {1 - run['busy'] / run['p_wall']:.1%}; "
+            f"kernel time per step {busy_ms:.2f} ms against {wall_ms:.2f} ms "
+            f"profiled and {step_s * 1e3:.2f} ms unprofiled: the executor's "
+            f"host loop leaves the device idle "
+            f"{max(step_s * 1e3 - busy_ms, 0.0):.2f} ms a step")
+        for key, (us, count) in run["top"]:
+            log(f"    {us / 1e3:9.2f} ms  {count:6d} calls  {key[:90]}")
+    else:
+        log(f"  [{card}] ResNet-50: torch.profiler recorded no device "
+            f"time: device idle share not measured")
 
 
 def encoder_schedule():
@@ -1959,7 +2390,15 @@ def main():
     log("  the bench's run on the card")
     encoder = phase_encoder_run()
 
-    phase("phase 9: numbers")
+    phase("phase 9: static ResNet-50 (bench_resnet's configuration, "
+          "Program/Executor, static bf16 AMP, Momentum)")
+    log("  held check: the card's first three steps against the CPU's, "
+        "fp32 and AMP, B=2")
+    phase_resnet_held()
+    log("  the bench's run on the card")
+    resnet = phase_resnet_run()
+
+    phase("phase 10: numbers")
     numbers = paged_numbers(pa, card, torch.float32, "")
     numbers.update(paged_numbers(pa, card, torch.int8, "_int8"))
     paged_numbers(pa, card, torch.bfloat16, "_bf16")  # printed only
@@ -2027,6 +2466,7 @@ def main():
         log(f"  [{card}] trainer: torch.profiler recorded no device time: "
             f"device idle share not measured")
     encoder_numbers(card, encoder)
+    resnet_numbers(card, resnet)
     phase(None)
     log(f"  whole run {time.perf_counter() - t_start:.1f} s wall")
     launches = {"ragged_paged_attention": gpu["launches"],

@@ -1,4 +1,5 @@
-"""Models of the training slices: GPT, BERT and ERNIE."""
+"""Models of the training slices: GPT, BERT and ERNIE; and the numpy
+carry of weights and static scopes between the packages."""
 from .bert import (BertConfig, BertEmbeddings, BertForPretraining, BertModel,
                    bert_base, bert_tiny)
 from .ernie import (ErnieConfig, ErnieEmbeddings, ErnieForPretraining,
@@ -6,10 +7,12 @@ from .ernie import (ErnieConfig, ErnieEmbeddings, ErnieForPretraining,
                     apply_knowledge_mask, ernie_base, ernie_tiny)
 from .gpt import (GPTConfig, GPTForPretraining, GPTModel, gpt2_medium,
                   gpt2_small, gpt_tiny)
+from .weights import scope_from_numpy, scope_to_numpy
 
 __all__ = ["BertConfig", "BertEmbeddings", "BertForPretraining", "BertModel",
            "ErnieConfig", "ErnieEmbeddings", "ErnieForPretraining",
            "ErnieForSequenceClassification", "ErnieModel", "GPTConfig",
            "GPTForPretraining", "GPTModel", "apply_knowledge_mask",
            "bert_base", "bert_tiny", "ernie_base", "ernie_tiny",
-           "gpt2_medium", "gpt2_small", "gpt_tiny"]
+           "gpt2_medium", "gpt2_small", "gpt_tiny", "scope_from_numpy",
+           "scope_to_numpy"]

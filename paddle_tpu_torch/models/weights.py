@@ -1,9 +1,30 @@
 """Weights carried between the packages as numpy arrays, under the JAX
-models' ``named_parameters()`` names."""
+models' ``named_parameters()`` names, and static scopes carried as
+``{var name: numpy array}``."""
 import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..static.executor import Scope
+
+
+def scope_from_numpy(arrays, device=None):
+    """A `Scope` on `device` (None means the card) holding `arrays`,
+    ``{name: numpy array}``: for example a JAX static scope's
+    ``{n: np.asarray(scope.get(n))}``, so both executors train from the
+    same parameters, optimizer state and running stats."""
+    dev = resolve_device(device, "scope_from_numpy")
+    scope = Scope()
+    for name, value in arrays.items():
+        scope.set(name, torch.as_tensor(np.array(value)).to(dev))
+    return scope
+
+
+def scope_to_numpy(scope):
+    """``{name: numpy array}`` of every value in `scope`: the inverse of
+    `scope_from_numpy`."""
+    return {n: scope.get(n).detach().cpu().numpy() for n in scope.names()
+            if scope.get(n) is not None}
 
 
 class NumpyWeights:

@@ -13,7 +13,10 @@ velocity, which takes the parameter's dtype.  The learning rate is a
 number or an ``lr.LRScheduler`` (`get_lr` reads ``sched()``; the train
 step steps it after each update).  What the compiled step never applies
 raises: gradient clipping, regularizer objects, ``apply_decay_param_fun``,
-``lr_ratio`` and Lamb's ``exclude_from_weight_decay_fn``."""
+``lr_ratio`` and Lamb's ``exclude_from_weight_decay_fn``.  `minimize` of a
+static loss appends the backward and one update op per parameter to its
+program (``static/optimizer_bridge.py``); the eager ``minimize`` is not
+ported yet."""
 import numbers
 
 import torch
@@ -54,6 +57,22 @@ class Optimizer:
     def update(self, param, grad, state, lr):
         """One step of one parameter, without weight decay."""
         raise NotImplementedError
+
+    def minimize(self, loss, startup_program=None, parameters=None,
+                 no_grad_set=None):
+        """For a static `Variable` loss: append the backward and one
+        update op per parameter to its program
+        (``static.optimizer_bridge.static_minimize``)."""
+        from ..static.optimizer_bridge import static_minimize
+        from ..static.program import Variable
+
+        if not isinstance(loss, Variable):
+            raise NotImplementedError(
+                "minimize of an eager loss is not ported yet: the port's "
+                "optimizers run under TrainStep (fused_update) or a static "
+                "program")
+        return static_minimize(self, loss, startup_program, parameters,
+                               no_grad_set)
 
     def fused_update(self, params, grads, states, lr):
         """`update` over dicts name -> tensor, with the weight-decay
