@@ -87,7 +87,27 @@ carries on:
    card: the feed staged once, a warm-up ``run_chained`` of 20 steps,
    three timed chains, 1 + 3 stepped runs, every loss finite; no kernel
    of the port launched in (a) or (b);
-10. numbers: each kernel's and its plain version's times at its main
+10. dygraph vision (the JAX package's ``bench_lenet`` configuration:
+   LeNet, B 128, 1x28x28, 10 classes, Adam 1e-3, ``loss.backward()``,
+   the eager ``opt.step()`` and ``opt.clear_grad()``; convolutions,
+   pools and batch norm are PyTorch calls, no kernel of the port is on
+   this path): (a) LeNet card vs CPU over three steps from one carried
+   state, plain and with ClipGradByGlobalNorm(1.0), L2Decay(1e-4) and
+   one parameter at half the learning rate: losses within 1e-4
+   relative, the step-1 gradients and the parameters after step 3
+   within 1e-4 of each tensor's largest magnitude, a parameter entry
+   past that only within 2 x the summed Adam step sizes (a sign step
+   on a near-zero gradient); (b) dygraph ResNet-50 at full width and
+   depth, B 2, 224x224, 1000 classes: eval logits within 1e-4 of their
+   largest magnitude, one Momentum(0.1, 0.9) train step with its loss
+   within 1e-4 relative, every BN running stat within 1e-4 and the
+   gradients within 0.1 as one norm (phase 9's reason); VGG-11,
+   MobileNet V1 and V2 eval logits within 1e-4; (c) the bench's run on
+   the card (3 warm-up steps, 10 synced once, 10 each synced): the loss
+   finite and falling; then the dygraph ResNet-50 at B 64, fp32,
+   Momentum, timed (printed); no kernel of the port launched over the
+   phase;
+11. numbers: each kernel's and its plain version's times at its main
    path's shape beside its bound (the paged kernels on float32, int8
    and bfloat16 pools, each with its live and launched blocks (from the
    host mirrors of its items) and its counters' zero-fill alone; the
@@ -107,8 +127,11 @@ carries on:
    by bench.py's formula and by ``cost_analysis`` with the share of the
    dense bf16 peak, peak memory, and under torch.profiler over one chain
    its idle share, the device time the executor's host loop leaves
-   idle per step and its top kernels;
-11. the result line.
+   idle per step and its top kernels; LeNet's images/s, ms per step,
+   the eager step()'s host time, its device kernels per step and idle
+   share under torch.profiler; the dygraph ResNet-50's ms per step,
+   images/s and peak memory beside the static executor's;
+12. the result line.
 
 Each phase prints its wall seconds.
 
@@ -197,6 +220,16 @@ RESNET_BF16_TOL = 1e-2
 RESNET_GRAD_TOL = 1e-1
 RESNET_AMP_TOL = 1e-2   # AMP step-1 loss, relative: two bf16 roundings
 ERNIE_MASK_ID = 3       # the masked spans' id in apply_knowledge_mask
+# Dygraph vision: bench.py's bench_lenet (LeNet, B 128, 1x28x28, 10
+# classes, Adam 1e-3, 3 warm-up steps, then 10 steps synced once and 10
+# each synced); the held check runs it 3 steps card vs CPU; dygraph
+# ResNet-50 held at B 2 and timed at B 64 (fp32, Momentum(0.1, 0.9))
+LENET = dict(batch=128, lr=1e-3, warmup=3, iters=10, held_steps=3,
+             profiled=10)
+DYGRAPH_RESNET = dict(held_batch=2, batch=64, lr=0.1, momentum=0.9,
+                      warmup=2, iters=5)
+# LeNet card vs CPU: fp32 with TF32 off, only summation order differs
+VISION_TOL = 1e-4
 # the flash kernels' main-path case: the trainer's attention
 FLASH_MAIN = dict(bh=96, heads=12, lq=512, lk=512, d=64, causal=True)
 
@@ -1915,6 +1948,332 @@ def resnet_numbers(card, run):
             f"time: device idle share not measured")
 
 
+# --------------------------- dygraph vision ------------------------------
+
+
+def lenet_batch(batch):
+    """Random images and labels as bench_lenet makes them
+    (RandomState(0))."""
+    rng = np.random.RandomState(0)
+    img = rng.rand(batch, 1, 28, 28).astype(np.float32)
+    lbl = rng.randint(0, 10, (batch, 1)).astype(np.int64)
+    return img, lbl
+
+
+def vision_loss(net, img, lbl):
+    from paddle_tpu_torch.nn import functional as F
+
+    return F.softmax_with_cross_entropy(net(img), lbl).mean()
+
+
+def hold_lenet(label, weights, options, param_lr):
+    """LeNet from `weights` on the card and on the CPU, Adam at
+    LENET["lr"] with `options` and ``{name: learning rate}`` on single
+    parameters, LENET["held_steps"] steps on bench_lenet's batch: losses
+    within VISION_TOL relative, each step-1 gradient and each parameter
+    after the last step within VISION_TOL of its tensor's largest
+    magnitude; a parameter entry past that only where an Adam step may
+    have taken the other sign (within 2 x the summed step sizes)."""
+    from paddle_tpu_torch import optimizer as popt
+    from paddle_tpu_torch.models import layer_from_numpy
+    from paddle_tpu_torch.vision import models as pvm
+
+    img, lbl = lenet_batch(LENET["batch"])
+    runs = {}
+    for device in ("cuda", "cpu"):
+        net = layer_from_numpy(pvm.LeNet(device="cpu"), weights, device)
+        for n, p in net.named_parameters():
+            if n in param_lr:
+                p.optimize_attr = {"learning_rate": param_lr[n]}
+        opt = popt.Adam(learning_rate=LENET["lr"],
+                        parameters=net.parameters(), **options())
+        x, y = (torch.from_numpy(a).to(device) for a in (img, lbl))
+        losses, grads = [], None
+        for _ in range(LENET["held_steps"]):
+            loss = vision_loss(net, x, y)
+            loss.backward()
+            if grads is None:
+                grads = {n: p.grad.cpu() for n, p in net.named_parameters()}
+            opt.step()
+            opt.clear_grad()
+            losses.append(loss.item())
+        runs[device] = (losses, grads, {n: p.detach().cpu() for n, p in
+                                        net.named_parameters()})
+    (card_l, card_g, card_p), (cpu_l, cpu_g, cpu_p) = runs["cuda"], \
+        runs["cpu"]
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(card_l, cpu_l))
+    grad_err = max(share(card_g[n], cpu_g[n]) for n in cpu_g)
+    bound = 2 * LENET["held_steps"] * LENET["lr"] * max(
+        [1.0] + list(param_lr.values()))
+    param_err, flipped, widest = 0.0, 0, 0.0
+    for n, want in cpu_p.items():
+        diff = (card_p[n].double() - want.double()).abs()
+        param_err = max(param_err, share(card_p[n], want))
+        past = diff > VISION_TOL * want.abs().max().double()
+        flipped += int(past.sum())
+        widest = max(widest, float(diff.max()))
+    log(f"  LeNet, {label}: losses card {card_l} CPU {cpu_l} (worst "
+        f"{loss_err:.2e} relative); step-1 gradients {grad_err:.2e}; "
+        f"parameters after step {LENET['held_steps']} {param_err:.2e} of "
+        f"their largest magnitude ({flipped} entries past {VISION_TOL}, "
+        f"the widest {widest:.2e} against {bound:.2e})")
+    if not all(math.isfinite(x) for x in card_l) or loss_err > VISION_TOL:
+        fail(f"LeNet {label}: losses card {card_l} vs CPU {cpu_l}")
+    if grad_err > VISION_TOL:
+        fail(f"LeNet {label}: step-1 gradients {grad_err} past "
+             f"{VISION_TOL}")
+    if widest > bound:
+        fail(f"LeNet {label}: a parameter moved {widest} from the CPU's, "
+             f"past 2 x the summed step sizes {bound}")
+
+
+def hold_resnet50_dygraph():
+    """Dygraph ResNet-50 at full width and depth, B
+    DYGRAPH_RESNET["held_batch"], 224x224, 1000 classes, from one
+    carried state: eval logits within RESNET_TOL of their largest
+    magnitude; one train step (Momentum(0.1, 0.9)): the loss within
+    RESNET_TOL relative, every BN running stat within RESNET_TOL, the
+    gradients within RESNET_GRAD_TOL as one norm over all of them (the
+    CPU against itself on one thread printed beside it)."""
+    from paddle_tpu_torch import optimizer as popt
+    from paddle_tpu_torch.models import layer_from_numpy, layer_to_numpy
+    from paddle_tpu_torch.vision import models as pvm
+
+    img, lab = resnet_batch(DYGRAPH_RESNET["held_batch"])
+    card = pvm.resnet50(generator=torch.Generator().manual_seed(0))
+    state = layer_to_numpy(card)
+    runs = {}
+    for device, threads in (("cuda", None), ("cpu", None), ("cpu", 1)):
+        net = layer_from_numpy(card if device == "cuda" else pvm.resnet50(
+            device="cpu"), state, device)
+        default = torch.get_num_threads()
+        if threads:
+            torch.set_num_threads(threads)
+        x, y = (torch.from_numpy(a).to(device) for a in (img, lab))
+        net.eval()
+        with torch.no_grad():
+            logits = net(x).cpu()
+        net.train()
+        opt = popt.Momentum(learning_rate=DYGRAPH_RESNET["lr"],
+                            momentum=DYGRAPH_RESNET["momentum"],
+                            parameters=net.parameters())
+        loss = vision_loss(net, x, y)
+        loss.backward()
+        grads = {n: p.grad.cpu().numpy() for n, p in net.named_parameters()}
+        opt.step()
+        opt.clear_grad()
+        stats = {n: t.cpu() for n, t in net.state_dict().items()
+                 if n.endswith(("_mean", "_variance"))}
+        runs[(device, threads)] = (logits, loss.item(), grads, stats)
+        torch.set_num_threads(default)
+    (c_lg, c_l, c_g, c_s), (h_lg, h_l, h_g, h_s), (_, _, one_g, _) = (
+        runs[("cuda", None)], runs[("cpu", None)], runs[("cpu", 1)])
+    logit_err = share(c_lg, h_lg)
+    loss_err = abs(c_l - h_l) / abs(h_l)
+    stat_err = max(share(c_s[n], h_s[n]) for n in h_s)
+    grad_err = rel_l2(c_g, h_g, list(h_g))
+    log(f"  ResNet-50 dygraph, B={DYGRAPH_RESNET['held_batch']}, 224x224: "
+        f"eval logits {logit_err:.2e}; train step loss card {c_l:.6f} CPU "
+        f"{h_l:.6f} ({loss_err:.2e}); BN running stats {stat_err:.2e}; "
+        f"gradients {grad_err:.2e} (worst tensor "
+        f"{worst_share(c_g, h_g, list(h_g)):.2e}; the CPU on 1 thread "
+        f"against its default {rel_l2(one_g, h_g, list(h_g)):.2e})")
+    if logit_err > RESNET_TOL or not torch.isfinite(c_lg).all():
+        fail(f"ResNet-50 dygraph eval logits {logit_err} past {RESNET_TOL}")
+    if not math.isfinite(c_l) or loss_err > RESNET_TOL:
+        fail(f"ResNet-50 dygraph loss card {c_l} vs CPU {h_l}")
+    if stat_err > RESNET_TOL:
+        fail(f"ResNet-50 dygraph BN running stats {stat_err} past "
+             f"{RESNET_TOL}")
+    if grad_err > RESNET_GRAD_TOL:
+        fail(f"ResNet-50 dygraph gradients {grad_err} past "
+             f"{RESNET_GRAD_TOL}")
+
+
+def hold_eval(name, build):
+    """`build` (1000 classes) on the card and, from its state, on the
+    CPU: eval logits at B DYGRAPH_RESNET["held_batch"], 224x224, within
+    RESNET_TOL of their largest magnitude."""
+    from paddle_tpu_torch.models import layer_from_numpy, layer_to_numpy
+
+    card = build(generator=torch.Generator().manual_seed(0)).eval()
+    cpu = layer_from_numpy(build(device="cpu"), layer_to_numpy(card),
+                           "cpu").eval()
+    img, _ = resnet_batch(DYGRAPH_RESNET["held_batch"])
+    with torch.no_grad():
+        got = card(torch.from_numpy(img).cuda()).cpu()
+        want = cpu(torch.from_numpy(img))
+    err = share(got, want)
+    log(f"  {name} eval, B={DYGRAPH_RESNET['held_batch']}, 224x224: "
+        f"logits {err:.2e}")
+    if err > RESNET_TOL or not torch.isfinite(got).all():
+        fail(f"{name} eval logits {err} past {RESNET_TOL}")
+
+
+def phase_vision_held():
+    """(a) LeNet card vs CPU, plain and with a global-norm clip, L2 decay
+    and a per-parameter learning rate; (b) dygraph ResNet-50 eval and a
+    train step, and VGG-11, MobileNet V1 and V2 in eval mode."""
+    from paddle_tpu_torch import nn as pnn
+    from paddle_tpu_torch import optimizer as popt
+    from paddle_tpu_torch.models import layer_to_numpy
+    from paddle_tpu_torch.vision import models as pvm
+
+    weights = layer_to_numpy(pvm.LeNet(
+        generator=torch.Generator().manual_seed(0)))
+    hold_lenet("Adam", weights, dict, {})
+    hold_lenet("Adam, ClipGradByGlobalNorm(1.0), L2Decay(1e-4), fc.0.weight "
+               "at learning rate x 0.5", weights, lambda: dict(
+                   grad_clip=pnn.ClipGradByGlobalNorm(1.0),
+                   weight_decay=popt.L2Decay(1e-4)), {"fc.0.weight": 0.5})
+    hold_resnet50_dygraph()
+    for name, build in (("VGG-11", pvm.vgg11),
+                        ("MobileNetV1", pvm.mobilenet_v1),
+                        ("MobileNetV2", pvm.mobilenet_v2)):
+        hold_eval(name, build)
+
+
+def phase_vision_run():
+    """bench_lenet's run on the card (B 128, 3 warm-up steps, 10 steps
+    synced once, then 10 steps each synced, as the bench's _time_steps
+    does): the loss finite and falling; then the eager step()'s host
+    time and LENET["profiled"] steps under torch.profiler; then the
+    dygraph ResNet-50 at B DYGRAPH_RESNET["batch"], fp32, Momentum:
+    warm-up and timed steps with its peak memory (printed, not
+    gated)."""
+    from paddle_tpu_torch import optimizer as popt
+    from paddle_tpu_torch.vision import models as pvm
+
+    net = pvm.LeNet(generator=torch.Generator().manual_seed(0))
+    opt = popt.Adam(learning_rate=LENET["lr"], parameters=net.parameters())
+    img, lbl = (torch.from_numpy(a).cuda()
+                for a in lenet_batch(LENET["batch"]))
+    losses = []
+
+    def step():
+        loss = vision_loss(net, img, lbl)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        losses.append(loss.detach())
+
+    def sync():
+        float(losses[-1])           # the bench's device-to-host read
+
+    for _ in range(LENET["warmup"]):
+        step()
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(LENET["iters"]):
+        step()
+    sync()
+    agg = (time.perf_counter() - t0) / LENET["iters"]
+    synced = []
+    for _ in range(LENET["iters"]):
+        t0 = time.perf_counter()
+        step()
+        sync()
+        synced.append(time.perf_counter() - t0)
+    losses = [float(x) for x in losses]
+    log(f"  LeNet B={LENET['batch']}: {len(losses)} steps, loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}; {agg * 1e3:.3f} ms per step "
+        f"over {LENET['iters']} steps synced once, median "
+        f"{np.median(synced) * 1e3:.3f} ms synced per step")
+    if not all(math.isfinite(x) for x in losses) or losses[-1] >= losses[0]:
+        fail(f"LeNet loss not finite and falling: {losses}")
+
+    host = []
+    for _ in range(LENET["iters"]):
+        vision_loss(net, img, lbl).backward()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        opt.step()
+        host.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        opt.clear_grad()
+    p_wall, busy, top = profile_steps(step, LENET["profiled"])
+    launches = 0
+    if busy > 0:
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            step()
+            torch.cuda.synchronize()
+        launches = sum(c for _, c in device_kernels(prof).values())
+
+    b = DYGRAPH_RESNET["batch"]
+    rnet = pvm.resnet50(generator=torch.Generator().manual_seed(0))
+    ropt = popt.Momentum(learning_rate=DYGRAPH_RESNET["lr"],
+                         momentum=DYGRAPH_RESNET["momentum"],
+                         parameters=rnet.parameters())
+    rimg, rlab = (torch.from_numpy(a).cuda() for a in resnet_batch(b))
+    r_losses = []
+
+    def r_step():
+        loss = vision_loss(rnet, rimg, rlab)
+        loss.backward()
+        ropt.step()
+        ropt.clear_grad()
+        r_losses.append(loss.detach())
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(DYGRAPH_RESNET["warmup"]):
+        r_step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(DYGRAPH_RESNET["iters"]):
+        r_step()
+    torch.cuda.synchronize()
+    r_step_s = (time.perf_counter() - t0) / DYGRAPH_RESNET["iters"]
+    r_peak = torch.cuda.max_memory_allocated()
+    r_losses = [float(x) for x in r_losses]
+    log(f"  ResNet-50 dygraph B={b}, fp32, Momentum: losses "
+        f"{[round(x, 4) for x in r_losses]}; {r_step_s * 1e3:.2f} ms per "
+        f"step over {DYGRAPH_RESNET['iters']} steps")
+    if not all(math.isfinite(x) for x in r_losses):
+        fail(f"dygraph ResNet-50 losses not finite: {r_losses}")
+    return dict(agg=agg, synced=float(np.median(synced)),
+                host=float(np.median(host)), p_wall=p_wall, busy=busy,
+                top=top, launches=launches,
+                n_params=len(list(net.parameters())), r_step_s=r_step_s,
+                r_peak=r_peak)
+
+
+def vision_numbers(card, run, static_run):
+    """bench_lenet's numbers and the dygraph ResNet-50's beside phase
+    9's static one (same call)."""
+    b = LENET["batch"]
+    log(f"  [{card}] LeNet dygraph (bench_lenet, B={b}, Adam, fp32): "
+        f"{b / run['agg']:.1f} images/s ({run['agg'] * 1e3:.3f} ms per "
+        f"step over {LENET['iters']} steps synced once); median synced "
+        f"step {run['synced'] * 1e3:.3f} ms ({b / run['synced']:.1f} "
+        f"images/s); the eager step() alone {run['host'] * 1e3:.3f} ms of "
+        f"host time per step ({run['n_params']} parameters, median of "
+        f"{LENET['iters']})")
+    if run["busy"] > 0:
+        n = LENET["profiled"]
+        log(f"  [{card}] LeNet under torch.profiler ({n} steps): wall "
+            f"{run['p_wall']:.4f} s, kernels busy {run['busy']:.4f} s on "
+            f"the device, idle share {1 - run['busy'] / run['p_wall']:.1%};"
+            f" {run['launches']} device kernels and copies a step, "
+            f"{run['busy'] / n * 1e3:.3f} ms of kernel time a step")
+        for key, (us, count) in run["top"]:
+            log(f"    {us / 1e3:9.3f} ms  {count:6d} calls  {key[:90]}")
+    else:
+        log(f"  [{card}] LeNet: torch.profiler recorded no device time: "
+            f"device idle share and kernels per step not measured")
+    rb, sb = DYGRAPH_RESNET["batch"], RESNET["batch"]
+    static_step = static_run["chain_s"] / RESNET["chain"]
+    log(f"  [{card}] ResNet-50 dygraph (B={rb}, 224x224, fp32, TF32 off, "
+        f"Momentum): {run['r_step_s'] * 1e3:.2f} ms per step, "
+        f"{rb / run['r_step_s']:.1f} images/s, peak memory "
+        f"{run['r_peak'] / 2**30:.2f} GiB; the static executor in phase 9 "
+        f"(B={sb}, static bf16 AMP): {static_step * 1e3:.2f} ms per step "
+        f"chained, {sb / static_step:.1f} images/s, peak "
+        f"{static_run['peak'] / 2**30:.2f} GiB")
+
+
 def encoder_schedule():
     """The held check's schedule: a warm-up over two steps from 1e-5,
     then a polynomial decay from 1e-4 (steps at 1e-5, 5.5e-5, 1e-4)."""
@@ -2398,7 +2757,22 @@ def main():
     log("  the bench's run on the card")
     resnet = phase_resnet_run()
 
-    phase("phase 10: numbers")
+    phase("phase 10: dygraph vision (bench_lenet's configuration: LeNet, "
+          "Adam, eager step; ResNet-50, VGG-11, MobileNet V1/V2)")
+    reset_launches()
+    log("  held checks: LeNet card vs CPU over three steps; ResNet-50 at "
+        "B=2, 224x224, eval and one train step; VGG-11 and MobileNet V1/V2 "
+        "eval")
+    phase_vision_held()
+    log("  the bench's run on the card")
+    vision = phase_vision_run()
+    launches = read_launches()
+    log(f"  kernel launches over phase 10: {launches}")
+    if any(launches.values()):
+        fail(f"the dygraph vision path launched a kernel of the port: "
+             f"{launches}")
+
+    phase("phase 11: numbers")
     numbers = paged_numbers(pa, card, torch.float32, "")
     numbers.update(paged_numbers(pa, card, torch.int8, "_int8"))
     paged_numbers(pa, card, torch.bfloat16, "_bf16")  # printed only
@@ -2467,6 +2841,7 @@ def main():
             f"device idle share not measured")
     encoder_numbers(card, encoder)
     resnet_numbers(card, resnet)
+    vision_numbers(card, vision, resnet)
     phase(None)
     log(f"  whole run {time.perf_counter() - t_start:.1f} s wall")
     launches = {"ragged_paged_attention": gpu["launches"],

@@ -9,17 +9,20 @@ and pretrains BERT and ERNIE (``models.BertForPretraining``,
 ``ErnieForPretraining``) on the transformer layers of ``nn``, under the
 compiled step's update rules and LR schedulers (``optimizer``); and
 trains ResNet-50 through the static ``Program``/``Executor`` with
-``append_backward``, static bf16 AMP and Momentum (``static``).
+``append_backward``, static bf16 AMP and Momentum (``static``); and
+trains the vision models in dygraph (``vision.models``: LeNet, ResNet,
+VGG, MobileNet) through autograd and the optimizers' eager `step`.
 It imports torch and numpy, never jax and never paddle_tpu.  Entry
 points run on the card unless the caller asks for the CPU
 (``device="cpu"``), where every kernel call takes the kernel's plain
 PyTorch version.
 """
 from . import generation, models, nn, ops, optimizer, parallel, profiler, \
-    serving, static
+    regularizer, serving, static, vision
 from .generation import (GenerationConfig, GenerationEngine,
                          SamplingParams, TinyCausalLM)
 
 __all__ = ["GenerationConfig", "GenerationEngine", "SamplingParams",
            "TinyCausalLM", "generation", "models", "nn", "ops", "optimizer",
-           "parallel", "profiler", "serving", "static"]
+           "parallel", "profiler", "regularizer", "serving", "static",
+           "vision"]

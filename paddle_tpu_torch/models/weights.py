@@ -1,6 +1,6 @@
 """Weights carried between the packages as numpy arrays, under the JAX
-models' ``named_parameters()`` names, and static scopes carried as
-``{var name: numpy array}``."""
+models' ``named_parameters()`` or ``state_dict()`` names, and static
+scopes carried as ``{var name: numpy array}``."""
 import numpy as np
 import torch
 
@@ -25,6 +25,35 @@ def scope_to_numpy(scope):
     `scope_from_numpy`."""
     return {n: scope.get(n).detach().cpu().numpy() for n in scope.names()
             if scope.get(n) is not None}
+
+
+def layer_from_numpy(module, named, device=None):
+    """`module` holding `named`, moved to `device` (None means the card):
+    a JAX layer's ``state_dict()`` as numpy arrays, parameters and batch
+    norms' running stats alike (linear weights [in, out] in both
+    packages).  A missing or unknown name, or a shape that differs,
+    raises ValueError."""
+    dev = resolve_device(device, type(module).__name__)
+    own = module.state_dict(keep_vars=True)
+    if set(named) != set(own):
+        raise ValueError(f"state names differ: missing "
+                         f"{sorted(set(own) - set(named))}, unknown "
+                         f"{sorted(set(named) - set(own))}")
+    with torch.no_grad():
+        for name, t in own.items():
+            value = torch.as_tensor(np.array(named[name]))
+            if value.shape != t.shape:
+                raise ValueError(f"{name}: shape {tuple(value.shape)} != "
+                                 f"{tuple(t.shape)}")
+            t.copy_(value)
+    return module.to(dev)
+
+
+def layer_to_numpy(module):
+    """``{name: numpy array}`` of `module`'s ``state_dict()``, copies that
+    later steps leave alone: the inverse of `layer_from_numpy`."""
+    return {n: t.detach().cpu().numpy().copy()
+            for n, t in module.state_dict().items()}
 
 
 class NumpyWeights:

@@ -1,15 +1,27 @@
-"""Functional ops, layers and transformer layers of the training slice."""
-from . import functional
-from .layers import (ColumnParallelLinear, Dropout, Embedding, LayerNorm,
-                     Linear, ParallelCrossEntropy, RowParallelLinear, Tanh,
+"""The dygraph layers (conv nets and the transformer), their functional
+ops, parameters and initializers, and gradient clipping."""
+from . import functional, initializer
+from .clip import (ClipGradByGlobalNorm, ClipGradByNorm, ClipGradByValue,
+                   utils_clip_grad_norm_)
+from .layer import ParamAttr, create_parameter
+from .layers import (AdaptiveAvgPool2D, AvgPool2D, BatchNorm, BatchNorm1D,
+                     BatchNorm2D, BatchNorm3D, ColumnParallelLinear, Conv2D,
+                     Dropout, Embedding, Flatten, LayerList, LayerNorm,
+                     Linear, MaxPool2D, ParallelCrossEntropy, ReLU, ReLU6,
+                     RowParallelLinear, Sequential, Tanh,
                      VocabParallelEmbedding)
 from .transformer import (MultiHeadAttention, Transformer,
                           TransformerDecoder, TransformerDecoderLayer,
                           TransformerEncoder, TransformerEncoderLayer)
 
-__all__ = ["ColumnParallelLinear", "Dropout", "Embedding", "LayerNorm",
-           "Linear", "MultiHeadAttention", "ParallelCrossEntropy",
-           "RowParallelLinear", "Tanh", "Transformer", "TransformerDecoder",
-           "TransformerDecoderLayer", "TransformerEncoder",
-           "TransformerEncoderLayer", "VocabParallelEmbedding",
-           "functional"]
+__all__ = ["AdaptiveAvgPool2D", "AvgPool2D", "BatchNorm", "BatchNorm1D",
+           "BatchNorm2D", "BatchNorm3D", "ClipGradByGlobalNorm",
+           "ClipGradByNorm", "ClipGradByValue", "ColumnParallelLinear",
+           "Conv2D", "Dropout", "Embedding", "Flatten", "LayerList",
+           "LayerNorm", "Linear", "MaxPool2D", "MultiHeadAttention",
+           "ParallelCrossEntropy", "ParamAttr", "ReLU", "ReLU6",
+           "RowParallelLinear", "Sequential", "Tanh", "Transformer",
+           "TransformerDecoder", "TransformerDecoderLayer",
+           "TransformerEncoder", "TransformerEncoderLayer",
+           "VocabParallelEmbedding", "create_parameter", "functional",
+           "initializer", "utils_clip_grad_norm_"]

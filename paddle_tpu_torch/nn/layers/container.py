@@ -1,0 +1,7 @@
+"""Containers (``paddle_tpu/nn/layers/container.py``): PyTorch's own,
+whose children are keyed "0", "1", ... as in the JAX package, so names
+like ``features.0.weight`` match."""
+from torch import nn
+
+Sequential = nn.Sequential
+LayerList = nn.ModuleList

@@ -1,7 +1,9 @@
-"""The compiled train step's update rules and the LR schedulers."""
+"""The optimizers (eager step, compiled step, static minimize) and the LR
+schedulers."""
 from . import lr
-from .optimizer import (SGD, Adadelta, Adagrad, Adam, Adamax, AdamW, Lamb,
-                        Momentum, Optimizer, RMSProp)
+from .optimizer import (SGD, Adadelta, Adagrad, Adam, Adamax, AdamW,
+                        L1Decay, L2Decay, Lamb, Momentum, Optimizer, RMSProp)
 
-__all__ = ["SGD", "Adadelta", "Adagrad", "Adam", "Adamax", "AdamW", "Lamb",
-           "Momentum", "Optimizer", "RMSProp", "lr"]
+__all__ = ["SGD", "Adadelta", "Adagrad", "Adam", "Adamax", "AdamW",
+           "L1Decay", "L2Decay", "Lamb", "Momentum", "Optimizer", "RMSProp",
+           "lr"]

@@ -15,7 +15,10 @@ float32 parameters through the rounding.  Dropout draws from a
 ``torch.Generator`` the step owns on its device, seeded from `seed` (in
 place of the JAX step's ``rng_guard`` key folded with the step count).
 The learning rate is read before the update; an ``LRScheduler`` learning
-rate is stepped after it, as the JAX step does.
+rate is stepped after it, as the JAX step does.  What the JAX step
+ignores raises at build: an optimizer's gradient clip, regularizer
+object, ``apply_decay_param_fun`` or Lamb exclude function, and a
+parameter's own regularizer or learning rate.
 """
 import torch
 from torch import nn
@@ -46,6 +49,7 @@ class TrainStep:
     def __init__(self, model, loss_fn, optimizer, amp_dtype=None, seed=0,
                  device=None):
         self.device = resolve_device(device, "TrainStep")
+        optimizer.refuse_eager_only("TrainStep")
         self.model = model
         self.optimizer = optimizer
         self.amp_dtype = amp_dtype
@@ -54,6 +58,12 @@ class TrainStep:
             if p.device != self.device:
                 raise ValueError(f"parameter {n} is on {p.device}, the step "
                                  f"on {self.device}")
+            if getattr(p, "regularizer", None) is not None or getattr(
+                    p, "optimize_attr", {}).get("learning_rate", 1.0) != 1.0:
+                raise NotImplementedError(
+                    f"parameter {n}: a per-parameter regularizer or "
+                    f"learning rate is not ported to TrainStep (the JAX "
+                    f"compiled step ignores both)")
         self.opt_state = {n: optimizer.init_state(p)
                           for n, p in self.params.items()}
         self.generator = torch.Generator(device=self.device)

@@ -13,6 +13,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..nn.functional import batch_stats
 from .param_helper import create_parameter
 from .program import default_main_program, Variable
 
@@ -275,8 +276,7 @@ def batch_norm(input, act=None, is_test=False, momentum=0.9, epsilon=1e-5,
         if is_test:
             mean_u, var_u = m, va
         else:
-            mean_u = vf.mean(dim=reduce_axes)
-            var_u = vf.square().mean(dim=reduce_axes) - mean_u.square()
+            mean_u, var_u = batch_stats(vf, reduce_axes)
         out = (vf - mean_u.reshape(shape)) * torch.rsqrt(
             var_u.reshape(shape) + epsilon)
         out = out * sc.reshape(shape) + b.reshape(shape)

@@ -6,7 +6,9 @@ float32 vars ``{param}_{key}`` that the startup program initializes.
 The learning rate is read once, here, and scaled by each parameter's
 ``optimize_attr['learning_rate']``; coupled weight decay adds ``wd * p``
 to the gradient, decoupled decay subtracts ``lr * wd * p_old`` after
-the step; no gradient clipping is applied.
+the step.  An optimizer with a gradient clip, a regularizer object,
+``apply_decay_param_fun`` or a Lamb exclude function raises: the JAX
+static path ignores them.
 """
 import torch
 
@@ -16,6 +18,7 @@ from .program import default_startup_program
 
 def static_minimize(optimizer, loss, startup_program=None, parameter_list=None,
                     no_grad_set=None):
+    optimizer.refuse_eager_only("static minimize")
     main = loss.block.program
     startup = startup_program or default_startup_program()
     params_grads = append_backward(loss, parameter_list=parameter_list,

@@ -9,59 +9,24 @@ not equal the JAX package's draws; the weight carry
 (``models/weights.py::scope_from_numpy``) makes them equal where a test
 needs it.
 """
-import math
-
-import numpy as np
 import torch
 
+from ..nn.initializer import Constant, XavierNormal
 from .program import convert_dtype, default_main_program, \
     default_startup_program, dtype_name
 
 
-def _fans(shape):
-    shape = tuple(shape)
-    if len(shape) == 0:
-        return 1, 1
-    if len(shape) == 1:
-        return shape[0], shape[0]
-    if len(shape) == 2:
-        return shape[0], shape[1]
-    receptive = int(np.prod(shape[2:]))
-    return shape[1] * receptive, shape[0] * receptive
-
-
-class Constant:
-    def __init__(self, value=0.0):
-        self.value = value
-
-    def __call__(self, shape, dtype, generator, device):
-        return torch.full(tuple(shape), self.value, dtype=dtype,
-                          device=device)
-
-
-class XavierNormal:
-    def __init__(self, fan_in=None, fan_out=None):
-        self.fan_in, self.fan_out = fan_in, fan_out
-
-    def __call__(self, shape, dtype, generator, device):
-        fi, fo = _fans(shape)
-        fi = self.fan_in if self.fan_in is not None else fi
-        fo = self.fan_out if self.fan_out is not None else fo
-        std = math.sqrt(2.0 / (fi + fo))
-        return torch.randn(tuple(shape), generator=generator, dtype=dtype,
-                           device=device) * std
-
-
 class ParamAttr:
     """The fields of ``paddle.ParamAttr`` that `create_parameter` reads.
-    A regularizer object is not ported (the compiled step's optimizers
-    refuse them too)."""
+    A regularizer raises: the JAX static path never applies one (the
+    dygraph ``nn.ParamAttr`` takes it, for the eager step)."""
 
     def __init__(self, name=None, initializer=None, learning_rate=1.0,
                  regularizer=None, trainable=True):
         if regularizer is not None:
             raise NotImplementedError(
-                "ParamAttr(regularizer=...) is not ported yet")
+                "ParamAttr(regularizer=...) is not ported to the static "
+                "graph: its JAX path never applies one")
         self.name = name
         self.initializer = initializer
         self.learning_rate = learning_rate

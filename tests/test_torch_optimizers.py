@@ -17,6 +17,9 @@ import torch
 
 import paddle_tpu as paddle
 from paddle_tpu_torch import optimizer as popt
+from paddle_tpu_torch.nn import (ClipGradByGlobalNorm, ClipGradByNorm,
+                                 ClipGradByValue, ParamAttr)
+from paddle_tpu_torch.parallel import TrainStep
 
 LR = 0.01
 TOL = dict(rtol=1e-6, atol=1e-7)
@@ -107,18 +110,52 @@ def test_lamb_trust_ratio_is_per_parameter():
     torch.testing.assert_close(scaled["b"], base["b"], rtol=0, atol=0)
 
 
-class _L2:
-    _coeff = 0.1
+def _compiled_step(opt):
+    return TrainStep(torch.nn.Linear(2, 2), lambda m, x, generator: m(x)
+                     .sum(), opt, device="cpu")
 
 
 @pytest.mark.parametrize("build", [
-    lambda: popt.SGD(grad_clip=1.0),
-    lambda: popt.Momentum(weight_decay=_L2()),
+    lambda: _compiled_step(popt.SGD(grad_clip=ClipGradByGlobalNorm(1.0))),
+    lambda: _compiled_step(popt.Momentum(weight_decay=popt.L2Decay(0.1))),
     lambda: popt.Adagrad(learning_rate=lambda: 0.1),
-    lambda: popt.Lamb(exclude_from_weight_decay_fn=lambda n: "bias" in n),
-    lambda: popt.RMSProp(0.1, grad_clip=1.0)],
+    lambda: _compiled_step(popt.Lamb(
+        exclude_from_weight_decay_fn=lambda n: "bias" in n)),
+    lambda: _compiled_step(popt.RMSProp(0.1, grad_clip=ClipGradByNorm(
+        1.0)))],
     ids=["grad_clip", "regularizer", "lr_lambda", "lamb_exclude_fn",
          "rmsprop_grad_clip"])
 def test_what_the_compiled_step_never_applies_raises(build):
+    """The eager step applies gradient clipping, regularizer objects and
+    Lamb's exclude function (``test_torch_eager_optimizer.py``); the
+    compiled step, which the JAX package runs without them, refuses an
+    optimizer that carries one.  A callable learning rate raises on
+    every path."""
     with pytest.raises(NotImplementedError):
+        build()
+
+
+@pytest.mark.parametrize("option", [
+    dict(grad_clip=ClipGradByValue(0.5)),
+    dict(weight_decay=popt.L2Decay(0.01)),
+    dict(apply_decay_param_fun=lambda n: True)],
+    ids=["grad_clip", "regularizer", "apply_decay_param_fun"])
+def test_static_minimize_refuses_what_it_never_applies(option):
+    from paddle_tpu_torch import static
+
+    main, startup = static.Program(), static.Program()
+    with static.program_guard(main, startup):
+        loss = static.nn.mean(static.nn.fc(static.data("x", [2, 3]), 2))
+        with pytest.raises(NotImplementedError, match="static minimize"):
+            popt.AdamW(0.1, **option).minimize(loss)
+
+
+@pytest.mark.parametrize("build", [
+    lambda: popt.SGD(weight_decay=popt.L1Decay(0.1)),
+    lambda: popt.Momentum(weight_decay=object()),
+    lambda: ParamAttr(regularizer=popt.L1Decay(0.1)),
+    lambda: popt.AdamW(lr_ratio=0.5)],
+    ids=["l1_decay", "unknown_regularizer", "param_l1_decay", "lr_ratio"])
+def test_what_no_path_applies_raises(build):
+    with pytest.raises(NotImplementedError, match="not ported|must be"):
         build()

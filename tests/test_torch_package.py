@@ -31,6 +31,7 @@ def test_import_pulls_in_neither_jax_nor_paddle_tpu():
                      if m == "jax" or m.startswith("jax.")
                      or m == "paddle_tpu" or m.startswith("paddle_tpu."))
         print(len(names), bad)
+        print(" ".join(names))
         assert not bad, bad
     """)
     env = dict(os.environ, PYTHONPATH=str(REPO))
@@ -40,6 +41,12 @@ def test_import_pulls_in_neither_jax_nor_paddle_tpu():
     n_modules = int(proc.stdout.split()[0])
     # every module of the serving and training slices was imported
     assert n_modules >= 25
+    walked = set(proc.stdout.splitlines()[1].split())
+    assert {f"paddle_tpu_torch.{m}" for m in (
+        "nn.initializer", "nn.layer", "nn.clip", "nn.layers.conv",
+        "nn.layers.pooling", "nn.layers.norm", "nn.layers.container",
+        "regularizer", "vision.models.lenet", "vision.models.resnet",
+        "vision.models.vgg", "vision.models.mobilenet")} <= walked
 
 
 def test_default_config_resolves_to_cuda_and_never_falls_back():

@@ -477,7 +477,10 @@ def test_clone_is_a_program_that_trains_alike():
     lambda m: tstatic.Executor("cpu").train_from_dataset(m),
     lambda m: tstatic.Executor("cpu").infer_from_dataset(m),
     lambda m: tstatic.ParamAttr(regularizer=0.01),
-    lambda m: popt.SGD(0.1).minimize(torch.ones(())),
+    # the eager minimize is ported (test_torch_eager_optimizer.py); what
+    # still refuses on its way is an L1Decay, which JAX applies as L2
+    lambda m: popt.SGD(0.1, weight_decay=popt.L1Decay(0.1)).minimize(
+        torch.ones((), requires_grad=True)),
 ], ids=["clone_for_test", "train_from_dataset", "infer_from_dataset",
         "regularizer", "eager_minimize"])
 def test_unported_entry_points_raise(call):

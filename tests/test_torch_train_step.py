@@ -33,7 +33,8 @@ from paddle_tpu.models.gpt import GPTForPretraining as JaxGPT
 from paddle_tpu.parallel.env import build_mesh
 from paddle_tpu.parallel.hybrid import CompiledTrainStep
 from paddle_tpu_torch.models import gpt as pgpt
-from paddle_tpu_torch.optimizer import Adam, AdamW
+from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+from paddle_tpu_torch.optimizer import Adam, AdamW, L2Decay
 from paddle_tpu_torch.parallel import TrainStep
 
 JAX_FLASH = sys.modules["paddle_tpu.ops.pallas.flash_attention"]
@@ -200,11 +201,28 @@ def test_unported_model_options_raise_at_build(option):
 
 
 @pytest.mark.parametrize("option", [
-    dict(learning_rate=lambda: 1e-3), dict(grad_clip=1.0),
+    dict(learning_rate=lambda: 1e-3),
+    dict(grad_clip=ClipGradByGlobalNorm(1.0)),
     dict(apply_decay_param_fun=lambda n: True), dict(lr_ratio=0.5)])
 def test_unported_optimizer_options_raise(option):
+    """The compiled step refuses what the JAX one ignores (the eager step
+    applies the clip and the decay function); a callable learning rate
+    and ``lr_ratio`` raise on every path."""
+    model = pgpt.GPTForPretraining(pgpt.GPTConfig(**CFG), device="cpu")
     with pytest.raises(NotImplementedError):
-        AdamW(**option)
+        TrainStep(model, _loss_fn, AdamW(**option), device="cpu")
+
+
+@pytest.mark.parametrize("attr", [
+    dict(regularizer=L2Decay(0.1)), dict(optimize_attr={
+        "learning_rate": 0.5})], ids=["regularizer", "learning_rate"])
+def test_per_parameter_attributes_raise_in_the_compiled_step(attr):
+    model = pgpt.GPTForPretraining(pgpt.GPTConfig(**CFG), device="cpu")
+    p = next(model.parameters())
+    for k, v in attr.items():
+        setattr(p, k, v)
+    with pytest.raises(NotImplementedError, match="per-parameter"):
+        TrainStep(model, _loss_fn, AdamW(), device="cpu")
 
 
 def test_step_refuses_parameters_off_its_device():
