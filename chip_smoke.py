@@ -21,7 +21,10 @@ carries on:
    row over 4,100 keys (a pages bucket of 272), 32 decode rows and a
    64-row chunk whose tiles straddle its key splits, the decode kernel
    also on one row over 4,100 keys and the chunk kernel on a chunk whose
-   tiles straddle its key splits; each paged kernel launched twice on
+   tiles straddle its key splits; the ragged kernel also on
+   speculation's verify rows (8 descriptors of 5 rows over 16..632 keys)
+   and on the decode loop's fixed axis (8 x 5 rows, descriptors of 5, 1
+   and 0 rows); each paged kernel launched twice on
    every case, the two outputs bitwise equal; the flash kernels elementwise within
    atol = rtol = 2e-5 (out, lse) and 1e-4 (dq, dk, dv) in fp32, 2e-2 in
    bf16;
@@ -47,7 +50,27 @@ carries on:
    their calls, held to (a) by the same rule; printed, not gated: greedy
    agreement and first-token logit drift against phase 3's float32 run,
    and the pool bytes of int8 against float32;
-7. training at GPT-2-small width (the JAX package's ``bench_gpt_zero``
+7. speculation and the host-free decode loop at GPT-2-small width:
+   phase 3's engine, weights and traffic plus a prompt of one repeated
+   span and two requests with a stop token and a stop sequence, served
+   with spec {off, on (ngram, K=4)} x N {1, 4, 8} on float32 and int8
+   pools; each run's requests end by length or stop, its ragged-kernel
+   launches equal num_layers x (ragged steps + N x (loop replays + the
+   loop's captures in the run)), and its streams are held by phase 4's
+   rule (phase 6's bounds for int8) to the spec-off N=1 run of its dtype
+   (int8 with speculation: to int8 spec-on N=1; a rejected draft's write
+   can grow its page's scale, so int8 spec against spec off is printed,
+   not gated, as the JAX package pins rather than guarantees it);
+   (a) speculation accepts and rewinds drafts, and on a subset of the
+   traffic spec-on card vs CPU holds by the same rules; (b) the loop
+   fetches at most once per N tokens on its path; (c) per dtype one
+   captured loop's replay equals the eager loop bitwise (output and
+   pools, the sink page aside); (d) the device sampler on the card
+   against the host sampler over seeded [8, 50304] logits across the
+   sampling menu: at most 1 row in 1000 sampling another token, the
+   counters equal; (e) is in phase 2 (the verify and loop shapes) and
+   (f) in phase 12;
+8. training at GPT-2-small width (the JAX package's ``bench_gpt_zero``
    configuration: vocab 50257, 12 layers of 768, 12 heads, 512
    positions, flash attention, AdamW lr 1e-4, bf16 amp): at dropout 0,
    the card's first two steps against the same weights and batch on the
@@ -56,18 +79,18 @@ carries on:
    card, B=8, L=512, 3 warm-up and 10 timed steps on one batch: the
    loss finite and falling, and each flash kernel's launches equal to
    num_layers x steps;
-8. encoder pretraining (the JAX package's ``bench_bert`` configuration:
+9. encoder pretraining (the JAX package's ``bench_bert`` configuration:
    BERT-base, vocab 30522, 12 layers of 768, 12 heads, FFN 3072, AdamW,
    bf16 amp; attention on the composite path, as in the JAX package):
    (a) BERT-base at dropout 0, then ERNIE-base (vocab 18000, task
    embeddings, labels from ``apply_knowledge_mask`` with -100 off the
    masked spans), the card's first three steps under a LinearWarmup over
    PolynomialDecay schedule against the same weights and batch on the
-   CPU (B=2, L=128), held by phase 7's rule; (b) the bench's run on the
+   CPU (B=2, L=128), held by phase 8's rule; (b) the bench's run on the
    card, dropout 0.1, lr 1e-4 constant, B=64, L=128, 3 warm-up and 10
    timed steps on one batch: the loss finite and falling, and no kernel
    of the port launched;
-9. static ResNet-50 (the JAX package's ``bench_resnet`` configuration:
+10. static ResNet-50 (the JAX package's ``bench_resnet`` configuration:
    B 64, 224x224, 1000 classes, Momentum(0.1, 0.9), static bf16 AMP,
    through ``static.Program``, ``append_backward`` and the ``Executor``;
    convolutions are PyTorch's, no kernel of the port is on this path):
@@ -87,7 +110,7 @@ carries on:
    card: the feed staged once, a warm-up ``run_chained`` of 20 steps,
    three timed chains, 1 + 3 stepped runs, every loss finite; no kernel
    of the port launched in (a) or (b);
-10. dygraph vision (the JAX package's ``bench_lenet`` configuration:
+11. dygraph vision (the JAX package's ``bench_lenet`` configuration:
    LeNet, B 128, 1x28x28, 10 classes, Adam 1e-3, ``loss.backward()``,
    the eager ``opt.step()`` and ``opt.clear_grad()``; convolutions,
    pools and batch norm are PyTorch calls, no kernel of the port is on
@@ -101,13 +124,13 @@ carries on:
    depth, B 2, 224x224, 1000 classes: eval logits within 1e-4 of their
    largest magnitude, one Momentum(0.1, 0.9) train step with its loss
    within 1e-4 relative, every BN running stat within 1e-4 and the
-   gradients within 0.1 as one norm (phase 9's reason); VGG-11,
+   gradients within 0.1 as one norm (phase 10's reason); VGG-11,
    MobileNet V1 and V2 eval logits within 1e-4; (c) the bench's run on
    the card (3 warm-up steps, 10 synced once, 10 each synced): the loss
    finite and falling; then the dygraph ResNet-50 at B 64, fp32,
    Momentum, timed (printed); no kernel of the port launched over the
    phase;
-11. numbers: each kernel's and its plain version's times at its main
+12. numbers: each kernel's and its plain version's times at its main
    path's shape beside its bound (the paged kernels on float32, int8
    and bfloat16 pools, each with its live and launched blocks (from the
    host mirrors of its items) and its counters' zero-fill alone; the
@@ -119,7 +142,13 @@ carries on:
    forward and the whole backward through autograd against sdpa's in
    turns, with the names of sdpa's forward and backward kernels), the
    int8 write's time per layer, each engine's tokens/s, ms per step and
-   time to first token (float32 and int8), the GPT trainer's tokens/s,
+   time to first token (float32 and int8), the ragged kernel at
+   phase 2's verify and loop shapes, (f) for phase 7's spec x N
+   engines on float32 and int8 pools tokens/s, ms per token, host
+   fetches per token, the acceptance rate, the device idle share under
+   torch.profiler, and for the loops the capture time per pages bucket,
+   one iteration's device time live and masked, and the masked tail's
+   device time in the run, the GPT trainer's tokens/s,
    ms per step, peak memory and device idle share, and BERT-base's
    samples/s, tokens/s, ms per step, peak memory, model TFLOP/s
    (bench.py's formula), device idle share and top kernels; and
@@ -131,7 +160,7 @@ carries on:
    the eager step()'s host time, its device kernels per step and idle
    share under torch.profiler; the dygraph ResNet-50's ms per step,
    images/s and peak memory beside the static executor's;
-12. the result line.
+13. the result line.
 
 Each phase prints its wall seconds.
 
@@ -180,6 +209,22 @@ LEGACY = dict(step_mode="legacy", decode="fused", prefill_chunk_tokens=64)
 INT8 = dict(kv_dtype="int8")
 ONE_SHOT = dict(step_mode="legacy", decode="eager", prefill_chunk_tokens=0)
 ONE_SHOT_PROMPTS, ONE_SHOT_NEW = (0, 2, 5, 7), 8
+# speculation (ngram drafts of up to SPEC_K tokens) and the host-free
+# decode loop's N; phase 7's loop engines capture these pages buckets
+# before their measured runs
+SPEC_K = 4
+SPEC = dict(spec_mode="ngram", spec_tokens=SPEC_K)
+LOOP_NS = (4, 8)
+LOOP_PREWARM = (16, 32, 64)
+# the device sampler against the host sampler over [8, vocab] logits:
+# rows sampled, and the most that may differ (a draw within ULPs of a
+# CDF boundary, where the reductions' order decides)
+SAMPLER_DRAWS, SAMPLER_MAX_DIFF = 125, 1
+# generation.* counters one measured run reads: the stat registry is the
+# process's, so each run sets them to 0 after its warm-up
+RUN_COUNTERS = ("tokens_total", "steps_total", "spec_proposed_tokens",
+                "spec_accepted_tokens", "spec_rewind_tokens",
+                "spec_draft_rows")
 # the kernels' main-path case: the engine's widths, pool and pages bucket
 MAIN = dict(h=12, d=64, ps=16, num_pages=512, pages_bucket=64)
 # the trainer: bench.py's bench_gpt_zero configuration on the accelerator
@@ -338,13 +383,15 @@ def _pools(rng, h, d, ps, num_pages, layout, kv_dtype, misaligned, device):
 
 def make_case(rng, *, h, d, ps, num_pages, desc, layout="token",
               kv_dtype=torch.float32, pages_bucket=None, n_padding=0,
-              unowned=True, misaligned=False, device="cuda"):
+              unowned=True, misaligned=False, stride=None, device="cuda"):
     """Packed query rows for descriptors `desc` ([(len, kv_len)]) — with
     `unowned`, a one-row gap after the first descriptor and two more
     rows at the end that no descriptor owns — pages drawn at random from
     a random pool (sink page included), and `n_padding` len-0
     descriptors whose tables and kv_lens are garbage.  `misaligned`
-    pools start one element past an aligned address."""
+    pools start one element past an aligned address.  With `stride`,
+    descriptor i owns rows from ``i * stride`` on (the decode loop's
+    fixed axis of ``len(desc) * stride`` rows) and `unowned` is unused."""
     lens = [ln for ln, _ in desc]
     kvs = [kv for _, kv in desc]
     starts, row = [], 0
@@ -352,6 +399,9 @@ def make_case(rng, *, h, d, ps, num_pages, desc, layout="token",
         starts.append(row)
         row += ln + (1 if i == 0 and unowned else 0)
     t = row + (2 if unowned else 0)
+    if stride is not None:
+        starts = [i * stride for i in range(len(lens))]
+        t = len(lens) * stride
     need = [math.ceil(kv / ps) for kv in kvs]
     mp = pages_bucket or max(need)
     perm = rng.permutation(num_pages)
@@ -439,13 +489,34 @@ def kernel_cases(rng):
                                       rng.integers(16, 633, 32)],
                                 **{**MAIN, "num_pages": 1400})),
         ("chunk_64_straddling", dict(desc=[(64, 164), (1, 70)], **MAIN)),
+        # speculation's verify rows (8 descriptors of 1 + 4 rows over
+        # 16..632 keys), and the decode loop's fixed axis of 8 x (1 + 4)
+        # rows: descriptor s owns rows from 5 s, some verifying drafts,
+        # some plain decode rows, some dead (len 0) at the loop's tail
+        ("spec_verify_8x5", dict(desc=spec_desc(rng), unowned=False,
+                                 **MAIN)),
+        ("loop_axis_8x5", dict(desc=loop_desc(rng), stride=1 + SPEC_K,
+                               **MAIN)),
     ]
     return cases + int8_variants(cases, [
         "d8_ps4_token", "d8_ps4_kernel", "d128_ps64", "d100_ps5_odd",
         "d6_ps4_token", "d30_ps16_kernel", "misaligned_token",
         "misaligned_kernel_bf16", "main_mixed_token", "main_mixed_kernel",
         "main_padding_desc", "long_decode_4100", "decode_32_rows",
-        "chunk_64_straddling"])
+        "chunk_64_straddling", "spec_verify_8x5", "loop_axis_8x5"])
+
+
+def spec_desc(rng):
+    """8 verify descriptors of 1 + SPEC_K rows over 16..632 keys."""
+    return [(1 + SPEC_K, int(kv)) for kv in rng.integers(16, 633, 8)]
+
+
+def loop_desc(rng):
+    """The loop's 8 descriptors at one iteration: three verifying drafts
+    (1 + SPEC_K rows), three plain decode rows, two dead ones."""
+    kvs = [int(kv) for kv in rng.integers(16, 633, 8)]
+    return ([(1 + SPEC_K, kv) for kv in kvs[:3]]
+            + [(1, kv) for kv in kvs[3:6]] + [(0, 0), (0, 0)])
 
 
 def int8_variants(cases, names):
@@ -784,37 +855,62 @@ def traffic(rng):
 
 
 def serve(pgen, model, prompts, device, settings=None, max_new=MAX_NEW,
-          stochastic=STOCHASTIC):
+          stochastic=STOCHASTIC, extras=None):
     """Serve the traffic on one engine; returns the engine, the handles,
     the spies' records and the first measured sequence id.  On the
-    ragged step the records are each step's (descriptor seq ids, kv_lens,
-    logits) for the logit comparisons; on the legacy step, each request's
-    first-token logits and the count of decode and chunk step calls."""
+    ragged step the records are each call's (descriptor seq ids,
+    kv_lens, logits) for the logit comparisons (logits None for a decode
+    loop's call, which samples on the device); on the legacy step, each
+    request's first-token logits and the count of decode and chunk step
+    calls.  `extras` maps a request's index to its ``stop_tokens`` and
+    ``stop_sequences``.  A loop engine captures its LOOP_PREWARM pages
+    buckets here, before the measured run."""
     eng = pgen.GenerationEngine(model, pgen.GenerationConfig(
         device=device, **ENGINE, **(settings or {})), start=False)
     # warm-up request (first cuBLAS calls), outside the measured run
     warm = eng.submit([1, 2, 3], max_new_tokens=2)
     eng.run_until_idle()
     warm.result(timeout=60)
+    if eng._loop is not None:
+        for pages in LOOP_PREWARM:
+            eng._loop.prewarm(pages)
+    from paddle_tpu_torch.profiler.monitor import StatRegistry
+
+    for name in RUN_COUNTERS:
+        StatRegistry.instance().get_stat("generation." + name).reset()
     first_seq = eng.scheduler._next_seq
     if eng._ragged is not None:
         records = spy_ragged(eng)
     else:
         records = spy_legacy(eng, first_seq)
+    handles = submit_traffic(pgen, eng, prompts, max_new, stochastic,
+                             extras)
+    return eng, handles, records, first_seq
+
+
+def submit_traffic(pgen, eng, prompts, max_new=MAX_NEW,
+                   stochastic=STOCHASTIC, extras=None):
+    """Submit the traffic's requests to `eng`; returns their handles."""
     handles = []
     for i, p in enumerate(prompts):
+        extra = (extras or {}).get(i, {})
+        stop_seqs = extra.get("stop_sequences", ())
         sampling = (pgen.SamplingParams(temperature=0.8, top_k=50,
-                                        top_p=0.95, seed=100 + i)
-                    if i in stochastic else pgen.SamplingParams())
+                                        top_p=0.95, seed=100 + i,
+                                        stop_sequences=stop_seqs)
+                    if i in stochastic
+                    else pgen.SamplingParams(stop_sequences=stop_seqs))
         handles.append(eng.submit(p, max_new_tokens=max_new,
-                                  sampling=sampling))
-    return eng, handles, records, first_seq
+                                  sampling=sampling,
+                                  stop_tokens=extra.get("stop_tokens", ())))
+    return handles
 
 
 def spy_ragged(eng):
     records = []
     real_tables = eng.cache.gather_block_tables
     real_step = eng._ragged.step
+    vocab = eng.model.vocab_size
 
     def tables_spy(desc_ids, *a, **kw):
         pt, kv = real_tables(desc_ids, *a, **kw)
@@ -823,11 +919,23 @@ def spy_ragged(eng):
 
     def step_spy(*args):
         ids, logits = real_step(*args)
-        records[-1][2] = logits        # stays on the device: no sync
+        # stays on the device: no sync (a speculative step's second
+        # output carries three int columns after the logits)
+        records[-1][2] = logits[:, :vocab]
         return ids, logits
 
     eng.cache.gather_block_tables = tables_spy
     eng._ragged.step = step_spy
+    if eng._loop is not None:
+        real_loop = eng._loop.step
+        iters = eng._loop.iters_seen = []
+
+        def loop_spy(*args):
+            out = real_loop(*args)
+            iters.append(eng._loop.last_iters)
+            return out
+
+        eng._loop.step = loop_spy
     return records
 
 
@@ -871,11 +979,18 @@ def spy_legacy(eng, first_seq):
 
 
 def run_engine(pgen, model, prompts, device, settings=None,
-               max_new=MAX_NEW, stochastic=STOCHASTIC):
+               max_new=MAX_NEW, stochastic=STOCHASTIC, extras=None,
+               before_shutdown=None):
     """One measured run.  Every kernel's launch count is set to 0 just
-    before it and read just after."""
+    before it and read just after.  A loop engine's run also returns its
+    graph replays, the captures made during the run and the iterations
+    each loop call ran; `before_shutdown(eng)`, if given, runs after the
+    measured run and its result is returned under "extra"."""
     eng, handles, records, first_seq = serve(
-        pgen, model, prompts, device, settings, max_new, stochastic)
+        pgen, model, prompts, device, settings, max_new, stochastic,
+        extras)
+    lp = eng._loop
+    loop0 = (lp.replays, lp.captures) if lp is not None else (0, 0)
     reset_launches()
     if device == "cuda":
         torch.cuda.synchronize()
@@ -895,17 +1010,28 @@ def run_engine(pgen, model, prompts, device, settings=None,
         fail(f"a {'int8' if tag else 'float'} run launched another "
              f"dtype's paged kernel: {launches}")
     results = [h.result(timeout=60) for h in handles]
-    ttft = sorted(h.first_token_s - h.submitted_s for h in handles)
+    ttft = sorted(h.first_token_s - h.submitted_s for h in handles
+                  if h.first_token_s is not None)
     stats = eng.stats()
     pool_bytes = sum(t.numel() * t.element_size()
                      for t in eng.cache.take_pool_state())
+    loop = {}
+    if lp is not None:
+        loop = dict(n=lp.loop_steps, replays=lp.replays - loop0[0],
+                    captures=lp.captures - loop0[1],
+                    capture_s=list(lp.capture_seconds),
+                    iters=list(lp.iters_seen))
+    extra = before_shutdown(eng) if before_shutdown else None
     eng.shutdown()
     ragged = eng._ragged is not None
+    # a decode loop's call leaves its record without logits
+    ragged_steps = sum(1 for r in records if r[2] is not None) \
+        if ragged else steps
     return dict(results=results, records=records, first_seq=first_seq,
                 wall=wall, launches=launches["ragged_paged_attention" + tag]
                 if ragged else launches, all_launches=launches, tag=tag,
-                steps=len(records) if ragged else steps, stats=stats,
-                ttft=ttft, pool_bytes=pool_bytes)
+                steps=ragged_steps, stats=stats, ttft=ttft,
+                pool_bytes=pool_bytes, loop=loop, extra=extra)
 
 
 def device_kernels(prof):
@@ -947,15 +1073,21 @@ def profile_engine(pgen, model, prompts, settings=None):
     return wall, busy, top
 
 
-def logits_at(run, req, k, prompt_len):
+def logits_at(run, req, k, prompt_len, required=True):
     """Logits the run sampled request `req`'s k-th token from: the
-    descriptor of its sequence whose cache length is prompt_len + k."""
+    descriptor of its sequence whose cache length is prompt_len + k.
+    None where no step sampled it (a draft or a decode loop did) and not
+    `required`."""
     seq = run["first_seq"] + req
     for desc_ids, kv, logits in run["records"]:
+        if logits is None:           # a decode loop's call
+            continue
         for j, sid in enumerate(desc_ids):
             if sid == seq and int(kv[j]) == prompt_len + k:
                 return logits[j].float().cpu().numpy()
-    fail(f"no step produced request {req}'s token {k}")
+    if required:
+        fail(f"no step produced request {req}'s token {k}")
+    return None
 
 
 def top2_gap(cpu_model, tokens):
@@ -1001,13 +1133,14 @@ def hold_ragged(label, gpu, cpu, prompts, logit_tol=LOGIT_TOL,
 
 
 def hold_to_rule(label, a, b, prompts, cpu_model, stochastic, logits=True,
-                 gap_of=None, near_tie=NEAR_TIE):
+                 gap_of=None, near_tie=NEAR_TIE, quiet=False):
     """Phase 4's rule between runs `a` (card) and `b`: first-token logits
     within LOGIT_TOL (when `logits`), greedy streams identical or
     diverging only at a near tie: a top-2 logit gap < `near_tie` after
     the shared prefix, from ``gap_of(request, k)`` where given, else from
     the CPU full recompute.  Returns the worst first-token logit
-    difference and the identical-stream count."""
+    difference and the identical-stream count.  `quiet` logs only the
+    streams that diverge."""
     worst, same = 0.0, 0
     for i, p in enumerate(prompts):
         kind = "stochastic" if i in stochastic else "greedy"
@@ -1023,8 +1156,9 @@ def hold_to_rule(label, a, b, prompts, cpu_model, stochastic, logits=True,
         at, bt = a["results"][i].token_ids, b["results"][i].token_ids
         if at == bt:
             same += 1
-            log(f"  {label} request {i} ({kind}, prompt {len(p)}): {note}"
-                f"streams identical")
+            if not quiet:
+                log(f"  {label} request {i} ({kind}, prompt {len(p)}): "
+                    f"{note}streams identical")
             continue
         k = next((j for j, (x, y) in enumerate(zip(at, bt)) if x != y),
                  min(len(at), len(bt)))
@@ -1161,6 +1295,439 @@ def phase_int8(pgen, model, cpu_model, prompts, gpu_f32):
         f"(scales included): int8 {gpu['pool_bytes']} vs float32 "
         f"{gpu_f32['pool_bytes']} = {gpu['pool_bytes'] / gpu_f32['pool_bytes']:.3f}")
     return gpu, legacy
+
+
+# ------------- speculation and the host-free decode loop ---------------
+
+
+def serving_traffic(prompts, base):
+    """Phase 7's traffic: phase 3's prompts, then a prompt of one span
+    repeated (its drafts find their matches), then two requests with
+    phase 3's first two prompts and stops from phase 3's card streams:
+    request 0's first token from the 9th on that did not come before, as
+    a stop token, and request 1's first pair of tokens from the 13th on
+    that did not come before, as a stop sequence.  Returns the prompts
+    and their extras."""
+    span = np.random.default_rng(7).integers(
+        0, MODEL["vocab_size"], 24).tolist()
+    g0, g1 = (base["results"][i].token_ids for i in (0, 1))
+    k0 = next((k for k in range(8, len(g0)) if g0[k] not in g0[:k]),
+              len(g0) - 1)
+    pairs = [tuple(g1[k:k + 2]) for k in range(len(g1) - 1)]
+    k1 = next((k for k in range(12, len(pairs))
+               if pairs[k] not in pairs[:k]), len(pairs) - 1)
+    n = len(prompts)
+    traffic = list(prompts) + [span * 10, list(prompts[0]),
+                               list(prompts[1])]
+    extras = {n + 1: dict(stop_tokens=(g0[k0],)),
+              n + 2: dict(stop_sequences=[pairs[k1]])}
+    return traffic, extras
+
+
+def serving_settings(kv_dtype, spec, n):
+    return dict(kv_dtype=kv_dtype, loop_steps=n, **(SPEC if spec else {}))
+
+
+def serving_label(kv_dtype, spec, n):
+    return f"{kv_dtype} spec {'on' if spec else 'off'} N={n}"
+
+
+def loop_args(lp, rng, n_pages):
+    """One loop's inputs for every row of `lp`: rows at positions
+    100..599 over random pages, greedy rows drafting 0..K tokens, two
+    stochastic rows, budgets past the loop."""
+    s, kd = lp.max_seqs, max(lp.spec_tokens, 1)
+    pages = rng.permutation(n_pages)[:s * 40].reshape(s, 40)
+    temps = np.zeros(s, np.float32)
+    temps[[2, 5]] = 0.8
+    dlens = (np.array([lp.spec_tokens, 2, 0, 1, 3, 0, 0, 0][:s], np.int32)
+             if lp.spec_tokens else np.zeros(s, np.int32))
+    return (rng.integers(0, MODEL["vocab_size"], s).astype(np.int32),
+            rng.integers(100, 600, s).astype(np.int32),
+            pages.astype(np.int32), temps,
+            np.where(temps > 0, 50, 0).astype(np.int32),
+            np.where(temps > 0, 0.95, 1.0).astype(np.float32),
+            np.arange(s, dtype=np.int32) + 100, np.zeros(s, np.int32),
+            np.full(s, 32, np.int32),
+            np.full((s, lp.max_stop_ids), -1, np.int32),
+            np.full((s, lp.max_stop_seqs, lp.max_stop_len), -1, np.int32),
+            np.zeros((s, lp.max_stop_seqs), np.int32),
+            np.full((s, lp.max_stop_len - 1), -1, np.int32),
+            rng.integers(0, MODEL["vocab_size"], (s, kd)).astype(np.int32),
+            np.minimum(dlens, lp.spec_tokens))
+
+
+def real_pages(eng, t):
+    """A pool state tensor without its sink page (the last page, which
+    takes every dead row's write: several writes to one place, in no
+    fixed order, and never read)."""
+    p = eng.cache.num_pages
+    if t.dim() == 4 and eng.cache.pool_layout == "kernel":
+        return t[:, :p]
+    return t[:p]
+
+
+def loop_probe(eng, bitwise):
+    """After a loop engine's measured run: with `bitwise`, one captured
+    loop (pages bucket 64) replayed against the same loop run eagerly on
+    the same inputs and pool state, output and pools (sink page aside)
+    compared bitwise (phase 7 (c)); then the device time of one loop
+    iteration with every row live and with every row dead (the masked
+    tail), from replays of that graph."""
+    lp = eng._loop
+    args = loop_args(lp, np.random.default_rng(8), ENGINE["num_pages"])
+    equal = None
+    if bitwise:
+        start = [t.clone() for t in eng.cache.take_pool_state()]
+        replayed = lp.step(*args)
+        after = [t.clone() for t in eng.cache.take_pool_state()]
+        for t, t0 in zip(eng.cache.take_pool_state(), start):
+            t.copy_(t0)
+        lp.use_graph = False
+        eager = lp.step(*args)
+        lp.use_graph = True
+        equal = bool(np.array_equal(replayed, eager)) and all(
+            torch.equal(real_pages(eng, a), real_pages(eng, b))
+            for a, b in zip(after, eng.cache.take_pool_state()))
+        if not equal:
+            fail(f"the captured loop's replay differs from the eager loop "
+                 f"on the same inputs ({serving_label(str(eng.cache.dtype), lp.spec_tokens > 0, lp.loop_steps)})")
+    g = lp._graph_for(64)
+    live = lp._host_inputs(64, (args[0], args[1], np.ones(lp.max_seqs,
+                                                           np.int32),
+                                *args[2:]))
+    g.flat.copy_(torch.from_numpy(live))
+    live_ms = time_ms(g.graph.replay, 10) / lp.loop_steps
+    g.flat.copy_(torch.from_numpy(lp._host_inputs(64, None)))
+    dead_ms = time_ms(g.graph.replay, 10) / lp.loop_steps
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        g.graph.replay()
+        torch.cuda.synchronize()
+    kernels = sum(n for _, n in device_kernels(prof).values())
+    return dict(bitwise=equal, live_ms=live_ms, dead_ms=dead_ms,
+                kernels=kernels / lp.loop_steps)
+
+
+def profile_pass(pgen, eng, traffic, extras):
+    """The traffic once more on the measured engine (its graphs captured,
+    its spies removed) under torch.profiler tracing the card: wall
+    seconds and the kernels' busy seconds on the device."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for owner, name in ((eng.cache, "gather_block_tables"),
+                        (eng._ragged, "step"), (eng._loop, "step")):
+        if owner is not None and name in vars(owner):
+            delattr(owner, name)
+    handles = submit_traffic(pgen, eng, traffic, extras=extras)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.run_until_idle()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    for h in handles:
+        h.result(timeout=60)
+    busy = sum(us for us, _ in device_kernels(prof).values()) / 1e6
+    return dict(wall=wall, busy=busy)
+
+
+def check_serving_run(label, run, extras):
+    """Every request finished by its length or its stop, and the ragged
+    kernel launched num_layers x (ragged steps + N x (loop replays + the
+    loop's captures in the run, each after an eager warm-up of N
+    iterations)) times."""
+    n_layers = MODEL["num_layers"]
+    for i, r in enumerate(run["results"]):
+        if i in extras:
+            if r.finish_reason != "stop":
+                fail(f"{label}: request {i} finished {r.finish_reason!r}, "
+                     f"want 'stop'")
+        elif r.finish_reason != "length" or len(r.token_ids) != MAX_NEW:
+            fail(f"{label}: request {i} finished {r.finish_reason!r} with "
+                 f"{len(r.token_ids)} tokens, want {MAX_NEW}")
+    loop = run["loop"]
+    n = loop.get("n", 0)
+    calls = loop.get("replays", 0) + loop.get("captures", 0)
+    want = n_layers * (run["steps"] + n * calls)
+    st = run["stats"]
+    log(f"  {label}: {run['steps']} ragged steps"
+        + (f", {loop['replays']} loop replays, {loop['captures']} captures "
+           f"in the run" if loop else "")
+        + f"; ragged launches{run['tag']} {run['launches']} (num_layers x "
+        f"(steps + N x calls) = {want}); spec accepted "
+        f"{st['generation.spec_accepted_tokens']} of proposed "
+        f"{st['generation.spec_proposed_tokens']}, rewound "
+        f"{st['generation.spec_rewind_tokens']}; loop fetches per token "
+        f"{st['generation.decode_host_fetches_per_token']}; wall "
+        f"{run['wall']:.3f} s")
+    if run["launches"] != want or run["launches"] == 0:
+        fail(f"{label}: ragged kernel launched {run['launches']} times, "
+             f"want {want}")
+    if loop:
+        if not loop["replays"]:
+            fail(f"{label}: the decode loop never ran")
+        if not 0 < st["generation.decode_host_fetches_per_token"] <= 1 / n:
+            fail(f"{label}: {st['generation.decode_host_fetches_per_token']}"
+                 f" host fetches per token on the loop path, want <= 1/{n}")
+
+
+def phase_serving(pgen, model, cpu_model, prompts, base):
+    """Phase 7: speculation (K=4) and the host-free decode loop (N = 4,
+    8) at GPT-2-small width on float32 and int8 pools, with phase 3's
+    engine and weights over `serving_traffic`: every spec x N x dtype
+    run on the card, each held by phase 4's rule (phase 6's bounds for
+    int8; the top-2 gap from the reference run's own logits, or the CPU
+    full recompute where a draft or a loop produced the token) to the
+    spec-off N=1 run of its dtype, except int8 runs with speculation,
+    held to int8 spec-on N=1 (a rejected draft's write can grow its
+    page's scale before the rewind, so int8 speculation changes values,
+    as in the JAX package: spec on against off is printed, not gated);
+    (a) speculation accepts and rewinds drafts, and a
+    subset of the traffic (prompts 0-2, the repeated span, the two stop
+    requests) with speculation on is held card vs CPU; (b) the loop
+    fetches at most once per N tokens on its path; (c) one captured
+    loop bitwise against the eager loop, per dtype.  Returns the runs
+    by (dtype, spec, N), each with its profiled second pass."""
+    traffic, extras = serving_traffic(prompts, base)
+    runs = {}
+    for kv_dtype in ("float32", "int8"):
+        for spec in (False, True):
+            for n in (1,) + LOOP_NS:
+                label = serving_label(kv_dtype, spec, n)
+
+                def after(eng, bitwise=spec and n == LOOP_NS[0]):
+                    """(c) and the loop's iteration times, then the
+                    profiled pass for (f)."""
+                    probe = (loop_probe(eng, bitwise)
+                             if eng._loop is not None else {})
+                    return dict(probe, profile=profile_pass(
+                        pgen, eng, traffic, extras))
+
+                run = run_engine(pgen, model, traffic, "cuda",
+                                 serving_settings(kv_dtype, spec, n),
+                                 extras=extras, before_shutdown=after)
+                check_serving_run(label, run, extras)
+                if run["extra"].get("bitwise"):
+                    log(f"  (c) {label}: one captured loop (pages bucket "
+                        f"64) replayed against the eager loop on the same "
+                        f"inputs: output and pools bitwise equal")
+                runs[(kv_dtype, spec, n)] = run
+        int8 = kv_dtype == "int8"
+        near_tie = INT8_NEAR_TIE if int8 else NEAR_TIE
+        off = runs[(kv_dtype, False, 1)]
+
+        def gap_in(ref, prompts_, i, k):
+            """The top-2 gap where `ref` sampled request i's token k, or,
+            where a draft or a loop call produced it, the CPU full
+            recompute's."""
+            row = logits_at(ref, i, k, len(prompts_[i]), required=False)
+            if row is None:
+                return top2_gap(cpu_model, list(prompts_[i])
+                                + ref["results"][i].token_ids[:k])
+            top2 = np.sort(row)[-2:]
+            return float(top2[1] - top2[0])
+
+        # float32: every run against spec off N=1 (a verify row is a chunk
+        # row to the kernel); int8: speculation changes values (a rejected
+        # draft's write can grow its page's scale before the rewind, as in
+        # the JAX package), so spec-on runs are held to spec-on N=1 and
+        # spec on against off is printed, not gated
+        for (dt, spec, n), run in runs.items():
+            if dt != kv_dtype or (not spec and n == 1):
+                continue
+            ref_key = (dt, spec and int8, 1)
+            label = serving_label(dt, spec, n)
+            if (dt, spec, n) == ref_key:
+                agree = total = 0
+                for i, (a, b) in enumerate(zip(run["results"],
+                                               off["results"])):
+                    if i not in STOCHASTIC:
+                        total += max(len(a.token_ids), len(b.token_ids))
+                        agree += sum(x == y for x, y in zip(a.token_ids,
+                                                            b.token_ids))
+                same = sum(a.token_ids == b.token_ids for a, b in
+                           zip(run["results"], off["results"]))
+                log(f"  {label} vs spec off N=1 (card, not gated): {same} "
+                    f"of {len(traffic)} streams identical, greedy token "
+                    f"agreement {agree}/{total} = {agree / total:.4f}")
+                continue
+            ref = runs[ref_key]
+            _, same = hold_to_rule(
+                f"{label} vs {serving_label(*ref_key)}", run, ref, traffic,
+                cpu_model, STOCHASTIC, logits=False,
+                gap_of=lambda i, k, ref=ref: gap_in(ref, traffic, i, k),
+                near_tie=near_tie, quiet=True)
+            log(f"  {label} vs {serving_label(*ref_key)} (card): {same} of "
+                f"{len(traffic)} streams identical")
+        st = runs[(kv_dtype, True, 1)]["stats"]
+        if not (st["generation.spec_accepted_tokens"] > 0
+                and st["generation.spec_rewind_tokens"] > 0):
+            fail(f"{kv_dtype} speculation accepted "
+                 f"{st['generation.spec_accepted_tokens']} and rewound "
+                 f"{st['generation.spec_rewind_tokens']} drafts: want both "
+                 f"above 0")
+        # (a) card vs CPU on a subset of the traffic, speculation on
+        keep = [0, 1, 2, len(prompts), len(prompts) + 1, len(prompts) + 2]
+        sub = [traffic[i] for i in keep]
+        sub_extras = {j: extras[i] for j, i in enumerate(keep)
+                      if i in extras}
+        settings = serving_settings(kv_dtype, True, 1)
+        card = run_engine(pgen, model, sub, "cuda", settings,
+                          extras=sub_extras)
+        cpu = run_engine(pgen, cpu_model, sub, "cpu", settings,
+                         extras=sub_extras)
+        if any(cpu["all_launches"].values()):
+            fail("the CPU spec engine launched a CUDA kernel")
+        tol = INT8_LOGIT_TOL if int8 else LOGIT_TOL
+        worst = 0.0
+        for j, p in enumerate(sub):
+            diff = float(np.abs(logits_at(card, j, 0, len(p))
+                                - logits_at(cpu, j, 0, len(p))).max())
+            worst = max(worst, diff)
+            if not math.isfinite(diff) or diff > tol:
+                fail(f"{kv_dtype} spec card vs CPU request {j}: first-token "
+                     f"logits differ by {diff:.3e} > {tol}")
+        _, same = hold_to_rule(
+            f"(a) {kv_dtype} spec on card vs CPU", card, cpu, sub, cpu_model,
+            (2,), logits=False,
+            gap_of=lambda j, k: gap_in(cpu, sub, j, k), near_tie=near_tie,
+            quiet=True)
+        log(f"  (a) {kv_dtype} spec on, card vs CPU over {len(sub)} "
+            f"requests: first-token logits max|diff| {worst:.3e}; {same} of "
+            f"{len(sub)} streams identical; CPU accepted "
+            f"{cpu['stats']['generation.spec_accepted_tokens']} drafts")
+    return runs
+
+
+SAMPLER_MENU = [
+    dict(),                                              # greedy
+    dict(temperature=0.7, seed=11),
+    dict(temperature=1.3, top_k=5, seed=12),
+    dict(temperature=0.9, top_p=0.8, seed=13),
+    dict(temperature=1.0, top_k=9, top_p=0.6, seed=14),
+    dict(temperature=2.5, top_k=1, seed=15),
+    dict(temperature=0.4, top_p=0.999, seed=16),
+    dict(temperature=0.8, top_k=50, top_p=0.95, seed=17),
+]
+
+
+def phase_sampler(pgen):
+    """(d) The device sampler on the card against the host sampler over
+    seeded [8, vocab] logits, one row per entry of the menu, for
+    SAMPLER_DRAWS draws: the counters equal, at most SAMPLER_MAX_DIFF
+    rows with another token.  Returns (rows differing, rows)."""
+    from paddle_tpu_torch.generation import sampling as ps
+
+    params = [pgen.SamplingParams(**m) for m in SAMPLER_MENU]
+    host = [ps.SampleStream(p.seed) for p in params]
+
+    def dev(a, dtype):
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device="cuda")
+
+    temps = dev([p.temperature for p in params], torch.float32)
+    top_ks = dev([p.top_k or 0 for p in params], torch.int32)
+    top_ps = dev([1.0 if p.top_p is None else p.top_p for p in params],
+                 torch.float32)
+    seeds = dev([p.seed for p in params], torch.int32)
+    ctr = torch.zeros(len(params), dtype=torch.int32, device="cuda")
+    rng = np.random.default_rng(9)
+    differ = 0
+    for _ in range(SAMPLER_DRAWS):
+        logits = rng.standard_normal(
+            (len(params), MODEL["vocab_size"])).astype(np.float32) * 3
+        want = ps.sample_tokens_batch(logits, params, host)
+        tok, ctr = ps.sample_tokens_device(dev(logits, torch.float32),
+                                           temps, top_ks, top_ps, seeds, ctr)
+        differ += sum(a != b for a, b in zip(tok.cpu().tolist(), want))
+        if ctr.cpu().tolist() != [r.counter for r in host]:
+            fail("the device sampler's counters left the host streams'")
+    rows = SAMPLER_DRAWS * len(params)
+    log(f"  (d) device sampler on the card vs the host sampler: {differ} of "
+        f"{rows} rows sampled another token ([8, {MODEL['vocab_size']}] "
+        f"logits, the menu of {len(params)}); counters equal")
+    if differ > SAMPLER_MAX_DIFF:
+        fail(f"the device sampler differs from the host sampler on "
+             f"{differ} of {rows} rows (> {SAMPLER_MAX_DIFF})")
+    return differ, rows
+
+
+def ragged_shape_numbers(pa, card):
+    """The ragged kernel at speculation's verify shape and at the decode
+    loop's axis (phase 2's two new cases), on float32 and int8 pools:
+    its time, its plain version's and its bound."""
+    for kv_dtype in (torch.float32, torch.int8):
+        for name, spec in (
+                ("verify 8 x 5 rows", dict(desc=spec_desc(
+                    np.random.default_rng(10)), unowned=False)),
+                ("loop axis 8 x 5 rows (3 verify, 3 decode, 2 dead)",
+                 dict(desc=loop_desc(np.random.default_rng(10)),
+                      stride=1 + SPEC_K))):
+            case = make_case(np.random.default_rng(11), kv_dtype=kv_dtype,
+                             **spec, **MAIN)
+            args, kw = attn_args(case), case["scales"]
+            ms = time_ms(lambda: pa.ragged_paged_attention_kernel(*args,
+                                                                  **kw), 200)
+            plain_ms = time_ms(lambda: pa.ragged_paged_attention_torch(
+                *args, **kw), 50)
+            bound_ms, bound_by, _, _ = bound_of(case)
+            log(f"  [{card}] ragged_paged_attention "
+                f"({str(kv_dtype).replace('torch.', '')} pools) at {name}, "
+                f"H=12, D=64, pages bucket 64: {ms * 1e3:.1f} us; plain "
+                f"version {plain_ms * 1e3:.1f} us; bound "
+                f"{bound_ms * 1e3:.2f} us by {bound_by} = "
+                f"{bound_ms / ms:.1%} of bound"
+                f"{paged_blocks(pa, 'ragged_paged_attention', case)}")
+
+
+def serving_numbers(card, runs):
+    """(f) For spec {off, on} x N {1, 4, 8} on float32 and int8 pools:
+    tokens/s, ms per token, host fetches per token (one a sampling step
+    or loop call), the acceptance rate, the device idle share under
+    torch.profiler (the traffic's second pass on the measured engine),
+    and for the loops the capture time per pages bucket, one iteration's
+    device time live and masked, its kernels, and the masked tail's
+    device time in the run."""
+    for (kv_dtype, spec, n), run in runs.items():
+        st = run["stats"]
+        toks = st["generation.tokens_total"]
+        fetches = st["generation.steps_total"]
+        line = (f"  [{card}] {serving_label(kv_dtype, spec, n)}: "
+                f"{toks / run['wall']:.1f} tokens/s, "
+                f"{run['wall'] / toks * 1e3:.3f} ms per token, "
+                f"{fetches / toks:.4f} host fetches per token "
+                f"({fetches} fetches, {toks} tokens, {run['wall']:.3f} s)")
+        if spec:
+            acc = st["generation.spec_accepted_tokens"]
+            prop = st["generation.spec_proposed_tokens"]
+            line += (f"; acceptance {acc / max(prop, 1):.3f} ({acc} of "
+                     f"{prop} drafts)")
+        loop = run["loop"]
+        if loop:
+            probe = run["extra"]
+            wasted = sum(n - it for it in loop["iters"])
+            cap = loop["capture_s"]
+            line += (f"; loop path {st['generation.decode_host_fetches_per_token']}"
+                     f" fetches per token over {loop['replays']} replays; "
+                     f"capture {np.mean(cap):.3f} s per pages bucket "
+                     f"({len(cap)} captures); one iteration "
+                     f"{probe['live_ms']:.3f} ms of device time live, "
+                     f"{probe['dead_ms']:.3f} ms masked, "
+                     f"{probe['kernels']:.0f} kernels (torch.profiler of "
+                     f"one replay); masked tail "
+                     f"{wasted} iterations = {wasted * probe['dead_ms']:.2f} "
+                     f"ms of device time")
+        log(line)
+        wall, busy = run["extra"]["profile"]["wall"], \
+            run["extra"]["profile"]["busy"]
+        if busy > 0:
+            log(f"    under torch.profiler (the card traced): wall "
+                f"{wall:.3f} s, kernels busy {busy:.3f} s, idle share "
+                f"{1 - busy / wall:.1%}")
+        else:
+            log("    torch.profiler recorded no device time: device idle "
+                "share not measured")
 
 
 # ------------------------ flash attention cases -------------------------
@@ -2268,7 +2835,7 @@ def vision_numbers(card, run, static_run):
     log(f"  [{card}] ResNet-50 dygraph (B={rb}, 224x224, fp32, TF32 off, "
         f"Momentum): {run['r_step_s'] * 1e3:.2f} ms per step, "
         f"{rb / run['r_step_s']:.1f} images/s, peak memory "
-        f"{run['r_peak'] / 2**30:.2f} GiB; the static executor in phase 9 "
+        f"{run['r_peak'] / 2**30:.2f} GiB; the static executor in phase 10 "
         f"(B={sb}, static bf16 AMP): {static_step * 1e3:.2f} ms per step "
         f"chained, {sb / static_step:.1f} images/s, peak "
         f"{static_run['peak'] / 2**30:.2f} GiB")
@@ -2733,7 +3300,12 @@ def main():
           "ragged CPU, legacy card)")
     q_ragged, q_legacy = phase_int8(pgen, model, cpu_model, prompts, gpu)
 
-    phase("phase 7: training at GPT-2-small width (bench_gpt_zero's "
+    phase("phase 7: speculation (ngram, K=4) and the host-free decode loop "
+          "(N=4, 8) at GPT-2-small width, float32 and int8 pools")
+    serving = phase_serving(pgen, model, cpu_model, prompts, gpu)
+    phase_sampler(pgen)
+
+    phase("phase 8: training at GPT-2-small width (bench_gpt_zero's "
           "configuration, bf16 amp, AdamW)")
     log("  held check: the card's first two steps against the CPU's "
         "(plain versions)")
@@ -2741,7 +3313,7 @@ def main():
     log("  the bench's run on the card")
     train = phase_training_run()
 
-    phase("phase 8: encoder pretraining at BERT-base and ERNIE-base width "
+    phase("phase 9: encoder pretraining at BERT-base and ERNIE-base width "
           "(bench_bert's configuration, bf16 amp, AdamW)")
     log("  held check: the card's first three scheduled steps against the "
         "CPU's")
@@ -2749,7 +3321,7 @@ def main():
     log("  the bench's run on the card")
     encoder = phase_encoder_run()
 
-    phase("phase 9: static ResNet-50 (bench_resnet's configuration, "
+    phase("phase 10: static ResNet-50 (bench_resnet's configuration, "
           "Program/Executor, static bf16 AMP, Momentum)")
     log("  held check: the card's first three steps against the CPU's, "
         "fp32 and AMP, B=2")
@@ -2757,7 +3329,7 @@ def main():
     log("  the bench's run on the card")
     resnet = phase_resnet_run()
 
-    phase("phase 10: dygraph vision (bench_lenet's configuration: LeNet, "
+    phase("phase 11: dygraph vision (bench_lenet's configuration: LeNet, "
           "Adam, eager step; ResNet-50, VGG-11, MobileNet V1/V2)")
     reset_launches()
     log("  held checks: LeNet card vs CPU over three steps; ResNet-50 at "
@@ -2767,12 +3339,12 @@ def main():
     log("  the bench's run on the card")
     vision = phase_vision_run()
     launches = read_launches()
-    log(f"  kernel launches over phase 10: {launches}")
+    log(f"  kernel launches over phase 11: {launches}")
     if any(launches.values()):
         fail(f"the dygraph vision path launched a kernel of the port: "
              f"{launches}")
 
-    phase("phase 11: numbers")
+    phase("phase 12: numbers")
     numbers = paged_numbers(pa, card, torch.float32, "")
     numbers.update(paged_numbers(pa, card, torch.int8, "_int8"))
     paged_numbers(pa, card, torch.bfloat16, "_bf16")  # printed only
@@ -2795,6 +3367,8 @@ def main():
             f"{ttft[-1] * 1e3:.1f} ms")
     log(f"  ragged prefill {sum(len(p) for p in prompts)} tokens; "
         f"first-token logits card vs CPU max|diff| {worst_logit:.3e}")
+    ragged_shape_numbers(pa, card)
+    serving_numbers(card, serving)
     for label, settings in (("ragged", None), ("legacy", LEGACY),
                             ("int8 ragged", INT8),
                             ("int8 legacy", {**LEGACY, **INT8})):

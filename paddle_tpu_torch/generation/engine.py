@@ -16,6 +16,21 @@ step modes.
   prompt in one shot (``model.prefill_batch``, batched by length
   bucket), and only decode rides the step.
 
+On the ragged step two options make a step retire more than one token
+per sequence and per host round trip:
+
+- ``spec_mode="ngram"``: speculative decoding.  A prompt-lookup proposer
+  (speculation.py) drafts up to ``spec_tokens`` tokens per greedy row;
+  the row packs as a ``1 + k`` descriptor, the step's epilogue verifies
+  the drafts, and rejected drafts rewind through
+  ``PagedKVCache.truncate``.  Greedy output is token-identical to plain
+  decode on float pools.
+- ``loop_steps=N > 1``: the host-free decode loop.  At a decode-only
+  boundary, one call runs N decode steps with on-device sampling and
+  stop matching (fused.LoopedRaggedStep, a CUDA graph on the card) and
+  the host fetches once per N steps.  Other boundaries take the single
+  step.
+
 The engine owns the KV pages, the schedule, sampling and metrics; the
 model implements the step functions (model.TinyCausalLM).  Greedy decode
 through this engine is token-identical to naive full-recompute
@@ -51,13 +66,14 @@ from ..profiler import RecordEvent
 from ..serving.admission import RequestTooLargeError, ServingError
 from ..serving.bucketing import ShapeBucketer, SignatureCache
 from .decode_attention import paged_decode_attention
-from .fused import (ChunkedPrefillStep, FusedDecodeStep, RaggedStep,
-                    decode_batch_menu)
+from .fused import (ChunkedPrefillStep, FusedDecodeStep,
+                    LoopedRaggedStep, RaggedStep, decode_batch_menu)
 from .kv_cache import DeviceKVPool, OutOfPagesError
 from .metrics import GenerationMetrics, StepTimer
 from .sampling import SamplingParams, sample_token, sample_tokens_batch
 from .scheduler import (ContinuousBatchingScheduler, GenerationRequest,
                         SequenceState)
+from .speculation import NgramProposer
 
 # chunk size of chunked prefill (GenerationConfig.prefill_chunk_tokens=None)
 DEFAULT_PREFILL_CHUNK_TOKENS = 64
@@ -105,10 +121,23 @@ class GenerationConfig:
         slot plus, with chunking on, at least one prefill row.
     prefill_pack: pack several prompts' chunks into a step's leftover
         room (True) or one chunk per step (False).
+    spec_mode: "ngram" turns on speculative decoding on the ragged step
+        (see the module docstring); "off" or None disables it.  It needs
+        the ragged step: with step_mode unset it resolves to "ragged",
+        and step_mode="legacy" raises.
+    spec_tokens: the draft cap per speculating row (default 4; >= 1 with
+        spec_mode="ngram").  The auto step_token_budget grows by
+        max_decode_slots * spec_tokens so a fully drafting batch still
+        leaves the prefill chunk its room; an explicit budget clips
+        drafts instead.
+    loop_steps: N of the host-free decode loop; 1 (default) is the
+        per-step path.  N > 1 needs the ragged step (with step_mode
+        unset it resolves to "ragged"; "legacy" raises) and a model with
+        ``ragged_loop_fn``.
 
     Settings the JAX engine has and this port does not support yet
-    (spec_mode, loop_steps > 1, prefix_cache=True, mesh) are accepted
-    here and refused with NotImplementedError when the engine is built.
+    (prefix_cache=True, mesh) are accepted here and refused with
+    NotImplementedError when the engine is built.
     """
 
     def __init__(self, max_decode_slots=8, num_pages=256, page_size=16,
@@ -117,7 +146,8 @@ class GenerationConfig:
                  max_prefill_batch=4, decode=None, pool_layout=None,
                  prefill_chunk_tokens=None, step_token_budget=None,
                  step_mode=None, prefill_pack=True, spec_mode=None,
-                 loop_steps=1, prefix_cache=None, mesh=None, device=None):
+                 spec_tokens=4, loop_steps=1, prefix_cache=None, mesh=None,
+                 device=None):
         self.max_decode_slots = int(max_decode_slots)
         self.num_pages = int(num_pages)
         self.page_size = int(page_size)
@@ -162,21 +192,42 @@ class GenerationConfig:
                 f"decode={decode!r} makes no sense with it")
         self.step_mode = step_mode
         self.prefill_pack = bool(prefill_pack)
+        if spec_mode not in (None, "off", "ngram"):
+            raise ValueError(
+                f"spec_mode must be 'ngram', 'off' or None, got "
+                f"{spec_mode!r}")
         self.spec_mode = spec_mode or "off"
+        self.spec_tokens = int(spec_tokens)
+        # validated only with speculation on: spec_tokens=0 beside an
+        # unset spec_mode means "disabled", not an error
+        if self.spec_mode == "ngram" and self.spec_tokens < 1:
+            raise ValueError(
+                f"spec_tokens must be >= 1 with spec_mode='ngram', got "
+                f"{spec_tokens}")
+        if self.spec_mode == "ngram" and step_mode == "legacy":
+            raise ValueError(
+                "spec_mode='ngram' rides the ragged step's packed token "
+                "axis (a speculating row is a [start, 1+k, kv_len] "
+                "descriptor); step_mode='legacy' has no such axis")
         self.loop_steps = int(loop_steps)
+        if self.loop_steps < 1:
+            raise ValueError(
+                f"loop_steps must be >= 1 (1 = the per-step path), got "
+                f"{loop_steps}")
+        if self.loop_steps > 1 and step_mode == "legacy":
+            raise ValueError(
+                "loop_steps > 1 is the host-free decode loop over the "
+                "RAGGED step (N ragged iterations per call); "
+                "step_mode='legacy' has no such call")
         self.prefix_cache = prefix_cache
         self.mesh = mesh
         self.device = "cuda" if device is None else str(device)
 
 
 def _refuse_unported(cfg):
-    """NotImplementedError for every setting the port does not run yet —
-    never a silent switch to another path."""
+    """NotImplementedError for the settings the port does not run yet —
+    prefix caching and a mesh — never a silent switch to another path."""
     unported = []
-    if cfg.spec_mode != "off":
-        unported.append(f"spec_mode={cfg.spec_mode!r}")
-    if cfg.loop_steps > 1:
-        unported.append(f"loop_steps={cfg.loop_steps}")
     if cfg.prefix_cache:
         unported.append("prefix_cache=True")
     if cfg.mesh is not None:
@@ -184,7 +235,8 @@ def _refuse_unported(cfg):
     if unported:
         raise NotImplementedError(
             "not supported by the PyTorch port yet: " + ", ".join(unported)
-            + " (it serves the ragged and legacy steps on float32, bfloat16 "
+            + " (it serves the ragged and legacy steps, speculative "
+            "decoding and the host-free decode loop on float32, bfloat16 "
             "and int8 pools of one card)")
 
 
@@ -279,8 +331,13 @@ class GenerationEngine:
         self.metrics = metrics or GenerationMetrics()
         _refuse_unported(cfg)
         self.device = resolve_device(cfg.device, "GenerationEngine")
-        self.step_mode = cfg.step_mode or ("legacy" if cfg.decode
-                                           else "ragged")
+        spec_on = cfg.spec_mode == "ngram"
+        loop_on = cfg.loop_steps > 1
+        # speculation and the loop ride the ragged step: asking for either
+        # resolves an unset step mode to it, whatever `decode` says
+        self.step_mode = cfg.step_mode or (
+            "legacy" if cfg.decode and not (spec_on or loop_on)
+            else "ragged")
         self.decode_mode = ("ragged" if self.step_mode == "ragged"
                             else cfg.decode or "fused")
         self.prefill_chunk_tokens = chunk = cfg.prefill_chunk_tokens
@@ -296,9 +353,13 @@ class GenerationEngine:
             self.cache, num_slots=cfg.max_decode_slots,
             queue_depth=cfg.queue_depth, metrics=self.metrics)
         slots = cfg.max_decode_slots
-        self.step_token_budget = (cfg.step_token_budget
-                                  if cfg.step_token_budget is not None
-                                  else chunk + slots)
+        # speculation sizes the auto packed axis for a fully drafting
+        # batch (decode rows carry 1 + spec_tokens rows each), the chunk
+        # keeping its own room; an explicit budget clips drafts instead
+        self.spec_tokens = cfg.spec_tokens if spec_on else 0
+        self.step_token_budget = (
+            cfg.step_token_budget if cfg.step_token_budget is not None
+            else chunk + slots + slots * self.spec_tokens)
         # the one-shot prefill's (batch, length) menu and its signature
         # count, under the prefill metric names
         self._bucketer = ShapeBucketer.for_prefill(
@@ -306,7 +367,7 @@ class GenerationEngine:
             cfg.num_pages * cfg.page_size,
             getattr(model, "max_positions", None))
         self._prefill_signatures = SignatureCache(self.metrics)
-        self._ragged = self._fused = self._chunk_step = None
+        self._ragged = self._fused = self._chunk_step = self._loop = None
         if self.step_mode == "ragged":
             # the budget IS the packed token axis: it must hold the full
             # decode batch plus, with chunking on, at least one prefill
@@ -322,7 +383,8 @@ class GenerationEngine:
                        else ""))
             self._ragged = RaggedStep(model, self.cache, self.metrics,
                                       max_tokens=self.step_token_budget,
-                                      max_seqs=slots + 1, device=self.device)
+                                      max_seqs=slots + 1, device=self.device,
+                                      spec_tokens=self.spec_tokens)
         else:
             if self.decode_mode == "fused":
                 self._fused = FusedDecodeStep(model, self.cache,
@@ -332,12 +394,26 @@ class GenerationEngine:
             if chunk:
                 self._chunk_step = ChunkedPrefillStep(
                     model, self.cache, self.metrics, chunk, self.device)
+        # the host-free loop, built beside the single step, which stays
+        # the path of every boundary that is not decode-only
+        if loop_on:
+            self._loop = LoopedRaggedStep(
+                model, self.cache, self.metrics, max_seqs=slots,
+                loop_steps=cfg.loop_steps, device=self.device,
+                spec_tokens=self.spec_tokens)
+        self.loop_steps = cfg.loop_steps if loop_on else 1
+        # the prompt-lookup proposer (None: speculation off)
+        self._spec = NgramProposer() if spec_on else None
         # which attention implementation the steps run, stamped once so
         # a snapshot never hides the path its numbers came from
         self.metrics.set_kernel_path(self.decode_mode,
                                      self.device.type == "cuda")
         self.metrics.set_kv_quant_dtype(
             str(self.cache.dtype).replace("torch.", ""))
+        # the spec and loop stamps touch every spec and loop stat, so the
+        # schema is complete from the first snapshot
+        self.metrics.set_spec_mode(cfg.spec_mode)
+        self.metrics.set_loop_steps(self.loop_steps)
         self._lock = threading.Lock()  # one stepper at a time
         self._closed = False
         self._stop = threading.Event()
@@ -353,6 +429,9 @@ class GenerationEngine:
         if not legacy:
             _require(model, ("ragged_step_fn", "decode_params"),
                      "the ragged step")
+            if self.config.loop_steps > 1:
+                _require(model, ("ragged_loop_fn",),
+                         f"loop_steps={self.config.loop_steps}")
         elif self.decode_mode == "fused":
             _require(model, ("decode_step_fn", "decode_params"),
                      "decode='fused'")
@@ -734,7 +813,10 @@ class GenerationEngine:
         FIRST (a reservation may preempt youngest decode sequences —
         they drop out of the decode batch — or a YOUNGER pack member),
         then the decode capacity check (which may preempt chunkers —
-        their rows drop out of the pack)."""
+        their rows drop out of the pack).  With speculation, the drafts
+        are planned after the chunk pack, into the room the pack leaves.
+        With the loop, a decode-only boundary whose rows all fit the
+        loop's caps runs the loop instead of the single step."""
         admitted = self.scheduler.admit(limit=self.config.max_prefill_batch)
         if not self.prefill_chunk_tokens:
             # no chunking: prompts take the one-shot prefill and only
@@ -749,6 +831,15 @@ class GenerationEngine:
                 self.prefill_chunk_tokens, room=room,
                 max_seqs=(self._ragged.max_seqs if self.config.prefill_pack
                           else 1))
+        # drafts fill only the room the chunk pack leaves: a prompt's
+        # time to first token is not theirs to spend
+        spec_plan = {}
+        if self._spec is not None:
+            spec_plan = self.scheduler.plan_spec(
+                self._spec, self.spec_tokens,
+                room=(self.step_token_budget
+                      - len(self.scheduler.decode_ready())
+                      - sum(n for _, n in planned)))
         pack = []  # [(state, n, start)] — reserved, still-alive chunks
         for state, n in planned:
             if state.slot is None or not state.prefilling:
@@ -765,25 +856,61 @@ class GenerationEngine:
             self._drain_kv_bytes()
             self._observe_occupancy()
             return 0
+        # the loop takes decode-only boundaries whose rows fit its caps; a
+        # page shortfall inside _dispatch_loop rolls back and falls
+        # through to the single step
+        if (self._loop is not None and decoding and not pack
+                and self._loop_ready(decoding)):
+            with StepTimer() as timer:
+                with RecordEvent("generation::loop_step"):
+                    looped = self._dispatch_loop(decoding, spec_plan)
+            if looped is not None:
+                advanced, sampled = looped
+                if sampled:
+                    self.metrics.observe_step(sampled, timer.seconds)
+                self._drain_kv_bytes()
+                self._observe_occupancy()
+                return advanced
         with StepTimer() as timer:
             with RecordEvent("generation::ragged_step"):
-                advanced, sampled = self._dispatch_ragged(decoding, pack)
+                advanced, sampled = self._dispatch_ragged(decoding, pack,
+                                                          spec_plan)
         if sampled:
             self.metrics.observe_step(sampled, timer.seconds)
         self._drain_kv_bytes()
         self._observe_occupancy()
         return advanced
 
-    def _dispatch_ragged(self, decoding, pack):
-        """Pack, dispatch, sample: the decode batch's rows first (slot
-        order, one committed token each), then each packed chunk's rows
-        consecutively; descriptor i covers decode sequence i, descriptor
-        B + j the pack's j-th chunk.  Returns ``(advanced, sampled)``."""
+    def _dispatch_ragged(self, decoding, pack, spec_plan=None):
+        """Pack, dispatch, sample: the decode batch's spans first (slot
+        order: each committed token, then its drafts when it speculates),
+        then each packed chunk's rows consecutively; descriptor i covers
+        decode sequence i (len = 1 + drafts), descriptor B + j the pack's
+        j-th chunk.  Returns ``(advanced, sampled)``, `sampled` counting
+        the tokens emitted."""
         b = len(decoding)
         d_tokens, positions = self._reserve_decode_rows(decoding)
-        tokens = [int(t) for t in d_tokens]
-        desc_ids = [s.seq_id for s in decoding]
-        spans = [(int(p), 1) for p in positions]  # (first position, rows)
+        # a drafting row's reservation grows past its decode token; the
+        # capacity check vouched for one token per row only, so a row
+        # whose drafts find no page just drops them — speculation never
+        # preempts and never fails a request over pages
+        spec_rows = {}
+        for i, s in enumerate(decoding):
+            drafts = (spec_plan or {}).get(s.seq_id)
+            if not drafts:
+                continue
+            try:
+                self.cache.reserve(s.seq_id, len(drafts))
+            except OutOfPagesError:
+                continue
+            spec_rows[i] = drafts
+        tokens, desc_ids, spans = [], [], []  # spans: (first position, rows)
+        for i, s in enumerate(decoding):
+            drafts = spec_rows.get(i, ())
+            tokens.append(int(d_tokens[i]))
+            tokens += drafts
+            spans.append((int(positions[i]), 1 + len(drafts)))
+            desc_ids.append(s.seq_id)
         for state, n, start in pack:
             tokens += state.tokens[start:start + n]
             spans.append((start, n))
@@ -819,17 +946,12 @@ class GenerationEngine:
         # samplers: every decode row, plus each chunk that just completed
         # its prompt (those logits ARE the first-token logits).  A
         # mid-prompt chunk-only step fetches nothing.
-        samplers = list(decoding) + [s for s, _ in finishing]
-        rows_idx = list(range(b)) + [di for _, di in finishing]
-        syncs = 0
-        if samplers:
-            syncs = 1
-            if all(s.request.params.greedy for s in samplers):
-                ids_h = ids_dev.cpu().numpy()        # the single host sync
-                self._apply_tokens(samplers, ids_h[rows_idx])
-            else:
-                logits_h = logits_dev.cpu().numpy()  # the single host sync
-                self._apply_logits_batch(samplers, logits_h[rows_idx])
+        if self._spec is not None:
+            sampled, syncs = self._apply_ragged_spec(
+                decoding, spec_rows, finishing, ids_dev, logits_dev)
+        else:
+            sampled, syncs = self._apply_ragged(decoding, finishing,
+                                                ids_dev, logits_dev)
         self.metrics.observe_decode_step(self._ragged.last_dispatches,
                                          syncs, self._ragged.last_uploads)
         # zero padded_token_waste by construction: descriptors cover
@@ -840,7 +962,223 @@ class GenerationEngine:
         self.metrics.count_score_blocks(
             self._ragged.last_score_blocks,
             self._ragged.last_score_blocks_untiled)
-        return b + len(pack), len(samplers)
+        return b + len(pack), sampled
+
+    def _apply_ragged(self, decoding, finishing, ids_dev, logits_dev):
+        """The plain step's sampling: ONE fetch, the ids when every
+        sampler is greedy, else the logits.  Returns ``(tokens sampled,
+        syncs)``."""
+        samplers = list(decoding) + [s for s, _ in finishing]
+        if not samplers:
+            return 0, 0
+        rows_idx = list(range(len(decoding))) + [di for _, di in finishing]
+        if all(s.request.params.greedy for s in samplers):
+            ids_h = ids_dev.cpu().numpy()        # the single host sync
+            self._apply_tokens(samplers, ids_h[rows_idx])
+        else:
+            logits_h = logits_dev.cpu().numpy()  # the single host sync
+            self._apply_logits_batch(samplers, logits_h[rows_idx])
+        return len(samplers), 1
+
+    def _apply_ragged_spec(self, decoding, spec_rows, finishing, ints_dev,
+                           aug_dev):
+        """The speculative step's sampling, still ONE fetch: the [S, 3]
+        ints (last-row argmax, accepted count, bonus) when every sampler
+        is greedy, else the [S, V + 3] augmented logits.  Then per
+        descriptor one of: the accepted drafts and the bonus (drafting
+        rows), the last-row argmax (other greedy rows and finishing
+        greedy chunks), or host sampling from the logits columns
+        (stochastic rows, batched).  Returns ``(tokens emitted,
+        syncs)``."""
+        b = len(decoding)
+        samplers = [(s, i) for i, s in enumerate(decoding)]
+        samplers += list(finishing)
+        if not samplers:
+            return 0, 0
+        vocab = int(self.model.vocab_size)
+        if all(s.request.params.greedy for s, _ in samplers):
+            ints = ints_dev.cpu().numpy()        # the single host sync
+            logits_h = None
+        else:
+            aug = aug_dev.cpu().numpy()          # the single host sync
+            logits_h = aug[:, :vocab]
+            # the appended int columns are exact in float32
+            ints = aug[:, vocab:].astype(np.int64)
+        ids_col, acc_col, bonus_col = ints[:, 0], ints[:, 1], ints[:, 2]
+        emitted = 0
+        stoch = []   # (state, descriptor): one batched host sample
+        for s, di in samplers:
+            if not s.request.params.greedy:
+                stoch.append((s, di))
+                continue
+            drafts = spec_rows.get(di) if di < b else None
+            if drafts:
+                emitted += self._apply_spec_row(
+                    s, drafts, int(acc_col[di]), int(bonus_col[di]))
+            elif s.n_generated >= s.request.max_new_tokens:
+                self._finish(s, "length")
+            else:
+                self._apply_token(s, int(ids_col[di]))
+                emitted += 1
+        if stoch:
+            self._apply_logits_batch([s for s, _ in stoch],
+                                     logits_h[[di for _, di in stoch]])
+            emitted += len(stoch)
+        return emitted, 1
+
+    def _apply_spec_row(self, state, drafts, accepted, bonus):
+        """Retire one drafting row's verified tokens.  The cache is
+        truncated FIRST, so the rejected tail leaves before any token
+        streams (a stop or length finish in the loop below frees the
+        pages wholesale and can never race the rewind) and a surviving
+        row holds exactly ``len(tokens) - 1`` resident positions.  The
+        accepted drafts and the bonus then stream one at a time through
+        `_apply_token`, so stop tokens, stop sequences and max_new_tokens
+        clip exactly where plain decode would.  Returns tokens
+        emitted."""
+        accepted = max(0, min(int(accepted), len(drafts)))
+        rewound = len(drafts) - accepted
+        if rewound:
+            self.cache.truncate(state.seq_id,
+                                self.cache.seq_len(state.seq_id) - rewound)
+        self.metrics.count_spec(len(drafts), accepted, rewound)
+        emitted = 0
+        for tok in list(drafts[:accepted]) + [int(bonus)]:
+            if state.slot is None:
+                break   # a stop or length finish retired the row
+            before = state.n_generated
+            self._apply_token(state, int(tok))
+            emitted += state.n_generated - before
+        return emitted
+
+    # ------------------------ host-free decode loop -------------------
+    def _loop_ready(self, decoding):
+        """Whether every row of this decode-only boundary fits the loop:
+        a token left to generate, stop conditions within the loop's fixed
+        caps (a row past them would lose its stops), and position
+        headroom for the loop's whole write horizon.  One misfit sends
+        the whole boundary down the single step."""
+        lp = self._loop
+        horizon = lp.loop_steps + lp.spec_tokens
+        limit = int(self.model.max_positions) - 1
+        for s in decoding:
+            req = s.request
+            p = req.params
+            if (req.max_new_tokens - s.n_generated < 1
+                    or len(req.stop_tokens) > lp.max_stop_ids
+                    or len(p.stop_sequences) > lp.max_stop_seqs
+                    or p.max_stop_len > lp.max_stop_len
+                    or len(s.tokens) - 1 + horizon > limit):
+                return False
+        return True
+
+    def _dispatch_loop(self, decoding, spec_plan):
+        """One loop call: N decode iterations with on-device sampling and
+        stop matching, ONE host fetch.  Reserves each row's whole write
+        horizon first (N plus its drafts); a shortfall rolls every
+        reservation back and returns None, and the caller takes the
+        single step.  After the fetch each row truncates to its final
+        position FIRST (resident == len(tokens) - 1, the decode
+        invariant), then its tokens stream through `_apply_token` (the
+        device ran the same gate order, so the re-check changes
+        nothing), and its SampleStream counter takes the device's value.
+        Returns ``(rows advanced, tokens emitted)``."""
+        lp = self._loop
+        n_steps, kk = lp.loop_steps, lp.spec_tokens
+        b = len(decoding)
+        drafts = np.zeros((b, max(kk, 1)), np.int32)
+        dlens = np.zeros((b,), np.int32)
+        for i, s in enumerate(decoding):
+            d = list((spec_plan or {}).get(s.seq_id, ()))[:kk]
+            drafts[i, :len(d)] = d
+            dlens[i] = len(d)
+        reserved = []   # rollback ledger: (seq_id, length before)
+        for i, s in enumerate(decoding):
+            try:
+                p0 = self.cache.reserve(s.seq_id, n_steps + int(dlens[i]))
+            except OutOfPagesError:
+                for sid, back in reserved:
+                    self.cache.truncate(sid, back)
+                return None
+            reserved.append((s.seq_id, p0))
+        pt, _ = self.cache.gather_block_tables([s.seq_id for s in decoding])
+        ms, ns, ls = lp.max_stop_ids, lp.max_stop_seqs, lp.max_stop_len
+        cur_tok = np.asarray([s.tokens[-1] for s in decoding], np.int32)
+        cur_pos = np.asarray([p0 for _, p0 in reserved], np.int32)
+        temps = np.zeros((b,), np.float32)
+        top_ks = np.zeros((b,), np.int32)
+        top_ps = np.ones((b,), np.float32)
+        seeds = np.zeros((b,), np.int32)
+        counters = np.zeros((b,), np.int32)
+        remaining = np.zeros((b,), np.int32)
+        stop_ids = np.full((b, ms), -1, np.int32)
+        stop_seqs = np.full((b, ns, ls), -1, np.int32)
+        stop_seq_lens = np.zeros((b, ns), np.int32)
+        tail = np.full((b, ls - 1), -1, np.int32)
+        for i, s in enumerate(decoding):
+            req = s.request
+            p = req.params
+            temps[i] = p.temperature
+            top_ks[i] = p.top_k or 0
+            top_ps[i] = 1.0 if p.top_p is None else p.top_p
+            # uint32 stream state carried as the int32 of the same bits
+            seeds[i] = np.uint32(s.rng.seed).view(np.int32)
+            counters[i] = np.uint32(s.rng.counter).view(np.int32)
+            remaining[i] = req.max_new_tokens - s.n_generated
+            st = list(req.stop_tokens)
+            stop_ids[i, :len(st)] = st
+            for j, sq in enumerate(p.stop_sequences):
+                stop_seqs[i, j, ls - len(sq):] = sq
+                stop_seq_lens[i, j] = len(sq)
+            take = min(s.n_generated, ls - 1)
+            if take:
+                tail[i, ls - 1 - take:] = s.tokens[len(s.tokens) - take:]
+        res = lp.step(cur_tok, cur_pos, pt, temps, top_ks, top_ps, seeds,
+                      counters, remaining, stop_ids, stop_seqs,
+                      stop_seq_lens, tail, drafts, dlens)
+        iters = lp.last_iters
+        sampled = wasted = writes = 0
+        for i, s in enumerate(decoding):
+            row = res[i]
+            ne, fin, fin_it, final_pos, ctr = (
+                int(v) for v in row[n_steps + kk:n_steps + kk + 5])
+            s.rng.counter = ctr & 0xFFFFFFFF
+            emitted = [int(t) for t in row[:ne]]
+            if dlens[i]:
+                # the bonus differs from the draft it replaces, so the
+                # emitted stream's common prefix with the drafts is the
+                # accepted count (short only when a stop clips mid-draft)
+                acc = 0
+                for j in range(min(int(dlens[i]), len(emitted))):
+                    if emitted[j] != int(drafts[i, j]):
+                        break
+                    acc += 1
+                self.metrics.count_spec(int(dlens[i]), acc,
+                                        int(dlens[i]) - acc)
+            # iterations this row decoded in, against those it sat
+            # finished while the batch ran on
+            active_iters = (fin_it + 1) if fin else iters
+            writes += active_iters + int(dlens[i])
+            if fin:
+                wasted += iters - active_iters
+            self.cache.truncate(s.seq_id, final_pos)
+            for tok in emitted:
+                if s.slot is None:
+                    break
+                self._apply_token(s, tok)
+            sampled += len(emitted)
+            if s.slot is not None and fin == 1:
+                # the device withheld the stop-completing token, as the
+                # host gate does; the row finishes here
+                self._finish(s, "stop")
+        self.cache.count_fused_append(writes)
+        self.metrics.observe_decode_step(lp.last_dispatches, lp.last_syncs,
+                                         lp.last_uploads)
+        self.metrics.observe_loop(sampled, lp.last_syncs, iters < n_steps,
+                                  wasted)
+        self.metrics.observe_step_rows(lp.last_rows_useful,
+                                       lp.last_rows_dispatched, 0)
+        return b, sampled
 
     def run_until_idle(self, max_steps=100000):
         """Drive step() until queue+slots drain (tests/benchmarks)."""
@@ -1043,6 +1381,8 @@ class GenerationEngine:
                 self.scheduler.retire(state)
                 state.handle.set_exception(ServingError(
                     "generation engine shut down mid-decode"))
+            if self._loop is not None:
+                self._loop.release()
         self.scheduler.close()
 
     def __enter__(self):

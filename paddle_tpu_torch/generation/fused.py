@@ -2,7 +2,10 @@
 shape buckets, uploads them, makes ONE call of the model's step function
 on the live pools, and counts what it dispatched.
 
-- `RaggedStep` — the ragged step (below);
+- `RaggedStep` — the ragged step (below), with the speculative verify
+  epilogue when built with `spec_tokens`;
+- `LoopedRaggedStep` — the host-free decode loop: N ragged decode steps
+  in one call and one host fetch, captured as a CUDA graph on the card;
 - `FusedDecodeStep` — the legacy step's decode: one call of
   ``model.decode_step_fn`` per decode step;
 - `ChunkedPrefillStep` — the legacy step's prefill: one call of
@@ -35,10 +38,15 @@ one call of the model's ragged step function:
 - greedy is folded in: the step returns both the argmax ids [S] and the
   logits [S, V] on the device, and the engine fetches one of them.
 """
+import time
+
 import numpy as np
 import torch
 
-from ..ops.paged_attention import ragged_score_blocks
+from ..ops.paged_attention import (chunk_prefill_attention_kernel,
+                                   paged_decode_attention_kernel,
+                                   ragged_paged_attention_kernel,
+                                   ragged_score_blocks)
 from ..serving.bucketing import ShapeBucketer, SignatureCache
 from .metrics import DecodeCacheMetrics
 
@@ -230,19 +238,25 @@ class RaggedStep:
     are set from."""
 
     def __init__(self, model, cache, metrics, max_tokens, max_seqs,
-                 device):
+                 device, spec_tokens=0):
         self._cache = cache
         self.device = torch.device(device)
         self.max_tokens = int(max_tokens)
         self.max_seqs = int(max_seqs)
+        # > 0: the step carries the speculative verify epilogue and returns
+        # (ints [S, 3], aug [S, V + 3]); the signature stays the pages
+        # bucket alone
+        self.spec_tokens = int(spec_tokens)
         if self.max_tokens < 1 or self.max_seqs < 1:
             raise ValueError("max_tokens and max_seqs must be >= 1")
         self.use_kernel = self.device.type == "cuda"
         self._params = model.decode_params(self.device)
         self._bucketer = _pages_bucketer(cache)
+        spec_kw = ({"spec_tokens": self.spec_tokens} if self.spec_tokens
+                   else {})
         self._fn = model.ragged_step_fn(cache.page_size, cache.num_pages,
                                         pool_layout=cache.pool_layout,
-                                        kv_quant=cache.quantized)
+                                        kv_quant=cache.quantized, **spec_kw)
         self._signatures = SignatureCache(DecodeCacheMetrics(metrics))
         self.last_dispatches = 0
         self.last_uploads = 0
@@ -270,8 +284,9 @@ class RaggedStep:
         """One packed mixed-batch step.  All inputs are the PACKED host
         arrays at exact sizes; this pads them (see the module docstring),
         uploads them and makes the ONE step call.  Returns ``(ids [S],
-        logits [S, V])`` on the device — the caller fetches at most one
-        of them."""
+        logits [S, V])`` on the device — or, with spec_tokens, ``(ints
+        [S, 3], aug [S, V + 3])`` (model.ragged_step_fn) — and the caller
+        fetches at most one of them."""
         t_real = len(tokens)
         s_real = len(starts)
         if t_real > self.max_tokens:
@@ -319,3 +334,262 @@ class RaggedStep:
         self.last_rows_useful = t_real
         self.last_rows_dispatched = t
         return ids, logits
+
+
+# the paged kernels' wrappers: a captured loop adds its launches to their
+# counts once per replay
+_PAGED_WRAPPERS = (ragged_paged_attention_kernel,
+                   paged_decode_attention_kernel,
+                   chunk_prefill_attention_kernel)
+
+
+def _launch_counts():
+    return [(w.launches, dict(w.launches_by_dtype)) for w in _PAGED_WRAPPERS]
+
+
+def _restore_launch_counts(counts):
+    for w, (n, by_dtype) in zip(_PAGED_WRAPPERS, counts):
+        w.launches = n
+        w.launches_by_dtype = dict(by_dtype)
+
+
+def _add_launches(delta):
+    for w, (n, by_dtype) in zip(_PAGED_WRAPPERS, delta):
+        w.launches += n
+        for key, k in by_dtype.items():
+            w.launches_by_dtype[key] += k
+
+
+class _LoopGraph:
+    """One captured loop: its CUDA graph, the flat input buffer the
+    graph reads, its output tensor, and the paged kernels' launches one
+    replay makes (recorded at capture)."""
+
+    __slots__ = ("graph", "flat", "out", "launches")
+
+    def __init__(self, graph, flat, out, launches):
+        self.graph = graph
+        self.flat = flat
+        self.out = out
+        self.launches = launches
+
+
+class LoopedRaggedStep:
+    """N ragged decode steps in ONE call and ONE host fetch — the
+    host-free decode loop (model.ragged_loop_fn).
+
+    Decode-only by construction: descriptor s owns packed rows
+    ``[s*(1+K), s*(1+K) + len)``, so the token axis is ``max_seqs *
+    (1 + spec_tokens)``.  The row axis is padded to `max_seqs` with dead
+    rows (live 0: zero-length descriptors, sink writes, no draws) and the
+    page-table axis to its pages bucket; the sixteen inputs travel as
+    one flat int32 upload (float columns by their bits).
+    `compile_count` counts the pages buckets touched.  The engine falls
+    back to the single step at boundaries that are not decode-only.
+
+    On the card each (pages bucket, pool storage) pair is captured once
+    as a CUDA graph of the N masked iterations, and replaying it is the
+    call: after an eager warm-up with every row dead (its only writes
+    land in the sink page; it also builds and loads the kernel library
+    outside the capture), the loop is captured on a side stream, and
+    before each replay the inputs are copied into the graph's flat
+    buffer.  The pools are written in place, so their addresses hold;
+    new pool storage (``reset_pools`` after a failed step) has new
+    addresses, and the graph is keyed by them, so a graph never replays
+    over freed storage.  The kernel wrappers count launches in Python,
+    which runs once, at capture: the capture's counts are taken back and
+    each replay adds them, so the counts stay the launches the device
+    ran.  A failed capture or replay raises (after the pools are reset,
+    as for any failed step).  On the CPU the same function runs
+    eagerly."""
+
+    def __init__(self, model, cache, metrics, max_seqs, loop_steps, device,
+                 spec_tokens=0, max_stop_ids=8, max_stop_seqs=4,
+                 max_stop_len=8):
+        self._cache = cache
+        self.device = torch.device(device)
+        self.max_seqs = int(max_seqs)
+        self.loop_steps = int(loop_steps)
+        self.spec_tokens = int(spec_tokens)
+        self.max_stop_ids = int(max_stop_ids)
+        self.max_stop_seqs = int(max_stop_seqs)
+        self.max_stop_len = max(int(max_stop_len), 1)
+        if self.max_seqs < 1:
+            raise ValueError("max_seqs must be >= 1")
+        if self.loop_steps < 1:
+            raise ValueError("loop_steps must be >= 1")
+        self._kd = max(self.spec_tokens, 1)
+        self.max_emit = self.loop_steps + self.spec_tokens
+        self.use_graph = self.device.type == "cuda"
+        self._params = model.decode_params(self.device)
+        self._bucketer = _pages_bucketer(cache)
+        self._fn = model.ragged_loop_fn(
+            cache.page_size, cache.num_pages, pool_layout=cache.pool_layout,
+            kv_quant=cache.quantized, spec_tokens=self.spec_tokens,
+            loop_steps=self.loop_steps, max_stop_ids=self.max_stop_ids,
+            max_stop_seqs=self.max_stop_seqs,
+            max_stop_len=self.max_stop_len)
+        self._signatures = SignatureCache(DecodeCacheMetrics(metrics))
+        self._graphs = {}     # (pages bucket, pool data_ptrs) -> _LoopGraph
+        # capture accounting, read by the smoke run
+        self.captures = 0
+        self.replays = 0
+        self.capture_seconds = []
+        self.last_dispatches = 0
+        self.last_syncs = 0
+        self.last_uploads = 0
+        self.last_iters = 0
+        self.last_rows_useful = 0
+        self.last_rows_dispatched = 0
+
+    @property
+    def compile_count(self):
+        """Distinct pages buckets touched (loop_steps and the stop caps
+        are fixed at build: no other signature axis)."""
+        return self._signatures.compile_count
+
+    def cached_buckets(self):
+        return self._signatures.cached_buckets()
+
+    # ---------------------------- inputs ------------------------------
+    def _fields(self, bucket_p):
+        """(shape, is_float) of the sixteen inputs, in call order."""
+        s, ms, ns, ls = (self.max_seqs, self.max_stop_ids,
+                         self.max_stop_seqs, self.max_stop_len)
+        f, i = True, False
+        return [((s,), i), ((s,), i), ((s,), i), ((s, bucket_p), i),
+                ((s,), f), ((s,), i), ((s,), f), ((s,), i), ((s,), i),
+                ((s,), i), ((s, ms), i), ((s, ns, ls), i), ((s, ns), i),
+                ((s, ls - 1), i), ((s, self._kd), i), ((s,), i)]
+
+    def _views(self, flat, bucket_p):
+        """The sixteen inputs as views of one flat int32 tensor."""
+        views, off = [], 0
+        for shape, is_float in self._fields(bucket_p):
+            n = int(np.prod(shape))
+            v = flat[off:off + n].view(shape)
+            views.append(v.view(torch.float32) if is_float else v)
+            off += n
+        return views
+
+    def _host_inputs(self, bucket_p, rows):
+        """The flat int32 host array: `rows` (the sixteen real-row arrays,
+        or None for an all-dead loop) padded with dead rows."""
+        s = self.max_seqs
+        fills = (0, 0, 0, 0, 0.0, 0, 1.0, 0, 0, 0, -1, -1, 0, -1, 0, 0)
+        parts = []
+        for i, ((shape, is_float), fill) in enumerate(
+                zip(self._fields(bucket_p), fills)):
+            a = np.full(shape, fill, np.float32 if is_float else np.int32)
+            if rows is not None:
+                real = np.asarray(rows[i])
+                if real.size:
+                    a[tuple(slice(0, n) for n in real.shape)] = real
+            parts.append(a.view(np.int32).reshape(-1))
+        return np.concatenate(parts)
+
+    # -------------------------- the call ------------------------------
+    def _groups(self, state):
+        ll = self._cache.num_layers
+        return [state[i * ll:(i + 1) * ll]
+                for i in range(self._cache.n_state_groups)]
+
+    def _graph_for(self, bucket_p):
+        """The captured loop for this pages bucket over the cache's
+        current pool storage (captured on first use)."""
+        state = self._cache.take_pool_state()
+        key = (bucket_p, tuple(t.data_ptr() for t in state))
+        got = self._graphs.get(key)
+        if got is None:
+            got = self._graphs[key] = self._capture(bucket_p, state)
+        return got
+
+    def _capture(self, bucket_p, state):
+        t0 = time.perf_counter()
+        groups = self._groups(state)
+        flat = torch.as_tensor(self._host_inputs(bucket_p, None),
+                               device=self.device)
+        args = self._views(flat, bucket_p)
+        try:
+            # eager warm-up, every row dead: builds and loads the kernel,
+            # sets its shared-memory attribute, writes only the sink page
+            side = torch.cuda.Stream(self.device)
+            side.wait_stream(torch.cuda.current_stream(self.device))
+            with torch.cuda.stream(side):
+                self._fn(self._params, *args, *groups)
+            torch.cuda.current_stream(self.device).wait_stream(side)
+            before = _launch_counts()
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                out = self._fn(self._params, *args, *groups)[0]
+            torch.cuda.synchronize(self.device)
+        except BaseException:
+            self._cache.reset_pools()
+            raise
+        after = _launch_counts()
+        _restore_launch_counts(before)   # capture launched nothing
+        delta = [(a - b, {k: ad[k] - bd[k] for k in ad})
+                 for (a, ad), (b, bd) in zip(after, before)]
+        self.captures += 1
+        self.capture_seconds.append(time.perf_counter() - t0)
+        return _LoopGraph(graph, flat, out, delta)
+
+    def prewarm(self, pages_cols):
+        """Touch the pages bucket a loop over `pages_cols` page-table
+        columns lands in, dispatching nothing; on the card, also capture
+        its graph.  True when the bucket is new."""
+        bucket_p = self._bucketer.length_bucket(max(int(pages_cols), 1))
+        new = self._signatures.touch(bucket_p)
+        if self.use_graph:
+            self._graph_for(bucket_p)
+        return new
+
+    def release(self):
+        """Drop every captured graph (and the memory its pool holds)."""
+        self._graphs.clear()
+
+    def step(self, cur_tok, cur_pos, page_tables, temps, top_ks, top_ps,
+             seeds, counters, remaining, stop_ids, stop_seqs,
+             stop_seq_lens, tail, drafts, draft_lens):
+        """One N-step loop for ``len(cur_tok)`` live rows: pad (dead rows,
+        pages bucket), one upload, ONE call (a graph replay on the card),
+        and the ONE host fetch of the ``[S, N+K+6]`` output.  Returns its
+        real rows (model.ragged_loop_fn gives the columns)."""
+        s_real = len(cur_tok)
+        if s_real > self.max_seqs:
+            raise ValueError(
+                f"{s_real} loop rows > max_seqs={self.max_seqs}")
+        page_tables = np.asarray(page_tables, np.int32)
+        bucket_p = self._bucketer.length_bucket(
+            max(page_tables.shape[1] if page_tables.size else 1, 1))
+        live = np.ones((s_real,), np.int32)
+        host = self._host_inputs(bucket_p, (
+            cur_tok, cur_pos, live, page_tables, temps, top_ks, top_ps,
+            seeds, counters, remaining, stop_ids, stop_seqs, stop_seq_lens,
+            tail, drafts, draft_lens))
+        self._signatures.touch(bucket_p)
+        if self.use_graph:
+            g = self._graph_for(bucket_p)
+            try:
+                g.flat.copy_(torch.from_numpy(host))
+                g.graph.replay()
+                out = g.out.cpu().numpy()      # the single host sync
+            except BaseException:
+                self._cache.reset_pools()
+                raise
+            _add_launches(g.launches)
+            self.replays += 1
+        else:
+            flat = torch.as_tensor(host, device=self.device)
+            args = self._views(flat, bucket_p)
+            out = _dispatch_in_place(
+                self._cache,
+                lambda *groups: self._fn(self._params, *args, *groups))
+            out = out.cpu().numpy()            # the single host sync
+        self.last_dispatches = 1
+        self.last_syncs = 1
+        self.last_uploads = 1
+        self.last_iters = int(out[0, -1])
+        self.last_rows_useful = s_real
+        self.last_rows_dispatched = self.max_seqs
+        return out[:s_real]

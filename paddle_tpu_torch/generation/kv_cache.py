@@ -124,6 +124,51 @@ class PagedKVCache:
         self._lens[seq_id] = start + new_tokens
         return start
 
+    def truncate(self, seq_id, new_len):
+        """REWIND `seq_id` to exactly `new_len` resident tokens — the
+        speculative step's rejection primitive (rejected drafts, and the
+        decode loop's reserved-but-unwritten tail, leave the cache here).
+        Whole tail pages past the new length return to the free list in
+        LIFO order; no device work is needed (a dropped page is
+        unreachable once no table maps it).  Rows of the retained tail
+        page past `new_len` go stale: attention masks them (kv_len gates
+        visibility) and the next reservation of their positions
+        overwrites them.
+
+        Typed and all-or-nothing: UnknownSequenceError for a seq_id the
+        cache does not hold; ValueError for growth (``new_len >
+        seq_len``: growing goes through reserve) or a negative length.
+
+        int8 pools: a dropped page's scale rows are reset (queued like a
+        reserve's, applied before the scales are next read or written);
+        the retained tail page keeps its grid, an abs-max over a superset
+        of its live rows, which decodes them as before.
+
+        This port has no prefix caching, so no page is ever shared and
+        the JAX package's guard against rewinding into a shared prefix
+        run has nothing to guard yet; it comes with prefix caching.
+
+        Returns the number of pages freed."""
+        table = self._table(seq_id)
+        new_len = int(new_len)
+        cur = self._lens[seq_id]
+        if new_len < 0 or new_len > cur:
+            raise ValueError(
+                f"truncate({seq_id!r}) to {new_len} tokens, but {cur} are "
+                f"resident — truncate only rewinds (growth goes through "
+                f"reserve)")
+        if new_len == cur:
+            return 0
+        keep = math.ceil(new_len / self.page_size)
+        dropped = table[keep:]
+        del table[keep:]
+        self._lens[seq_id] = new_len
+        for page in reversed(dropped):   # reversed: LIFO warm reuse
+            self._free.append(page)
+            if self.quantized:
+                self._reset_page_scale(page)
+        return len(dropped)
+
     # ------------------------- write targets -------------------------
     def _locate(self, seq_id, pos):
         """(page, row) of an already-reserved position, for a write."""

@@ -68,6 +68,28 @@ same names):
                                       — a SUBSET of kv_bytes_moved, split
                                       out so the quantization overhead is
                                       visible
+- ``generation.spec_mode``            gauge (string): the draft proposer
+                                      ("off" / "ngram"), stamped at build
+- ``generation.spec_proposed_tokens`` drafts packed into verify rows
+- ``generation.spec_accepted_tokens`` drafts the model's argmax verified
+- ``generation.spec_rewind_tokens``   rejected drafts truncated back out
+- ``generation.spec_draft_rows``      speculating rows (the mean accepted
+                                      length's denominator)
+- ``generation.spec_acceptance_rate`` gauge: accepted / proposed, this
+                                      engine's cumulative
+- ``generation.loop_steps``           gauge: N of the host-free decode loop
+                                      (1: the per-step path), stamped at
+                                      build
+- ``generation.decode_host_fetches_per_token``  gauge: host fetches per
+                                      token on the loop path, cumulative
+                                      (<= 1/N on a decode-only run)
+- ``generation.loop_early_exits``     loops whose rows all finished before
+                                      iteration N
+- ``generation.loop_wasted_steps``    row-iterations a finished row sat
+                                      through while others ran on
+
+Every spec and loop stat is touched at engine build, so the schema is
+complete from the first snapshot.
 """
 import time
 
@@ -108,6 +130,16 @@ STEP_SCORE_BLOCKS = PREFIX + "step_score_blocks"
 STEP_SCORE_BLOCKS_UNTILED = PREFIX + "step_score_blocks_untiled"
 KV_QUANT_DTYPE = PREFIX + "kv_quant_dtype"
 KV_SCALE_BYTES = PREFIX + "kv_scale_bytes"
+SPEC_MODE = PREFIX + "spec_mode"
+SPEC_PROPOSED_TOKENS = PREFIX + "spec_proposed_tokens"
+SPEC_ACCEPTED_TOKENS = PREFIX + "spec_accepted_tokens"
+SPEC_ACCEPTANCE_RATE = PREFIX + "spec_acceptance_rate"
+SPEC_REWIND_TOKENS = PREFIX + "spec_rewind_tokens"
+SPEC_DRAFT_ROWS = PREFIX + "spec_draft_rows"
+LOOP_STEPS = PREFIX + "loop_steps"
+DECODE_HOST_FETCHES_PER_TOKEN = PREFIX + "decode_host_fetches_per_token"
+LOOP_EARLY_EXITS = PREFIX + "loop_early_exits"
+LOOP_WASTED_STEPS = PREFIX + "loop_wasted_steps"
 
 
 class GenerationMetrics:
@@ -119,6 +151,11 @@ class GenerationMetrics:
     def __init__(self, registry=None):
         self._reg = registry or StatRegistry.instance()
         self._rate = 0.0
+        # per-engine accumulators of the acceptance and fetch-rate gauges
+        self._spec_proposed_cum = 0
+        self._spec_accepted_cum = 0
+        self._loop_fetch_cum = 0
+        self._loop_token_cum = 0
 
     def _stat(self, name):
         return self._reg.get_stat(name)
@@ -215,6 +252,59 @@ class GenerationMetrics:
         stat = self._stat(KV_SCALE_BYTES)
         if n:
             stat.increase(int(n))
+
+    def set_spec_mode(self, mode):
+        """Gauge (string): the draft proposer ("off" / "ngram"), stamped
+        at engine build; touches every spec counter so the schema is
+        complete from the first snapshot."""
+        self._stat(SPEC_MODE).set(str(mode))
+        self._stat(SPEC_PROPOSED_TOKENS)
+        self._stat(SPEC_ACCEPTED_TOKENS)
+        self._stat(SPEC_REWIND_TOKENS)
+        self._stat(SPEC_DRAFT_ROWS)
+        self._stat(SPEC_ACCEPTANCE_RATE).set(0.0)
+
+    def set_loop_steps(self, n):
+        """Gauge: N of the host-free decode loop (1 = the per-step path),
+        stamped at engine build; touches every loop counter too."""
+        self._stat(LOOP_STEPS).set(int(n))
+        self._stat(LOOP_EARLY_EXITS)
+        self._stat(LOOP_WASTED_STEPS)
+        self._stat(DECODE_HOST_FETCHES_PER_TOKEN).set(0.0)
+
+    def observe_loop(self, tokens, fetches, early_exit, wasted):
+        """One decode loop retired: `tokens` emitted for `fetches` host
+        fetches (1), `early_exit` when every row finished before
+        iteration N, `wasted` the row-iterations finished rows sat
+        through.  Maintains the cumulative fetches-per-token gauge."""
+        self._loop_fetch_cum += int(fetches)
+        self._loop_token_cum += int(tokens)
+        if self._loop_token_cum:
+            self._stat(DECODE_HOST_FETCHES_PER_TOKEN).set(
+                round(self._loop_fetch_cum / self._loop_token_cum, 4))
+        if early_exit:
+            self._stat(LOOP_EARLY_EXITS).increase()
+        if wasted:
+            self._stat(LOOP_WASTED_STEPS).increase(int(wasted))
+
+    def count_spec(self, proposed, accepted, rewound):
+        """One speculating row's verify outcome: `proposed` drafts
+        packed, `accepted` verified, `rewound` truncated back out.
+        Maintains the cumulative acceptance-rate gauge and the draft-row
+        count."""
+        if proposed:
+            self._stat(SPEC_PROPOSED_TOKENS).increase(int(proposed))
+            self._stat(SPEC_DRAFT_ROWS).increase()
+        if accepted:
+            self._stat(SPEC_ACCEPTED_TOKENS).increase(int(accepted))
+        if rewound:
+            self._stat(SPEC_REWIND_TOKENS).increase(int(rewound))
+        self._spec_proposed_cum += int(proposed)
+        self._spec_accepted_cum += int(accepted)
+        if self._spec_proposed_cum:
+            self._stat(SPEC_ACCEPTANCE_RATE).set(
+                round(self._spec_accepted_cum / self._spec_proposed_cum,
+                      3))
 
     def observe_step_rows(self, useful, dispatched, waste):
         """Row accounting for one engine step: `useful` real token rows

@@ -10,7 +10,11 @@ Forward paths over the SAME weights:
   a length-padded batch (the legacy step's one-shot prefill);
 - `ragged_step_fn(...)` — one packed mixed-batch engine step: embed ->
   L x (scatter K/V into the page pools + ragged paged attention + MLP)
-  -> logits at each descriptor's last row;
+  -> logits at each descriptor's last row (with `spec_tokens`, plus the
+  speculative verify epilogue);
+- `ragged_loop_fn(...)` — N ragged decode steps in one call, with
+  on-device sampling and stop matching: the host-free decode loop, on
+  the same layer stack;
 - `decode_step_fn(...)` — one legacy fused decode step: one token per
   sequence, paged decode attention;
 - `prefill_chunk_fn(...)` — one legacy prefill chunk of one sequence,
@@ -41,6 +45,8 @@ from . import decode_attention
 from .decode_attention import NEG_INF, dense_causal_reference
 from .kv_cache import scatter_pool_update
 from .quantized_kv import quantized_pool_write
+from .sampling import sample_tokens_device
+from .speculation import verify_accept
 
 _BLOCK_KEYS = ("ln1_s", "ln1_b", "wq", "wk", "wv", "wo", "ln2_s", "ln2_b",
                "w1", "b1", "w2", "b2")
@@ -474,8 +480,26 @@ class TinyCausalLM(nn.Module):
 
         return core
 
+    def _head_window(self, params, x, starts, lens, kk):
+        """The verify window and the sample rows through ONE head matmul:
+        each descriptor's rows ``start .. start + kk`` and its last row
+        ``start + len - 1`` (rows clipped into the packed axis) are
+        gathered BEFORE the head, so its cost is O(S * kk), never O(T).
+        Returns ``(amax_rows [S, kk + 1] int32, logits [S, V])``."""
+        t = x.shape[0]
+        s_n = starts.shape[0]
+        st = starts.long()
+        offs = torch.arange(kk + 1, device=x.device)
+        vrows = torch.clamp(st[:, None] + offs[None, :], 0, t - 1)
+        sample_rows = torch.clamp(st + lens.long() - 1, 0, t - 1)
+        heads = self._logits(params, torch.cat(
+            [x[vrows.reshape(-1)], x[sample_rows]], dim=0))
+        amax_rows = torch.argmax(heads[:s_n * (kk + 1)], dim=-1).to(
+            torch.int32).reshape(s_n, kk + 1)
+        return amax_rows, heads[s_n * (kk + 1):]
+
     def ragged_step_fn(self, page_size, num_pages, pool_layout="token",
-                       kv_quant=False):
+                       kv_quant=False, spec_tokens=0):
         """The mixed-batch RAGGED step function the engine's RaggedStep
         calls once per engine step::
 
@@ -495,9 +519,26 @@ class TinyCausalLM(nn.Module):
         descriptors read row 0, which the engine never samples); the
         argmax ids and the logits both stay on the device, so the engine
         fetches only what its samplers need.  The device of the tensors
-        picks the attention implementation."""
+        picks the attention implementation.
+
+        spec_tokens = K > 0 adds the speculative verify epilogue: a
+        speculating row is an ordinary ``len = 1 + k`` descriptor (its
+        committed token, then k drafts), and the epilogue gathers each
+        descriptor's rows start..start+K and its sample row before the
+        head (`_head_window`), takes their argmax and runs
+        `verify_accept`.  The two outputs become
+
+            ints [S, 3] int32     — (last-row argmax, accepted count,
+                                     bonus token): the all-greedy fetch
+            aug [S, V + 3]        — the last-row logits with the same
+                                     three columns appended as floats
+                                     (exact: ids and counts are far
+                                     below 2**24): the mixed-batch fetch
+
+        so the engine still fetches ONE array per step."""
         del page_size, num_pages   # pages/rows arrive host-computed
         core = self._ragged_core_fn(pool_layout)
+        kk = int(spec_tokens)
 
         @torch.no_grad()
         def step(params, tokens, positions, pages, rows, page_tables,
@@ -506,6 +547,15 @@ class TinyCausalLM(nn.Module):
             t = tokens.shape[0]
             x = core(params, tokens, positions, pages, rows, page_tables,
                      starts, lens, kv_lens, k_pools, v_pools, scales)
+            if kk:
+                amax_rows, logits = self._head_window(params, x, starts,
+                                                      lens, kk)
+                ids = torch.argmax(logits, dim=-1).to(torch.int32)
+                accepted, bonus = verify_accept(amax_rows, tokens, starts,
+                                                lens, kk)
+                ints = torch.stack([ids, accepted, bonus], dim=1)
+                aug = torch.cat([logits, ints.to(logits.dtype)], dim=1)
+                return ((ints, aug), k_pools, v_pools, *(scales or ()))
             sample_rows = torch.clamp(starts.long() + lens.long() - 1,
                                       0, t - 1)
             logits = self._logits(params, x[sample_rows])
@@ -513,6 +563,169 @@ class TinyCausalLM(nn.Module):
             return ((ids, logits), k_pools, v_pools, *(scales or ()))
 
         return step
+
+    # ------------------------ host-free decode loop --------------------
+    def ragged_loop_fn(self, page_size, num_pages, pool_layout="token",
+                       kv_quant=False, spec_tokens=0, loop_steps=2,
+                       max_stop_ids=8, max_stop_seqs=4, max_stop_len=8):
+        """The HOST-FREE DECODE LOOP: N ragged decode steps in one call
+        (the engine's LoopedRaggedStep), with on-device sampling, stop
+        matching and per-row done masks, and ONE output for the loop::
+
+            fn(params, cur_tok, cur_pos, live, page_tables, temps,
+               top_ks, top_ps, seeds, counters, remaining, stop_ids,
+               stop_seqs, stop_seq_lens, tail, drafts, draft_lens,
+               k_pools, v_pools[, k_scales, v_scales])
+              -> (out [S, N + K + 6] int32, k_pools, v_pools[, scales])
+
+        The inputs, their layout and the output columns are the JAX
+        package's ``ragged_loop_fn``'s.  Decode-only: descriptor s owns
+        packed rows ``[s*(1+K), s*(1+K) + len_s)`` (K = spec_tokens), so
+        the packed axis is ``S * (1 + K)`` and the starts never move.
+        Per row: cur_tok/cur_pos — the last committed token and its
+        position (its K/V is written by the first iteration); live — 1
+        for occupied rows; temps/top_ks/top_ps/seeds/counters — the
+        sampling menu and the SampleStream state (int32 holding uint32);
+        remaining — tokens still allowed; stop_ids [S, MS] (pad -1);
+        stop_seqs [S, NS, LS] right-aligned (pad -1) with stop_seq_lens
+        [S, NS]; tail [S, LS - 1] — the last generated tokens,
+        right-aligned; drafts [S, max(K, 1)] / draft_lens — drafts
+        verified at iteration 0 only.
+
+        Each iteration runs the shared layer stack (`_ragged_core_fn`,
+        the single step's own), the verify window and sample rows
+        through one head (`_head_window`), `verify_accept`,
+        `sample_tokens_device`, then for each of the up-to-(K+1)
+        candidate tokens the engine's gate order: stop id, stop sequence
+        (the completing token is withheld), append, length (that token
+        is streamed).  Rows finish with code 1 (stop) or 2 (length).
+
+        The N iterations are unrolled and masked, never branched on a
+        device value, so the whole call holds no host sync and can be
+        captured as one CUDA graph.  An iteration after every live row
+        finished runs with every descriptor dead (len 0, writes to the
+        sink page, no draws), so pools, counters and outputs equal the
+        JAX loop's, which exits early instead; the `iters_run` column
+        counts the iterations in which some row was still active (the
+        JAX loop's count).
+
+        Output columns per row: N + K emitted tokens (pad -1), n_emit,
+        finish code, finish_iter (-1 if unfinished), final_pos (the
+        position of the last committed token: the host's truncate
+        target), counter_after, iters_run."""
+        page_size = int(page_size)
+        num_pages = int(num_pages)
+        n_steps = int(loop_steps)
+        kk = int(spec_tokens)
+        kd = max(kk, 1)
+        if n_steps < 1:
+            raise ValueError(f"loop_steps must be >= 1, got {loop_steps}")
+        max_emit = n_steps + kk
+        core = self._ragged_core_fn(pool_layout)
+        max_pos = self.max_positions
+        i32 = torch.int32
+
+        @torch.no_grad()
+        def fn(params, cur_tok, cur_pos, live, page_tables, temps, top_ks,
+               top_ps, seeds, counters, remaining, stop_ids, stop_seqs,
+               stop_seq_lens, tail, drafts, draft_lens, k_pools, v_pools,
+               *rest):
+            scales, _ = _split_state(rest, kv_quant, 0)
+            dev = cur_tok.device
+            s = cur_tok.shape[0]
+            cur_tok = cur_tok.to(i32)
+            cur_pos = cur_pos.to(i32)
+            counters = counters.to(i32)
+            remaining = remaining.to(i32)
+            tail = tail.to(i32)
+            pt = page_tables.to(i32)
+            offs = torch.arange(1 + kk, dtype=i32, device=dev)
+            starts = torch.arange(s, dtype=i32, device=dev) * (1 + kk)
+            greedy_row = temps <= 0.0
+            live_row = live > 0
+            row_ix = torch.arange(s, device=dev)
+            zero = torch.zeros((s,), dtype=i32, device=dev)
+            finish = zero.clone()
+            finish_iter = torch.full((s,), -1, dtype=i32, device=dev)
+            n_emit = zero.clone()
+            emitted = torch.full((s, max_emit), -1, dtype=i32, device=dev)
+            iters_run = torch.zeros((), dtype=i32, device=dev)
+            for it in range(n_steps):
+                act0 = live_row & (finish == 0)
+                iters_run = iters_run + act0.any().to(i32)
+                # iteration 0 verifies the host's drafts; later ones are
+                # plain one-token rows (greedy streams do not depend on
+                # the drafts, so this equals drafting every step)
+                dlen = (torch.where(act0, draft_lens.to(i32), zero)
+                        if it == 0 else zero)
+                len_s = torch.where(act0, 1 + dlen, zero)
+                valid = offs[None, :] < len_s[:, None]            # [S,1+K]
+                tok_grid = (torch.cat([cur_tok[:, None],
+                                       drafts[:, :kk].to(i32)], dim=1)
+                            if kk else cur_tok[:, None])
+                pos_grid = cur_pos[:, None] + offs[None, :]
+                tokens_p = torch.where(valid, tok_grid, 0).reshape(-1)
+                positions_p = torch.where(
+                    valid, torch.clamp(pos_grid, 0, max_pos - 1),
+                    0).reshape(-1)
+                page_ix = torch.clamp(pos_grid // page_size, 0,
+                                      pt.shape[1] - 1)
+                pages_p = torch.where(
+                    valid, torch.gather(pt, 1, page_ix.long()),
+                    num_pages).reshape(-1)
+                rows_p = torch.where(valid, pos_grid % page_size,
+                                     0).reshape(-1)
+                kv_lens = torch.where(act0, cur_pos + 1 + dlen, zero)
+                x = core(params, tokens_p, positions_p, pages_p, rows_p, pt,
+                         starts, len_s, kv_lens, k_pools, v_pools, scales)
+                amax_rows, logits = self._head_window(params, x, starts,
+                                                      len_s, kk)
+                accepted, bonus = verify_accept(amax_rows, tokens_p, starts,
+                                                len_s, kk)
+                sampled, ctr_next = sample_tokens_device(
+                    logits, temps, top_ks, top_ps, seeds, counters)
+                counters = torch.where(act0, ctr_next, counters)
+                final_tok = torch.where(greedy_row, bonus, sampled)
+                # the accepted drafts, then the final token, through the
+                # engine's gate order: stop id -> stop sequence (token
+                # withheld) -> append -> length (token streamed)
+                for j in range(kk + 1):
+                    tok = (torch.where(j < accepted,
+                                       drafts[:, min(j, kd - 1)].to(i32),
+                                       final_tok) if kk else final_tok)
+                    emit_ok = act0 & (finish == 0) & (j <= accepted)
+                    hit_id = torch.any(tok[:, None] == stop_ids, dim=1)
+                    cand = torch.cat([tail, tok[:, None]], dim=1)  # [S,LS]
+                    seq_eq = ((stop_seqs == -1)
+                              | (cand[:, None, :] == stop_seqs))
+                    hit_seq = torch.any(torch.all(seq_eq, dim=2)
+                                        & (stop_seq_lens > 0), dim=1)
+                    stop_hit = emit_ok & (hit_id | hit_seq)
+                    appended = emit_ok & ~stop_hit
+                    col = torch.clamp(n_emit, 0, max_emit - 1).long()
+                    emitted[row_ix, col] = torch.where(
+                        appended, tok, emitted[row_ix, col])
+                    n_emit = n_emit + appended.to(i32)
+                    if tail.shape[1]:
+                        tail = torch.where(
+                            appended[:, None],
+                            torch.cat([tail[:, 1:], tok[:, None]], dim=1),
+                            tail)
+                    cur_tok = torch.where(appended, tok, cur_tok)
+                    cur_pos = torch.where(appended, cur_pos + 1, cur_pos)
+                    remaining = remaining - appended.to(i32)
+                    len_hit = appended & (remaining <= 0)
+                    finish = torch.where(
+                        stop_hit, 1, torch.where(len_hit, 2, finish))
+                    done_now = (stop_hit | len_hit) & (finish_iter < 0)
+                    finish_iter = torch.where(done_now, it, finish_iter)
+            out = torch.cat(
+                [emitted, n_emit[:, None], finish[:, None],
+                 finish_iter[:, None], cur_pos[:, None], counters[:, None],
+                 iters_run.expand(s)[:, None]], dim=1).to(i32)
+            return (out, k_pools, v_pools, *(scales or ()))
+
+        return fn
 
     # ------------------------ reference decode ------------------------
     def greedy_reference(self, prompt, max_new_tokens, stop_tokens=()):

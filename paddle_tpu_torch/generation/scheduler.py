@@ -150,6 +150,54 @@ class ContinuousBatchingScheduler:
                 left -= n
         return pack
 
+    def plan_spec(self, proposer, spec_tokens, room=None):
+        """Draft plan for one speculative ragged step: up to
+        `spec_tokens` draft continuations per GREEDY decode-ready
+        sequence, in slot order.  Returns ``{seq_id: [draft ids]}``;
+        rows absent from the plan decode as without speculation.
+
+        Three clips keep speculation a pure optimization:
+
+        - stochastic rows never draft (the accept rule compares argmax
+          with argmax; a sampled token has no draft to verify against);
+        - a row drafts at most ``remaining - 1`` tokens (the step emits
+          accepted + 1 tokens, and drafting past max_new_tokens would
+          reserve positions the sequence can never hold);
+        - `room` (the packed axis's leftover) bounds the TOTAL drafts in
+          slot order, so drafts never push out a decode or chunk row.
+
+        A proposer with a persistent per-sequence index (``propose_for``)
+        first drops the indexes of sequences that are no longer live or
+        waiting (``retain``)."""
+        plan = {}
+        left = None if room is None else int(room)
+        propose_for = getattr(proposer, "propose_for", None)
+        if propose_for is not None:
+            live = {s.seq_id for s in self.active()}
+            live.update(s.seq_id for s in self._pending
+                        if isinstance(s, SequenceState))
+            proposer.retain(live)
+        for state in self.decode_ready():
+            if left is not None and left <= 0:
+                break
+            if not state.request.params.greedy:
+                continue
+            remaining = state.request.max_new_tokens - state.n_generated
+            k = min(int(spec_tokens), remaining - 1)
+            if left is not None:
+                k = min(k, left)
+            if k <= 0:
+                continue
+            drafts = (propose_for(state.seq_id, state.tokens, k)
+                      if propose_for is not None
+                      else proposer.propose(state.tokens, k))
+            if not drafts:
+                continue
+            plan[state.seq_id] = drafts
+            if left is not None:
+                left -= len(drafts)
+        return plan
+
     def _place(self, state):
         for i, s in enumerate(self.slots):
             if s is None:

@@ -725,3 +725,49 @@ def test_train_step_launches_each_flash_kernel_once_per_layer():
         assert moved == ([cfg.num_layers] * 3 if device == "cuda"
                          else [0, 0, 0]), (device, moved)
     assert abs(losses[0] - losses[1]) <= 1e-3 * abs(losses[1])
+
+
+@pytest.mark.parametrize("kv_dtype", ["float32", "int8"])
+def test_captured_loop_replay_equals_eager_on_card(kv_dtype):
+    """On the card: one captured loop's replay gives the eager loop's
+    output and pools bitwise, on the same inputs and pool state."""
+    _need_card()
+    model = pgen.TinyCausalLM(vocab_size=64, num_layers=2, num_heads=2,
+                              head_dim=8, seed=3, device="cuda")
+    eng = pgen.GenerationEngine(model, pgen.GenerationConfig(
+        max_decode_slots=4, num_pages=64, page_size=4, kv_dtype=kv_dtype,
+        prefill_chunk_tokens=3, loop_steps=4, device="cuda"), start=False)
+    hs = [eng.submit(p, max_new_tokens=3)
+          for p in ([1, 2, 3], [7, 5], [9, 9, 9, 4, 2], [11])]
+    eng.run_until_idle()                      # pools hold real content
+    for h in hs:
+        h.result(timeout=30)
+    lp = eng._loop
+    args = (np.array([3, 17], np.int32), np.array([5, 3], np.int32),
+            np.array([[0, 1, 2, 3], [4, 5, 6, 7]], np.int32),
+            np.array([0.0, 0.9], np.float32), np.array([0, 10], np.int32),
+            np.array([1.0, 0.9], np.float32), np.array([0, 9], np.int32),
+            np.array([0, 1], np.int32), np.array([4, 4], np.int32),
+            np.full((2, 8), -1, np.int32), np.full((2, 4, 8), -1, np.int32),
+            np.zeros((2, 4), np.int32), np.full((2, 7), -1, np.int32),
+            np.zeros((2, 1), np.int32), np.zeros((2,), np.int32))
+    start = [t.clone() for t in eng.cache.take_pool_state()]
+    replays = lp.replays
+    replay = lp.step(*args)
+    after_replay = [t.clone() for t in eng.cache.take_pool_state()]
+    for t, s in zip(eng.cache.take_pool_state(), start):
+        t.copy_(s)
+    lp.use_graph = False
+    eager = lp.step(*args)
+    np.testing.assert_array_equal(replay, eager)
+    # the sink page (the last) takes every dead row's write, in no fixed
+    # order, and is never read
+    p = eng.cache.num_pages
+    for a, b in zip(after_replay, eng.cache.take_pool_state()):
+        if a.dim() == 4 and eng.cache.pool_layout == "kernel":
+            a, b = a[:, :p], b[:, :p]
+        else:
+            a, b = a[:p], b[:p]
+        assert torch.equal(a, b)
+    assert lp.replays == replays + 1 and lp.captures >= 1
+    eng.shutdown()

@@ -46,7 +46,8 @@ def test_import_pulls_in_neither_jax_nor_paddle_tpu():
         "nn.initializer", "nn.layer", "nn.clip", "nn.layers.conv",
         "nn.layers.pooling", "nn.layers.norm", "nn.layers.container",
         "regularizer", "vision.models.lenet", "vision.models.resnet",
-        "vision.models.vgg", "vision.models.mobilenet")} <= walked
+        "vision.models.vgg", "vision.models.mobilenet",
+        "generation.speculation")} <= walked
 
 
 def test_default_config_resolves_to_cuda_and_never_falls_back():
@@ -118,13 +119,35 @@ def test_training_entry_points_default_to_the_card(build):
 
 
 @pytest.mark.parametrize("setting", [
-    dict(spec_mode="ngram"), dict(loop_steps=4), dict(prefix_cache=True),
-    dict(mesh=object())])
+    dict(prefix_cache=True), dict(mesh=object()),
+    dict(prefix_cache=True, spec_mode="ngram", loop_steps=4)])
 def test_unported_settings_raise_at_build(setting):
     cfg = pgen.GenerationConfig(device="cpu", **setting)
     with pytest.raises(NotImplementedError, match="not supported"):
         pgen.GenerationEngine(pgen.TinyCausalLM(device="cpu"), cfg,
                               start=False)
+
+
+@pytest.mark.parametrize("setting", [
+    dict(spec_mode="ngram"), dict(loop_steps=4),
+    dict(spec_mode="ngram", loop_steps=4, kv_dtype="int8",
+         pool_layout="kernel")], ids=["spec", "loop", "spec_loop_int8"])
+def test_spec_and_loop_settings_build_on_cpu(setting):
+    """Speculation and the host-free loop are ported: the engine builds
+    and serves a request token-identically to the oracle (int8 pools
+    against the plain int8 engine)."""
+    model = pgen.TinyCausalLM(device="cpu")
+    streams = []
+    for extra in (setting, {"kv_dtype": setting.get("kv_dtype", "float32")}):
+        eng = pgen.GenerationEngine(model, pgen.GenerationConfig(
+            device="cpu", num_pages=32, page_size=4, **extra), start=False)
+        h = eng.submit([1, 2, 3, 1, 2, 3], max_new_tokens=6)
+        eng.run_until_idle()
+        streams.append(h.result(timeout=5).token_ids)
+        eng.shutdown()
+    assert streams[0] == streams[1]
+    if "kv_dtype" not in setting:
+        assert streams[0] == model.greedy_reference([1, 2, 3, 1, 2, 3], 6)
 
 
 @pytest.mark.parametrize("setting", [
