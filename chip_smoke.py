@@ -30,7 +30,11 @@ carries on:
    bf16;
 3. the engine at GPT-2-small width on the card: 8 requests (6 greedy, 2
    seeded stochastic) served through the ragged step; the ragged
-   kernel's launch count over that run must equal num_layers x steps;
+   kernel's launch count over that run must equal num_layers x steps
+   (the engines of phases 3-7 leave ``prefix_cache`` unset, which is on
+   on the card, as chunked prefill is, and off on the CPU: phase 7's two
+   requests that resend phase 3's first two prompts hit the cache on the
+   card, so its holds there are warm runs against cold ones);
 4. the same engine, weights and prompts on the CPU (the kernels' plain
    versions): first-token logits within 1e-3, greedy streams identical
    or diverging only at a near tie (CPU top-2 logit gap < 1e-4);
@@ -62,14 +66,15 @@ carries on:
    can grow its page's scale, so int8 spec against spec off is printed,
    not gated, as the JAX package pins rather than guarantees it);
    (a) speculation accepts and rewinds drafts, and on a subset of the
-   traffic spec-on card vs CPU holds by the same rules; (b) the loop
+   traffic spec-on card vs CPU holds by the same rules (the CPU engine
+   with the prefix cache on, as the card's resolves); (b) the loop
    fetches at most once per N tokens on its path; (c) per dtype one
    captured loop's replay equals the eager loop bitwise (output and
    pools, the sink page aside); (d) the device sampler on the card
    against the host sampler over seeded [8, 50304] logits across the
    sampling menu: at most 1 row in 1000 sampling another token, the
    counters equal; (e) is in phase 2 (the verify and loop shapes) and
-   (f) in phase 12;
+   (f) in phase 13;
 8. training at GPT-2-small width (the JAX package's ``bench_gpt_zero``
    configuration: vocab 50257, 12 layers of 768, 12 heads, 512
    positions, flash attention, AdamW lr 1e-4, bf16 amp): at dropout 0,
@@ -130,7 +135,37 @@ carries on:
    finite and falling; then the dygraph ResNet-50 at B 64, fp32,
    Momentum, timed (printed); no kernel of the port launched over the
    phase;
-12. numbers: each kernel's and its plain version's times at its main
+12. prefix caching at GPT-2-small width (phase 3's model, pool of 512
+   pages of 16 and 8 slots, chunks of 64): a 512-token system prompt (32
+   full pages) shared by 7 requests with 16..96-token suffixes, the
+   system prompt alone (its match clipped to 511 tokens: a copy on
+   write), and a two-turn conversation (turn 2 is turn 1's prompt, its
+   32-token answer and 24 new tokens: a hit into the decode tail); then
+   the system prompt alone again; 32 new tokens each, 6 greedy and 5
+   seeded stochastic; request 0 runs until its prefill is done before
+   the rest arrive.  (a) the ragged step cold and warm on the card, and
+   warm on the card and the CPU at 2 layers (a CPU run of this traffic
+   at full depth takes minutes): each warm run's hits, prefill tokens
+   (the prompts' less the hits, and the cold run's less the hits),
+   copies on write (two, each bitwise its donor page right after the
+   copy) and peak shared pages (>= 32); the CPU's prefix counters equal
+   to the card's; ragged launches = num_layers x steps; warm card
+   against cold card, and card against CPU at 2 layers, by phase 4's
+   rule; (b) the legacy step and (c) the
+   one-shot prefill with the eager decode, each warm against its own
+   cold run by phase 4's rule: decode and chunk launches = num_layers x
+   their calls (chunk calls: the legacy chunk step's, fewer warm than
+   cold; the one-shot run's warm suffixes, one per warm request, through
+   the eager chunk path on the chunk kernel); (d) int8 pools, as (a),
+   by phase 6's bounds; (e) speculation (K=4)
+   with the loop (N=4) over a warm float32 cache, held by phase 7's rule
+   to (a)'s warm run, with a copy on write between two replays of one
+   captured loop graph; (f) the system run exported from (a)'s warm
+   engine bitwise the pool's own bytes, imported into a fresh card
+   engine whose request 0 then prefills only its suffix and is held to
+   (a)'s by phase 4's rule, and an int8 payload refused by a float32
+   engine;
+13. numbers: each kernel's and its plain version's times at its main
    path's shape beside its bound (the paged kernels on float32, int8
    and bfloat16 pools, each with its live and launched blocks (from the
    host mirrors of its items) and its counters' zero-fill alone; the
@@ -146,8 +181,8 @@ carries on:
    phase 2's verify and loop shapes, (f) for phase 7's spec x N
    engines on float32 and int8 pools tokens/s, ms per token, host
    fetches per token, the acceptance rate, the device idle share under
-   torch.profiler, and for the loops the capture time per pages bucket,
-   one iteration's device time live and masked, and the masked tail's
+   torch.profiler (float32 only), and for the loops the capture time
+   per pages bucket, one iteration's device time live and masked, and the masked tail's
    device time in the run, the GPT trainer's tokens/s,
    ms per step, peak memory and device idle share, and BERT-base's
    samples/s, tokens/s, ms per step, peak memory, model TFLOP/s
@@ -159,8 +194,11 @@ carries on:
    idle per step and its top kernels; LeNet's images/s, ms per step,
    the eager step()'s host time, its device kernels per step and idle
    share under torch.profiler; the dygraph ResNet-50's ms per step,
-   images/s and peak memory beside the static executor's;
-13. the result line.
+   images/s and peak memory beside the static executor's; phase 12's
+   time to first token of the seven warm requests, prefill tokens,
+   tokens/s and peak pages in use, cold against warm, and the device
+   time of one copy on write and of one 32-page export and import;
+14. the result line.
 
 Each phase prints its wall seconds.
 
@@ -216,6 +254,16 @@ SPEC_K = 4
 SPEC = dict(spec_mode="ngram", spec_tokens=SPEC_K)
 LOOP_NS = (4, 8)
 LOOP_PREWARM = (16, 32, 64)
+# prefix caching (phase 12): a system prompt of 32 full pages shared by 7
+# requests; chunks of 64 on every path but the one-shot; the seeded
+# stochastic requests; the counters a run reads, set to 0 before it
+PREFIX_SYSTEM, PREFIX_SHARED = 512, 7
+PREFIX_ENGINE = dict(prefill_chunk_tokens=64)
+PREFIX_HELD_LAYERS = 2     # the card-vs-CPU runs' depth
+PREFIX_STOCHASTIC = (1, 3, 5, 7, 10)
+PREFIX_COUNTERS = ("prefix_cache_hit_tokens", "prefix_pages_registered",
+                   "cow_copies", "prefix_evictions", "prefill_tokens_total",
+                   "preempted_total")
 # the device sampler against the host sampler over [8, vocab] logits:
 # rows sampled, and the most that may differ (a draw within ULPs of a
 # CDF boundary, where the reductions' order decides)
@@ -224,7 +272,7 @@ SAMPLER_DRAWS, SAMPLER_MAX_DIFF = 125, 1
 # process's, so each run sets them to 0 after its warm-up
 RUN_COUNTERS = ("tokens_total", "steps_total", "spec_proposed_tokens",
                 "spec_accepted_tokens", "spec_rewind_tokens",
-                "spec_draft_rows")
+                "spec_draft_rows", "prefix_cache_hit_tokens", "cow_copies")
 # the kernels' main-path case: the engine's widths, pool and pages bucket
 MAIN = dict(h=12, d=64, ps=16, num_pages=512, pages_bucket=64)
 # the trainer: bench.py's bench_gpt_zero configuration on the accelerator
@@ -1173,23 +1221,27 @@ def hold_to_rule(label, a, b, prompts, cpu_model, stochastic, logits=True,
     return worst, same
 
 
-def check_legacy_launches(label, run, want_chunk):
+def check_legacy_launches(label, run, want_chunk, chunk_calls=None):
+    """The legacy step's decode and chunk launches against num_layers x
+    their calls: `chunk_calls` where given (a warm one-shot run's eager
+    suffixes), else the chunk step's calls."""
     n_layers = MODEL["num_layers"]
     calls = run["records"]
     got = run["launches"]
     tag = run["tag"]
     dec = got["paged_decode_attention" + tag]
     chunk = got["chunk_prefill_attention" + tag]
+    n_chunk = calls["chunk"] if chunk_calls is None else chunk_calls
     log(f"  {label}: {run['steps']} steps, {calls['decode']} decode calls, "
-        f"{calls['chunk']} chunk calls; launches{tag}: decode {dec}, chunk "
+        f"{n_chunk} chunk calls; launches{tag}: decode {dec}, chunk "
         f"{chunk}, ragged {got['ragged_paged_attention' + tag]}; kernel "
         f"path {run['stats']['generation.kernel_path']}")
     if dec != n_layers * calls["decode"] or dec == 0:
         fail(f"{label}: decode kernel launched {dec} times, want "
              f"{n_layers} x {calls['decode']} decode calls")
-    if chunk != n_layers * calls["chunk"] or (chunk == 0) == want_chunk:
+    if chunk != n_layers * n_chunk or (chunk == 0) == want_chunk:
         fail(f"{label}: chunk kernel launched {chunk} times, want "
-             f"{n_layers} x {calls['chunk']} chunk calls")
+             f"{n_layers} x {n_chunk} chunk calls")
     if got["ragged_paged_attention" + tag]:
         fail(f"{label}: the legacy step launched the ragged kernel")
 
@@ -1460,7 +1512,9 @@ def check_serving_run(label, run, extras):
         f"{st['generation.spec_accepted_tokens']} of proposed "
         f"{st['generation.spec_proposed_tokens']}, rewound "
         f"{st['generation.spec_rewind_tokens']}; loop fetches per token "
-        f"{st['generation.decode_host_fetches_per_token']}; wall "
+        f"{st['generation.decode_host_fetches_per_token']}; prefix hit "
+        f"tokens {st.get('generation.prefix_cache_hit_tokens', 0)}, copies "
+        f"on write {st.get('generation.cow_copies', 0)}; wall "
         f"{run['wall']:.3f} s")
     if run["launches"] != want or run["launches"] == 0:
         fail(f"{label}: ragged kernel launched {run['launches']} times, "
@@ -1486,7 +1540,8 @@ def phase_serving(pgen, model, cpu_model, prompts, base):
     as in the JAX package: spec on against off is printed, not gated);
     (a) speculation accepts and rewinds drafts, and a
     subset of the traffic (prompts 0-2, the repeated span, the two stop
-    requests) with speculation on is held card vs CPU; (b) the loop
+    requests) with speculation on is held card vs CPU, the CPU on the
+    card's warm path; (b) the loop
     fetches at most once per N tokens on its path; (c) one captured
     loop bitwise against the eager loop, per dtype.  Returns the runs
     by (dtype, spec, N), each with its profiled second pass."""
@@ -1497,13 +1552,14 @@ def phase_serving(pgen, model, cpu_model, prompts, base):
             for n in (1,) + LOOP_NS:
                 label = serving_label(kv_dtype, spec, n)
 
-                def after(eng, bitwise=spec and n == LOOP_NS[0]):
-                    """(c) and the loop's iteration times, then the
-                    profiled pass for (f)."""
+                def after(eng, bitwise=spec and n == LOOP_NS[0],
+                          profiled=kv_dtype == "float32"):
+                    """(c) and the loop's iteration times, then, on
+                    float32 pools, the profiled pass for (f)."""
                     probe = (loop_probe(eng, bitwise)
                              if eng._loop is not None else {})
                     return dict(probe, profile=profile_pass(
-                        pgen, eng, traffic, extras))
+                        pgen, eng, traffic, extras) if profiled else None)
 
                 run = run_engine(pgen, model, traffic, "cuda",
                                  serving_settings(kv_dtype, spec, n),
@@ -1573,11 +1629,18 @@ def phase_serving(pgen, model, cpu_model, prompts, base):
         sub = [traffic[i] for i in keep]
         sub_extras = {j: extras[i] for j, i in enumerate(keep)
                       if i in extras}
+        # the subset's requests sample as they do in the whole traffic
+        sub_stoch = tuple(j for j, i in enumerate(keep) if i in STOCHASTIC)
         settings = serving_settings(kv_dtype, True, 1)
         card = run_engine(pgen, model, sub, "cuda", settings,
-                          extras=sub_extras)
-        cpu = run_engine(pgen, cpu_model, sub, "cpu", settings,
-                         extras=sub_extras)
+                          stochastic=sub_stoch, extras=sub_extras)
+        # the CPU serves the path the card resolved to (an unset
+        # prefix_cache is on on the card): the subset resends prompt 0,
+        # and an int8 page's values depend on its write history, which a
+        # warm hit changes (phase 12 holds warm against cold)
+        cpu = run_engine(pgen, cpu_model, sub, "cpu",
+                         dict(settings, prefix_cache=True),
+                         stochastic=sub_stoch, extras=sub_extras)
         if any(cpu["all_launches"].values()):
             fail("the CPU spec engine launched a CUDA kernel")
         tol = INT8_LOGIT_TOL if int8 else LOGIT_TOL
@@ -1591,7 +1654,7 @@ def phase_serving(pgen, model, cpu_model, prompts, base):
                      f"logits differ by {diff:.3e} > {tol}")
         _, same = hold_to_rule(
             f"(a) {kv_dtype} spec on card vs CPU", card, cpu, sub, cpu_model,
-            (2,), logits=False,
+            sub_stoch, logits=False,
             gap_of=lambda j, k: gap_in(cpu, sub, j, k), near_tie=near_tie,
             quiet=True)
         log(f"  (a) {kv_dtype} spec on, card vs CPU over {len(sub)} "
@@ -1653,6 +1716,559 @@ def phase_sampler(pgen):
     return differ, rows
 
 
+# ------------------------------ prefix caching ------------------------------
+
+
+def prefix_traffic():
+    """Phase 12's prompts: a 512-token system prompt (32 full pages)
+    shared by 7 requests with distinct 16..96-token suffixes, the system
+    prompt alone (its match is clipped to 511 tokens: one copy on write),
+    and a two-turn conversation's first turn; the second turn and the
+    system prompt alone again come later, in waves of their own.
+    Returns (first-wave prompts, system prompt, turn 2's new tokens)."""
+    rng = np.random.default_rng(11)
+
+    def draw(n):
+        return rng.integers(0, MODEL["vocab_size"], int(n)).tolist()
+
+    system = draw(PREFIX_SYSTEM)
+    shared = [system + draw(n) for n in
+              np.linspace(16, 96, PREFIX_SHARED).round()]
+    turn1 = system + draw(40)
+    return shared + [list(system), turn1], system, draw(24)
+
+
+def prefix_serve(pgen, model, device, settings, keep=False):
+    """One measured run of phase 12's traffic on a fresh engine with its
+    own stat registry: request 0 first, stepped until its prefill is done,
+    then the rest of the first wave; then turn 2 (turn 1's prompt, its
+    answer and 24 new tokens); then the system prompt alone again.  Every
+    kernel's launches are set to 0 just before it and read just after.
+    Each copy on write is held bitwise (the private page's bytes and
+    scale rows against the donor's, both exported right after the copy),
+    and the order of loop-graph replays and copies is kept.  Returns the
+    run's results and counts, the engine kept alive with `keep`."""
+    from paddle_tpu_torch.profiler.monitor import StatRegistry
+
+    wave1, system, new2 = prefix_traffic()
+    reg = StatRegistry()
+    eng = pgen.GenerationEngine(model, pgen.GenerationConfig(
+        device=device, **{**ENGINE, **PREFIX_ENGINE, **settings}),
+        metrics=pgen.GenerationMetrics(registry=reg), start=False)
+    warm = eng.submit([1, 2, 3], max_new_tokens=2)
+    eng.run_until_idle()
+    warm.result(timeout=60)
+    lp = eng._loop
+    if lp is not None:
+        for pages in LOOP_PREWARM:
+            lp.prewarm(pages)
+    for name in PREFIX_COUNTERS + ("spec_accepted_tokens",):
+        reg.get_stat("generation." + name).reset()
+    first_seq = eng.scheduler._next_seq
+    records = (spy_ragged(eng) if eng._ragged is not None
+               else spy_legacy(eng, first_seq))
+    events, cows, suffix = [], [], [0]
+    cache = eng.cache
+    real_copy = cache._copy_page_storage
+
+    def copy_spy(src, dst):
+        real_copy(src, dst)
+        a, b = cache.export_pages([src]), cache.export_pages([dst])
+        cows.append(all(torch.equal(x, y) for x, y in zip(a, b)))
+        events.append(("cow", None))
+
+    cache._copy_page_storage = copy_spy
+    if lp is not None and lp.use_graph:
+        real_graph = lp._graph_for
+
+        def graph_spy(bucket_p):
+            g = real_graph(bucket_p)
+            events.append(("replay", g))
+            return g
+
+        lp._graph_for = graph_spy
+    real_suffix = eng._prefill_suffix
+
+    def suffix_spy(state):
+        suffix[0] += 1
+        return real_suffix(state)
+
+    eng._prefill_suffix = suffix_spy
+    loop0 = (lp.replays, lp.captures) if lp is not None else (0, 0)
+    peaks = [0, 0, 0]   # pages in use, shared pages, steps
+
+    def step():
+        eng.step()
+        peaks[0] = max(peaks[0], cache.pages_in_use)
+        peaks[1] = max(peaks[1], cache.shared_pages)
+        peaks[2] += 1
+
+    def drive():
+        while eng.scheduler.active() or eng.scheduler.pending_count():
+            step()
+
+    prompts = list(wave1)
+    handles = []
+
+    def submit(i):
+        sampling = (pgen.SamplingParams(temperature=0.8, top_k=50,
+                                        top_p=0.95, seed=200 + i)
+                    if i in PREFIX_STOCHASTIC else pgen.SamplingParams())
+        handles.append(eng.submit(prompts[i], max_new_tokens=MAX_NEW,
+                                  sampling=sampling))
+
+    reset_launches()
+    if device == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    submit(0)
+    while handles[0].first_token_s is None:
+        step()
+    for i in range(1, len(wave1)):
+        submit(i)
+    drive()
+    prompts.append(wave1[-1] + handles[-1].result(timeout=60).token_ids
+                   + new2)
+    submit(len(prompts) - 1)
+    drive()
+    prompts.append(list(system))
+    submit(len(prompts) - 1)
+    drive()
+    if device == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    results = [h.result(timeout=60) for h in handles]
+    stats = reg.stats()
+    loop = {}
+    if lp is not None:
+        loop = dict(n=lp.loop_steps, replays=lp.replays - loop0[0],
+                    captures=lp.captures - loop0[1])
+    run = dict(results=results, records=records, first_seq=first_seq,
+               prompts=prompts, wall=wall, launches=launches,
+               steps=sum(1 for r in records if r[2] is not None)
+               if eng._ragged is not None else peaks[2],
+               tag="_int8" if eng.kv_quant else "",
+               stats=stats, peak_pages=peaks[0], peak_shared=peaks[1],
+               ttft=[h.first_token_s - h.submitted_s for h in handles],
+               hits=[h.prefix_hit_tokens for h in handles], cows=cows,
+               events=events, suffix_calls=suffix[0], loop=loop,
+               engine=eng if keep else None, system=system)
+    if not keep:
+        eng.shutdown()
+    return run
+
+
+def prefix_counters(run):
+    st = run["stats"]
+    return {name: st.get("generation." + name, 0)
+            for name in PREFIX_COUNTERS}
+
+
+def prefix_first_logits(run, i):
+    if isinstance(run["records"], dict):
+        return run["records"]["first"][i]
+    return logits_at(run, i, 0, len(run["prompts"][i]))
+
+
+def hold_prefix(label, a, b, cpu_model, tol=LOGIT_TOL, near_tie=NEAR_TIE,
+                logits=True):
+    """Phase 4's rule between runs `a` and `b` of phase 12's traffic, on
+    the requests whose prompts are equal (turn 2 carries each run's own
+    turn-1 answer): first-token logits within `tol` (when `logits`),
+    greedy streams identical or diverging only where the top-2 logit gap
+    after the shared prefix is < `near_tie` (from `b`'s logits where it
+    sampled there, else the CPU full recompute).  Returns the worst
+    first-token difference and the identical-stream count."""
+    worst, same = 0.0, 0
+    for i, (pa_, pb_) in enumerate(zip(a["prompts"], b["prompts"])):
+        if pa_ != pb_:
+            log(f"  {label} request {i}: prompts differ (turn 1's answers "
+                f"diverged at a near tie): not compared")
+            continue
+        if logits:
+            diff = float(np.abs(prefix_first_logits(a, i)
+                                - prefix_first_logits(b, i)).max())
+            worst = max(worst, diff)
+            if not math.isfinite(diff) or diff > tol:
+                fail(f"{label} request {i}: first-token logits differ by "
+                     f"{diff:.3e} > {tol}")
+        at, bt = a["results"][i].token_ids, b["results"][i].token_ids
+        if at == bt:
+            same += 1
+            continue
+        k = next((j for j, (x, y) in enumerate(zip(at, bt)) if x != y),
+                 min(len(at), len(bt)))
+        row = (logits_at(b, i, k, len(pa_), required=False)
+               if not isinstance(b["records"], dict) else None)
+        gap = (top2_gap(cpu_model, list(pa_) + list(bt[:k])) if row is None
+               else float(np.diff(np.sort(row)[-2:])[0]))
+        kind = "stochastic" if i in PREFIX_STOCHASTIC else "greedy"
+        log(f"  {label} request {i} ({kind}): streams diverge at token "
+            f"{k}; top-2 gap {gap:.3e}")
+        if kind == "greedy" and gap >= near_tie:
+            fail(f"{label}: greedy request {i} diverges at token {k} where "
+                 f"the top-2 gap is {gap:.3e} >= {near_tie}")
+    log(f"  {label}: {same} of {len(a['results'])} streams identical"
+        + (f", first-token logits max|diff| {worst:.3e}" if logits else ""))
+    return worst, same
+
+
+def check_prefix_warm(label, warm, cold):
+    """The warm run's hits, prefill accounting, copies on write (each
+    bitwise its donor) and shared pages."""
+    c = prefix_counters(warm)
+    hits = sum(warm["hits"])
+    ps = ENGINE["page_size"]
+    # turn 2 hits every full page turn 1 left written: its prompt and
+    # answer less the last sampled token, which was never decoded
+    tail = (len(warm["prompts"][-3]) + MAX_NEW - 1) // ps * ps
+    want_hits = ([0] + [PREFIX_SYSTEM] * (PREFIX_SHARED - 1)
+                 + [PREFIX_SYSTEM - 1, PREFIX_SYSTEM, tail,
+                    PREFIX_SYSTEM - 1])
+    if warm["hits"] != want_hits:
+        fail(f"{label}: prefix hits {warm['hits']}, want {want_hits}")
+    if c["prefix_cache_hit_tokens"] != hits:
+        fail(f"{label}: hit counter {c['prefix_cache_hit_tokens']} != "
+             f"{hits}")
+    if c["prefill_tokens_total"] != sum(map(len, warm["prompts"])) - hits:
+        fail(f"{label}: prefilled {c['prefill_tokens_total']} tokens, want "
+             f"the prompts' {sum(map(len, warm['prompts']))} less {hits}")
+    if cold is not None:
+        cc = prefix_counters(cold)
+        if cc["prefix_cache_hit_tokens"] or cold["cows"]:
+            fail(f"{label}: the cold run hit the prefix cache")
+        if cold["prompts"] == warm["prompts"] and \
+                c["prefill_tokens_total"] != cc["prefill_tokens_total"] - hits:
+            fail(f"{label}: warm prefill {c['prefill_tokens_total']} != "
+                 f"cold {cc['prefill_tokens_total']} - hits {hits}")
+    if c["cow_copies"] != 2 or len(warm["cows"]) != 2 \
+            or not all(warm["cows"]):
+        fail(f"{label}: copies on write {c['cow_copies']} ({warm['cows']}), "
+             f"want 2, each bitwise its donor page")
+    if warm["peak_shared"] < PREFIX_SYSTEM // ENGINE["page_size"]:
+        fail(f"{label}: peak shared pages {warm['peak_shared']} < "
+             f"{PREFIX_SYSTEM // ENGINE['page_size']}")
+    for i, r in enumerate(warm["results"]):
+        if r.finish_reason != "length" or len(r.token_ids) != MAX_NEW:
+            fail(f"{label} request {i} finished {r.finish_reason!r} with "
+                 f"{len(r.token_ids)} tokens, want {MAX_NEW}")
+    log(f"  {label}: hits {warm['hits']}; counters {c}; peak shared "
+        f"{warm['peak_shared']}, peak pages in use {warm['peak_pages']}; "
+        f"copies on write bitwise their donors: {warm['cows']}")
+
+
+def check_prefix_ragged(label, run, n_layers=None):
+    n_layers = n_layers or MODEL["num_layers"]
+    want = n_layers * run["steps"]
+    loop = run["loop"]
+    if loop:
+        want = n_layers * (run["steps"] + loop["n"] * (
+            loop["replays"] + loop["captures"]))
+    tag = run["tag"]
+    got = run["launches"]["ragged_paged_attention" + tag]
+    log(f"  {label}: {run['steps']} ragged steps"
+        + (f", {loop['replays']} loop replays, {loop['captures']} captures"
+           if loop else "")
+        + f"; ragged launches{tag} {got} (want {want}); wall "
+        f"{run['wall']:.3f} s")
+    if got != want or got == 0:
+        fail(f"{label}: ragged kernel launched {got} times, want {want}")
+
+
+def phase_prefix(pgen, model, cpu_model):
+    """Phase 12: prefix caching at GPT-2-small width (phase 3's model and
+    pool, chunks of 64).  (a) the ragged step cold and warm on the card
+    and warm on the CPU; (b) the legacy step and (c) the one-shot prefill
+    (a warm suffix through the eager chunk path), each warm against its
+    own cold run; (d) int8 pools; (e) speculation and the loop over a warm
+    cache; (f) the page service.  Returns the runs and the payloads."""
+    n_layers = MODEL["num_layers"]
+    runs = {}
+    # card against CPU at a cut depth: a CPU run of this traffic at full
+    # depth takes minutes
+    held = {**MODEL, "num_layers": PREFIX_HELD_LAYERS}
+    held_card = pgen.TinyCausalLM(**held)
+    held_cpu = pgen.TinyCausalLM.from_numpy_params(
+        held_card.decode_params("cpu"), num_heads=MODEL["num_heads"],
+        seed=MODEL["seed"], device="cpu")
+
+    def card_vs_cpu(label, settings, tol, near_tie):
+        """The warm run at the cut depth on the card and on the CPU: the
+        same hits and counters, streams by phase 4's rule."""
+        card = prefix_serve(pgen, held_card, "cuda", settings)
+        cpu = prefix_serve(pgen, held_cpu, "cpu", settings)
+        check_prefix_ragged(f"{label} card, {PREFIX_HELD_LAYERS} layers",
+                            card, PREFIX_HELD_LAYERS)
+        check_prefix_warm(f"{label} card, {PREFIX_HELD_LAYERS} layers",
+                          card, None)
+        check_prefix_warm(f"{label} CPU, {PREFIX_HELD_LAYERS} layers", cpu,
+                          None)
+        if any(cpu["launches"].values()):
+            fail("the CPU prefix engine launched a CUDA kernel")
+        if prefix_counters(card) != prefix_counters(cpu) \
+                or card["peak_shared"] != cpu["peak_shared"]:
+            fail(f"{label}: card counters {prefix_counters(card)} (peak "
+                 f"shared {card['peak_shared']}) != CPU "
+                 f"{prefix_counters(cpu)} ({cpu['peak_shared']})")
+        hold_prefix(f"{label} card vs CPU, {PREFIX_HELD_LAYERS} layers",
+                    card, cpu, held_cpu, tol, near_tie)
+        return card, cpu
+
+    log(f"  (a) the ragged step: cold and warm on the card; warm on the "
+        f"card and the CPU at {PREFIX_HELD_LAYERS} layers")
+    cold = runs["cold"] = prefix_serve(pgen, model, "cuda",
+                                       dict(prefix_cache=False))
+    warm = runs["warm"] = prefix_serve(pgen, model, "cuda",
+                                       dict(prefix_cache=True), keep=True)
+    for run, label in ((cold, "ragged cold card"),
+                       (warm, "ragged warm card")):
+        check_prefix_ragged(label, run)
+    check_prefix_warm("ragged warm card", warm, cold)
+    hold_prefix("ragged warm card vs cold card", warm, cold, cpu_model)
+    runs["held"] = card_vs_cpu("ragged warm", dict(prefix_cache=True),
+                               LOGIT_TOL, NEAR_TIE)
+    if prefix_counters(runs["held"][1]) != prefix_counters(warm):
+        fail(f"the CPU's counters {prefix_counters(runs['held'][1])} != "
+             f"the full-depth card's {prefix_counters(warm)}")
+
+    log("  (b) the legacy step, chunks of 64: cold and warm on the card")
+    legacy = {}
+    for name, on in (("cold", False), ("warm", True)):
+        run = legacy[name] = prefix_serve(
+            pgen, model, "cuda", dict(LEGACY, prefix_cache=on))
+        check_legacy_launches(f"legacy {name}", run, want_chunk=True)
+    check_prefix_warm("legacy warm card", legacy["warm"], legacy["cold"])
+    calls = [legacy[k]["records"]["chunk"] for k in ("cold", "warm")]
+    if not calls[1] < calls[0]:
+        fail(f"legacy warm ran {calls[1]} chunk calls, cold {calls[0]}: "
+             f"cached chunks were not skipped")
+    log(f"  legacy chunk calls cold {calls[0]}, warm {calls[1]}: "
+        f"{calls[0] - calls[1]} cached chunks skipped")
+    hold_prefix("legacy warm vs cold", legacy["warm"], legacy["cold"],
+                cpu_model)
+    runs["legacy"] = legacy
+
+    log("  (c) one-shot prefill, eager decode: cold and warm on the card")
+    one = {}
+    for name, on in (("cold", False), ("warm", True)):
+        run = one[name] = prefix_serve(pgen, model, "cuda",
+                                       dict(ONE_SHOT, prefix_cache=on))
+        check_legacy_launches(f"one-shot {name}", run, want_chunk=on,
+                              chunk_calls=run["suffix_calls"])
+    check_prefix_warm("one-shot warm card", one["warm"], one["cold"])
+    got = one["warm"]["launches"]["chunk_prefill_attention"]
+    if got != n_layers * one["warm"]["suffix_calls"] \
+            or one["warm"]["suffix_calls"] != len(one["warm"]["prompts"]) - 1:
+        fail(f"one-shot warm: chunk kernel launched {got} times over "
+             f"{one['warm']['suffix_calls']} suffix calls, want num_layers "
+             f"x one call per warm request")
+    log(f"  one-shot warm: {one['warm']['suffix_calls']} warm suffixes "
+        f"through the eager chunk path, chunk launches {got}")
+    hold_prefix("one-shot warm vs cold", one["warm"], one["cold"],
+                cpu_model)
+    runs["one_shot"] = one
+
+    log(f"  (d) int8 pools: cold and warm on the card; warm on the card "
+        f"and the CPU at {PREFIX_HELD_LAYERS} layers")
+    q = {}
+    q["cold"] = prefix_serve(pgen, model, "cuda",
+                             dict(INT8, prefix_cache=False))
+    q["warm"] = prefix_serve(pgen, model, "cuda",
+                             dict(INT8, prefix_cache=True), keep=True)
+    check_prefix_ragged("int8 cold card", q["cold"])
+    check_prefix_ragged("int8 warm card", q["warm"])
+    check_prefix_warm("int8 warm card", q["warm"], q["cold"])
+    hold_prefix("int8 warm card vs cold card", q["warm"], q["cold"],
+                cpu_model, INT8_LOGIT_TOL, INT8_NEAR_TIE)
+    q["held"] = card_vs_cpu("int8 warm", dict(INT8, prefix_cache=True),
+                            INT8_LOGIT_TOL, INT8_NEAR_TIE)
+    q_eng = q["warm"]["engine"]
+    q_payload = q_eng.export_prefix_pages(q["warm"]["system"])
+    q_eng.shutdown()
+    runs["int8"] = q
+
+    log(f"  (e) speculation (ngram, K={SPEC_K}) and the loop (N="
+        f"{LOOP_NS[0]}) over a warm float32 cache")
+    spec = runs["spec_loop"] = prefix_serve(
+        pgen, model, "cuda", dict(SPEC, loop_steps=LOOP_NS[0],
+                                  prefix_cache=True))
+    check_prefix_ragged("spec + loop warm", spec)
+    check_prefix_warm("spec + loop warm", spec, None)
+    if not spec["loop"]["replays"]:
+        fail("spec + loop warm: the loop never ran")
+    seen, between = {}, 0
+    for i, (kind, g) in enumerate(spec["events"]):
+        if kind == "replay":
+            if id(g) in seen and any(
+                    k == "cow" for k, _ in spec["events"][seen[id(g)]:i]):
+                between += 1
+            seen[id(g)] = i
+    if not between:
+        fail("spec + loop warm: no copy on write fell between two replays "
+             "of one captured loop graph")
+    log(f"  spec + loop: {between} replays of a captured graph came after "
+        f"a copy on write since its previous replay (copies in place, the "
+        f"graph's pool addresses hold); accepted "
+        f"{spec['stats'].get('generation.spec_accepted_tokens', 0)} drafts")
+    hold_prefix(f"spec + loop (N={LOOP_NS[0]}) vs spec off N=1, warm card",
+                spec, warm, cpu_model, logits=False)
+
+    log("  (f) the page service: export the system run, import it into a "
+        "fresh card engine")
+    eng = warm["engine"]
+    payload = eng.export_prefix_pages(warm["system"])
+    pages = eng.cache.match_prefix_full(warm["system"])[0]
+    n_pages = PREFIX_SYSTEM // ENGINE["page_size"]
+    if len(pages) != n_pages or payload["k"].shape[1] != n_pages:
+        fail(f"export covers {payload['k'].shape[1]} pages, want {n_pages}")
+    for name, key in (("k_pool", "k"), ("v_pool", "v")):
+        own = getattr(eng.cache, name)[:, list(pages)]
+        if not np.array_equal(payload[key].numpy(), own):
+            fail(f"the exported {key} differs from the pool's own bytes")
+    eng.shutdown()
+    imp = runs["import"] = prefix_import_run(pgen, model, payload)
+    if imp["added"] != n_pages or imp["hits"] != [PREFIX_SYSTEM]:
+        fail(f"import indexed {imp['added']} pages and the first request "
+             f"hit {imp['hits']}, want {n_pages} and {PREFIX_SYSTEM}")
+    want = len(imp["prompts"][0]) - PREFIX_SYSTEM
+    if prefix_counters(imp)["prefill_tokens_total"] != want:
+        fail(f"the importing engine prefilled "
+             f"{prefix_counters(imp)['prefill_tokens_total']} tokens, want "
+             f"the suffix's {want}")
+    hold_prefix("imported run vs (a) warm card", imp, warm, cpu_model)
+    f32 = pgen.GenerationEngine(model, pgen.GenerationConfig(
+        **ENGINE, **PREFIX_ENGINE, prefix_cache=True), start=False)
+    refused = f32.import_prefix_pages(q_payload)
+    free = f32.cache.num_free_pages
+    f32.shutdown()
+    if refused != 0 or free != ENGINE["num_pages"]:
+        fail(f"an int8 payload imported into a float32 engine indexed "
+             f"{refused} pages ({free} free)")
+    log(f"  exported {n_pages} pages bitwise the pool's own; the importing "
+        f"engine's first request hit {PREFIX_SYSTEM} tokens and prefilled "
+        f"{want}; an int8 payload into a float32 engine: {refused} pages")
+    return runs
+
+
+def prefix_import_run(pgen, model, payload):
+    """A fresh card engine that imports `payload` before serving phase
+    12's request 0 alone (through the ragged spies)."""
+    from paddle_tpu_torch.profiler.monitor import StatRegistry
+
+    reg = StatRegistry()
+    eng = pgen.GenerationEngine(model, pgen.GenerationConfig(
+        **ENGINE, **PREFIX_ENGINE, prefix_cache=True),
+        metrics=pgen.GenerationMetrics(registry=reg), start=False)
+    added = eng.import_prefix_pages(payload)
+    prompts = prefix_traffic()[0][:1]
+    first_seq = eng.scheduler._next_seq
+    records = spy_ragged(eng)
+    h = eng.submit(prompts[0], max_new_tokens=MAX_NEW)
+    eng.run_until_idle()
+    run = dict(results=[h.result(timeout=60)], records=records,
+               first_seq=first_seq, prompts=prompts, stats=reg.stats(),
+               hits=[h.prefix_hit_tokens], added=added)
+    eng.shutdown()
+    return run
+
+
+def prefix_numbers(card, runs):
+    """Phase 12's numbers: time to first token of the seven warm
+    requests, prefill tokens, tokens/s and peak pages in use, cold
+    against warm; the device time of one copy on write (every layer's K
+    and V pages) and of one 32-page export and import."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def line(label, run):
+        toks = sum(len(r.token_ids) for r in run["results"])
+        t = sorted(run["ttft"][1:1 + PREFIX_SHARED])
+        c = prefix_counters(run)
+        return (f"{label}: TTFT of requests 1-{PREFIX_SHARED} median "
+                f"{t[len(t) // 2] * 1e3:.1f} ms, max {t[-1] * 1e3:.1f} ms; "
+                f"prefill tokens {c['prefill_tokens_total']}; "
+                f"{toks / run['wall']:.1f} tokens/s ({run['wall']:.3f} s); "
+                f"peak pages in use {run['peak_pages']}")
+
+    for label, cold, warm in (
+            ("ragged", runs["cold"], runs["warm"]),
+            ("legacy", runs["legacy"]["cold"], runs["legacy"]["warm"]),
+            ("one-shot", runs["one_shot"]["cold"],
+             runs["one_shot"]["warm"]),
+            ("int8 ragged", runs["int8"]["cold"], runs["int8"]["warm"])):
+        log(f"  [{card}] prefix {line(label + ' cold', cold)}")
+        log(f"  [{card}] prefix {line(label + ' warm', warm)}")
+    log(f"  [{card}] prefix {line('spec + loop warm', runs['spec_loop'])}")
+    from paddle_tpu_torch import generation as pgen
+
+    n = PREFIX_SYSTEM // ENGINE["page_size"]
+    for dtype in (torch.float32, torch.int8):
+        pool = pgen.DeviceKVPool(MODEL["num_layers"], MODEL["num_heads"],
+                                 MODEL["head_dim"], ENGINE["num_pages"],
+                                 ENGINE["page_size"], dtype=dtype)
+        cow = []
+
+        def copy():
+            pool._copy_page_storage(3, 7)
+
+        for _ in range(5):
+            copy()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(50):
+            copy()
+        torch.cuda.synchronize()
+        cow.append((time.perf_counter() - t0) / 50)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(50):
+                copy()
+            torch.cuda.synchronize()
+        kernels = device_kernels(prof)
+        cow.append(sum(us for us, _ in kernels.values()) / 50)
+        cow.append(sum(k for _, k in kernels.values()) / 50)
+        pages = list(range(n))
+        payload = pool.export_pages(pages)
+
+        def export():
+            pool.export_pages(pages)
+
+        def install():
+            pool._install_pages(pages, *payload)
+
+        walls = {}
+        for name, fn in (("export", export), ("import", install)):
+            for _ in range(3):
+                fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(20):
+                fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) / 20
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(20):
+                    fn()
+                torch.cuda.synchronize()
+            dev = sum(us for us, _ in device_kernels(prof).values()) / 20
+            walls[name] = (wall, dev)
+        nbytes = sum(t.numel() * t.element_size() for t in payload)
+        dt = str(dtype).replace("torch.", "")
+        log(f"  [{card}] {dt} pool ({MODEL['num_layers']} layers, 512 pages "
+            f"of 16): one copy on write (K and V of every layer"
+            + (", scale rows too" if dtype == torch.int8 else "")
+            + f") {cow[0] * 1e6:.1f} us wall, "
+            + (f"{cow[1]:.1f} us of device time in {cow[2]:.0f} kernels "
+               f"(torch.profiler)" if cow[1] > 0
+               else "device time not measured") + "; "
+            + "; ".join(
+                f"{name} of {n} pages ({nbytes / 2**20:.1f} MiB) "
+                f"{w * 1e3:.3f} ms wall, "
+                + (f"{d / 1e3:.3f} ms of device time (copies and "
+                   f"gathers, torch.profiler)" if d > 0
+                   else "device time not measured")
+                for name, (w, d) in walls.items()))
+
+
 def ragged_shape_numbers(pa, card):
     """The ragged kernel at speculation's verify shape and at the decode
     loop's axis (phase 2's two new cases), on float32 and int8 pools:
@@ -1685,7 +2301,8 @@ def serving_numbers(card, runs):
     """(f) For spec {off, on} x N {1, 4, 8} on float32 and int8 pools:
     tokens/s, ms per token, host fetches per token (one a sampling step
     or loop call), the acceptance rate, the device idle share under
-    torch.profiler (the traffic's second pass on the measured engine),
+    torch.profiler (the traffic's second pass on the measured engine;
+    float32 pools only),
     and for the loops the capture time per pages bucket, one iteration's
     device time live and masked, its kernels, and the masked tail's
     device time in the run."""
@@ -1719,6 +2336,10 @@ def serving_numbers(card, runs):
                      f"{wasted} iterations = {wasted * probe['dead_ms']:.2f} "
                      f"ms of device time")
         log(line)
+        if run["extra"]["profile"] is None:
+            log("    not profiled: the int8 runs' profiled passes are left "
+                "out to keep the script's time")
+            continue
         wall, busy = run["extra"]["profile"]["wall"], \
             run["extra"]["profile"]["busy"]
         if busy > 0:
@@ -3344,7 +3965,12 @@ def main():
         fail(f"the dygraph vision path launched a kernel of the port: "
              f"{launches}")
 
-    phase("phase 12: numbers")
+    phase("phase 12: prefix caching at GPT-2-small width (ragged, legacy "
+          "and one-shot paths; float32 and int8 pools; speculation and the "
+          "loop; page export and import)")
+    prefix = phase_prefix(pgen, model, cpu_model)
+
+    phase("phase 13: numbers")
     numbers = paged_numbers(pa, card, torch.float32, "")
     numbers.update(paged_numbers(pa, card, torch.int8, "_int8"))
     paged_numbers(pa, card, torch.bfloat16, "_bf16")  # printed only
@@ -3369,6 +3995,7 @@ def main():
         f"first-token logits card vs CPU max|diff| {worst_logit:.3e}")
     ragged_shape_numbers(pa, card)
     serving_numbers(card, serving)
+    prefix_numbers(card, prefix)
     for label, settings in (("ragged", None), ("legacy", LEGACY),
                             ("int8 ragged", INT8),
                             ("int8 legacy", {**LEGACY, **INT8})):

@@ -13,8 +13,10 @@ from .engine import (DEFAULT_PREFILL_CHUNK_TOKENS, GenerationConfig,
                      GenerationEngine, GenerationHandle, GenerationResult)
 from .fused import (ChunkedPrefillStep, FusedDecodeStep,
                     LoopedRaggedStep, RaggedStep, decode_batch_menu)
-from .kv_cache import (DeviceKVPool, OutOfPagesError, PagedKVCache,
-                       UnknownSequenceError, scatter_pool_update)
+from .kv_cache import (DeviceKVPool, KVQuantMismatchError,
+                       OutOfPagesError, PagedKVCache, UnknownSequenceError,
+                       compact_prefix_deltas, page_chain_hash,
+                       scatter_pool_update)
 from .metrics import GenerationMetrics
 from .model import TinyCausalLM, params_from_numpy
 from .sampling import (SampleStream, SamplingParams, hash_uniform,
@@ -29,14 +31,16 @@ __all__ = [
     "ContinuousBatchingScheduler", "DeviceKVPool", "FusedDecodeStep",
     "GenerationConfig", "GenerationEngine", "GenerationHandle",
     "GenerationMetrics", "GenerationRequest", "GenerationResult",
-    "LoopedRaggedStep", "NgramIndex", "NgramProposer", "OutOfPagesError",
+    "KVQuantMismatchError", "LoopedRaggedStep", "NgramIndex", "NgramProposer", "OutOfPagesError",
     "PagedKVCache", "RaggedStep", "SampleStream",
     "SamplingParams", "SequenceState", "TinyCausalLM",
     "UnknownSequenceError", "chunk_prefill_attention",
-    "chunk_prefill_attention_reference", "decode_batch_menu",
+    "chunk_prefill_attention_reference", "compact_prefix_deltas",
+    "decode_batch_menu",
     "dense_causal_reference", "hash_uniform", "hash_uniform_device",
     "paged_decode_attention",
-    "paged_decode_attention_reference", "params_from_numpy",
+    "page_chain_hash", "paged_decode_attention_reference",
+    "params_from_numpy",
     "ragged_paged_attention", "ragged_paged_attention_reference",
     "sample_token", "sample_tokens_batch", "sample_tokens_device",
     "scatter_pool_update", "verify_accept",

@@ -16,6 +16,19 @@ step modes.
   prompt in one shot (``model.prefill_batch``, batched by length
   bucket), and only decode rides the step.
 
+With ``prefix_cache`` on, full pages of every completed prompt (and, at
+retire, of its generated tokens) are indexed by their token chain;
+admission aliases the longest cached page run into a new sequence's page
+table and its prefill resumes at the first unmatched token, so many
+users of one system prompt pay its prefill once and hold one physical
+copy.  Shared pages are read-only: the first divergent write copies the
+page (copy-on-write, on the device), and refcount-0 runs stay resident as
+an LRU cache evicted under pool pressure before any preemption.  The
+ragged and legacy chunked steps resume at ``prefill_pos`` natively; the
+one-shot modes run a warm suffix as one eager ``prefill_chunk`` call
+through the chunk-prefill kernel.  ``export_prefix_pages`` and
+``import_prefix_pages`` move a cached run between engines.
+
 On the ragged step two options make a step retire more than one token
 per sequence and per host round trip:
 
@@ -65,7 +78,8 @@ from ..device import resolve_device
 from ..profiler import RecordEvent
 from ..serving.admission import RequestTooLargeError, ServingError
 from ..serving.bucketing import ShapeBucketer, SignatureCache
-from .decode_attention import paged_decode_attention
+from .decode_attention import (chunk_prefill_attention,
+                               paged_decode_attention)
 from .fused import (ChunkedPrefillStep, FusedDecodeStep,
                     LoopedRaggedStep, RaggedStep, decode_batch_menu)
 from .kv_cache import DeviceKVPool, OutOfPagesError
@@ -134,9 +148,15 @@ class GenerationConfig:
         per-step path.  N > 1 needs the ragged step (with step_mode
         unset it resolves to "ragged"; "legacy" raises) and a model with
         ``ragged_loop_fn``.
+    prefix_cache: refcounted copy-on-write page sharing across sequences
+        (the module docstring).  It needs a prefill path that can resume
+        mid-prompt: chunked prefill, or a model with ``prefill_chunk``
+        for the one-shot modes.  None = auto: on when the engine runs on
+        the card with chunked prefill on, off on the CPU (where the
+        parity tests anchor on the cold path; warm against cold is
+        tested on its own).
 
-    Settings the JAX engine has and this port does not support yet
-    (prefix_cache=True, mesh) are accepted here and refused with
+    A mesh, which the JAX engine takes, is accepted here and refused with
     NotImplementedError when the engine is built.
     """
 
@@ -219,25 +239,24 @@ class GenerationConfig:
                 "loop_steps > 1 is the host-free decode loop over the "
                 "RAGGED step (N ragged iterations per call); "
                 "step_mode='legacy' has no such call")
+        if prefix_cache not in (None, True, False):
+            raise ValueError(
+                f"prefix_cache must be True, False or None (auto), got "
+                f"{prefix_cache!r}")
         self.prefix_cache = prefix_cache
         self.mesh = mesh
         self.device = "cuda" if device is None else str(device)
 
 
 def _refuse_unported(cfg):
-    """NotImplementedError for the settings the port does not run yet —
-    prefix caching and a mesh — never a silent switch to another path."""
-    unported = []
-    if cfg.prefix_cache:
-        unported.append("prefix_cache=True")
+    """NotImplementedError for the setting the port does not run yet — a
+    mesh — never a silent switch to another path."""
     if cfg.mesh is not None:
-        unported.append("mesh")
-    if unported:
         raise NotImplementedError(
-            "not supported by the PyTorch port yet: " + ", ".join(unported)
-            + " (it serves the ragged and legacy steps, speculative "
-            "decoding and the host-free decode loop on float32, bfloat16 "
-            "and int8 pools of one card)")
+            "not supported by the PyTorch port yet: mesh (it serves the "
+            "ragged and legacy steps, prefix caching, speculative decoding "
+            "and the host-free decode loop on float32, bfloat16 and int8 "
+            "pools of one card)")
 
 
 def _require(model, names, what):
@@ -277,6 +296,9 @@ class GenerationHandle:
         # time-to-first-token probes (monotonic seconds)
         self.submitted_s = None
         self.first_token_s = None
+        # prompt tokens the prefix cache served at FIRST admission (0:
+        # cold, None: not admitted yet)
+        self.prefix_hit_tokens = None
 
     # --- engine side ---
     def _push_token(self, token):
@@ -352,6 +374,22 @@ class GenerationEngine:
         self.scheduler = ContinuousBatchingScheduler(
             self.cache, num_slots=cfg.max_decode_slots,
             queue_depth=cfg.queue_depth, metrics=self.metrics)
+        # prefix caching: a warm hit resumes prefill MID-prompt, which the
+        # chunked steps do natively and the one-shot modes through the
+        # model's eager prefill_chunk.  Auto: on on the card with
+        # chunked prefill on, off on the CPU
+        prefix = cfg.prefix_cache
+        if prefix is None:
+            prefix = self.device.type == "cuda" and bool(chunk)
+        elif prefix and not (chunk or hasattr(model, "prefill_chunk")):
+            raise ValueError(
+                "prefix_cache=True needs a prefill path that can resume "
+                "mid-prompt: chunked prefill (prefill_chunk_tokens) or "
+                "a model implementing prefill_chunk — one-shot "
+                f"model.prefill always starts at token 0 "
+                f"({type(model).__name__})")
+        self.prefix_cache_enabled = bool(prefix)
+        self.scheduler.prefix_cache = self.prefix_cache_enabled
         slots = cfg.max_decode_slots
         # speculation sizes the auto packed axis for a fully drafting
         # batch (decode rows carry 1 + spec_tokens rows each), the chunk
@@ -488,6 +526,47 @@ class GenerationEngine:
     def generate(self, prompt, **kw):
         """Blocking convenience: submit + result."""
         return self.submit(prompt, **kw).result()
+
+    # --------------------------- page service -----------------------
+    def export_prefix_pages(self, tokens):
+        """The longest fully cached page run matching a prefix of
+        `tokens`, as ``{"tokens": covered tokens, "k": ..., "v": ...}``
+        (plus ``"k_scale"``, ``"v_scale"`` for an int8 pool; host tensors
+        in the canonical ``[L, n, page_size, H, D]`` layout) for another
+        engine's import_prefix_pages; None when nothing is cached or the
+        prefix cache is off.  Each export counts as demand in the
+        eviction order."""
+        with self._lock:
+            if not self.prefix_cache_enabled:
+                return None
+            pages, matched = self.cache.match_prefix_full(tokens)
+            if not pages:
+                return None
+            self.cache.note_fleet_demand(pages)
+            out = self.cache.export_pages(pages)
+            payload = {"tokens": [int(t) for t in tokens[:matched]],
+                       "k": out[0], "v": out[1]}
+            if len(out) == 4:   # int8: the grid travels with the bytes
+                payload["k_scale"], payload["v_scale"] = out[2], out[3]
+            return payload
+
+    def import_prefix_pages(self, payload):
+        """Adopt an exported prefix run into this engine's pool and
+        prefix index (a read-only cached resident, copied on write like
+        any locally registered run).  Returns the pages newly indexed: 0
+        when skipped (cache off, pool pressure, or a payload this pool
+        cannot take, such as int8 pages into a float pool): adoption is
+        an optimization and never fails a request."""
+        with self._lock:
+            if not self.prefix_cache_enabled or payload is None:
+                return 0
+            try:
+                return self.cache.import_prefix_run(
+                    payload["tokens"], payload["k"], payload["v"],
+                    payload.get("k_scale"), payload.get("v_scale"))
+            except (OutOfPagesError, ValueError):
+                # KVQuantMismatchError is a ValueError
+                return 0
 
     def stats(self):
         """generation.* metrics snapshot + live cache stats."""
@@ -697,9 +776,13 @@ class GenerationEngine:
     def _prefill_admitted(self, states):
         """Prefill newly admitted sequences in one shot, batched: group
         by padded-length bucket, then one `prefill_batch` call per group
-        of <= max_prefill_batch prompts."""
+        of <= max_prefill_batch prompts.  WARM sequences (a prefix hit
+        advanced prefill_pos at admission) cannot take the one-shot
+        call, which starts at token 0: they take the suffix path."""
+        for state in [s for s in states if s.prefill_pos > 0]:
+            self._prefill_suffix(state)
         groups = {}
-        for state in states:
+        for state in [s for s in states if s.prefill_pos == 0]:
             # the menu covers every sequence the pool and the model's
             # positions can hold, a preempted one's generated tokens too
             bucket = self._bucketer.length_bucket(len(state.tokens))
@@ -747,9 +830,83 @@ class GenerationEngine:
             state.prefilling = False
             state.prefill_pos = len(state.tokens)
             self.metrics.count_prefill(len(state.tokens))
+            self._register_prefix(state)
         # a prefill's last-position logits ARE the next-token logits
         self._apply_logits_batch([state for state, _ in ready],
                                  last_logits)
+
+    def _prefill_suffix(self, state):
+        """A warm one-shot prefill: positions [0, prefill_pos) are aliased
+        cached pages (adopted at admission, zero bytes moved); only the
+        suffix is computed, as one eager `prefill_chunk` call attending
+        over the aliased prefix and the suffix through the page table.
+        Its last-position logits are the next-token logits, as in a full
+        prefill."""
+        n = len(state.tokens) - state.prefill_pos
+        try:
+            # reserve may copy the clipped tail page on write (counted in
+            # pages_needed); after it every written page is private
+            start = self.cache.reserve(state.seq_id, n)
+        except OutOfPagesError as e:
+            self.scheduler.retire(state)
+            state.handle.set_exception(e)
+            return
+        if start != state.prefill_pos:
+            raise RuntimeError(
+                f"cache length {start} diverged from the matched prefix "
+                f"{state.prefill_pos} of sequence {state.seq_id}")
+        with RecordEvent("generation::prefill"):
+            logits_last = self._prefill_chunk_eager(
+                state, state.tokens[start:], start)
+        state.prefilling = False
+        state.prefill_pos = len(state.tokens)
+        self.metrics.count_prefill(n)
+        self._register_prefix(state)
+        self._on_logits(state, logits_last.cpu().numpy())
+
+    def _prefill_chunk_eager(self, state, tokens, start):
+        """The eager chunk path: the model projects the chunk, and the
+        attend callback writes the layer's K/V span into the pools, then
+        runs chunk-prefill attention over the sequence's page table (the
+        hand-written kernel on the card, its plain version on the CPU).
+        Returns the chunk's last-position logits on the device."""
+        seq_id = state.seq_id
+        n = len(tokens)
+        layout = self.cache.pool_layout
+        pt = torch.as_tensor(np.asarray(self.cache.page_table(seq_id),
+                                        np.int32), device=self.device)
+
+        def attend(layer, q, k_new, v_new):
+            self.cache.write_prefill_tokens(seq_id, start, layer, k_new,
+                                            v_new)
+            k_pool, v_pool = self.cache.layer_pools(layer)
+            k_scale, v_scale = self.cache.layer_scales(layer)
+            return chunk_prefill_attention(q, k_pool, v_pool, pt, start,
+                                           layout=layout, k_scale=k_scale,
+                                           v_scale=v_scale)
+
+        return self.model.prefill_chunk(np.asarray(tokens, np.int32), start,
+                                        attend)
+
+    def _register_prefix(self, state):
+        """Index the completed prompt's full pages for future matches (a
+        no-op with the prefix cache off).  At prefill COMPLETION, not
+        retire, so concurrent requests sharing the prompt alias it while
+        this sequence still decodes; only PROMPT tokens here, the decode
+        tail at retire (_register_decode_tail)."""
+        if self.prefix_cache_enabled:
+            self.metrics.count_prefix_registered(self.cache.register_prefix(
+                state.seq_id, state.tokens[:len(state.request.prompt)]))
+
+    def _register_decode_tail(self, state):
+        """At retire, extend the sequence's cached run over full pages of
+        GENERATED tokens too: a multi-turn client re-sending prompt +
+        answer + new text then hits into the answer.  register_prefix
+        clips to full pages and to the cache length, so the newest
+        sampled token (never written) is excluded."""
+        if self.prefix_cache_enabled and self.cache.has(state.seq_id):
+            self.metrics.count_prefix_registered(
+                self.cache.register_prefix(state.seq_id, state.tokens))
 
     # -------------------------- chunked prefill ----------------------
     def _prefill_chunk_step(self, state, n):
@@ -772,6 +929,7 @@ class GenerationEngine:
         self._prewarm_decode(state)
         if state.prefill_pos == len(state.tokens):
             state.prefilling = False
+            self._register_prefix(state)
             self._on_logits(state, logits_last.cpu().numpy())
         return True
 
@@ -903,6 +1061,12 @@ class GenerationEngine:
                 self.cache.reserve(s.seq_id, len(drafts))
             except OutOfPagesError:
                 continue
+            if self.prefix_cache_enabled:
+                # the draft span's COW guard, as the decode rows' in
+                # _reserve_decode_rows (reserve just privatized any shared
+                # tail page)
+                self.cache.check_span_writable(
+                    s.seq_id, int(positions[i]) + 1, len(drafts))
             spec_rows[i] = drafts
         tokens, desc_ids, spans = [], [], []  # spans: (first position, rows)
         for i, s in enumerate(decoding):
@@ -912,6 +1076,8 @@ class GenerationEngine:
             spans.append((int(positions[i]), 1 + len(drafts)))
             desc_ids.append(s.seq_id)
         for state, n, start in pack:
+            # the in-step scatter must never land in a shared page
+            self.cache.check_span_writable(state.seq_id, start, n)
             tokens += state.tokens[start:start + n]
             spans.append((start, n))
             desc_ids.append(state.seq_id)
@@ -942,6 +1108,7 @@ class GenerationEngine:
             self.metrics.count_chunk()
             if state.prefill_pos == len(state.tokens):
                 state.prefilling = False
+                self._register_prefix(state)
                 finishing.append((state, b + j))
         # samplers: every decode row, plus each chunk that just completed
         # its prompt (those logits ARE the first-token logits).  A
@@ -1094,13 +1261,18 @@ class GenerationEngine:
             dlens[i] = len(d)
         reserved = []   # rollback ledger: (seq_id, length before)
         for i, s in enumerate(decoding):
+            need = n_steps + int(dlens[i])
             try:
-                p0 = self.cache.reserve(s.seq_id, n_steps + int(dlens[i]))
+                p0 = self.cache.reserve(s.seq_id, need)
             except OutOfPagesError:
                 for sid, back in reserved:
                     self.cache.truncate(sid, back)
                 return None
             reserved.append((s.seq_id, p0))
+            if self.prefix_cache_enabled:
+                # the COW guard over the whole horizon (reserve just
+                # privatized any shared tail page)
+                self.cache.check_span_writable(s.seq_id, p0, need)
         pt, _ = self.cache.gather_block_tables([s.seq_id for s in decoding])
         ms, ns, ls = lp.max_stop_ids, lp.max_stop_seqs, lp.max_stop_len
         cur_tok = np.asarray([s.tokens[-1] for s in decoding], np.int32)
@@ -1248,9 +1420,14 @@ class GenerationEngine:
 
     def _reserve_decode_rows(self, active):
         """Reserve this step's token per decode sequence; returns (last
-        tokens, positions)."""
+        tokens, positions).  With the prefix cache on, each row's write
+        target is checked private (reserve just copied any shared tail
+        page): an in-step scatter must never land in a shared page."""
         positions = np.asarray(
             [self.cache.reserve(s.seq_id, 1) for s in active], np.int32)
+        if self.prefix_cache_enabled:
+            for s, pos in zip(active, positions):
+                self.cache.check_span_writable(s.seq_id, int(pos), 1)
         tokens = np.asarray([s.tokens[-1] for s in active], np.int32)
         return tokens, positions
 
@@ -1322,6 +1499,7 @@ class GenerationEngine:
             self._apply_token(state, int(token))
 
     def _finish(self, state, reason):
+        self._register_decode_tail(state)
         self.scheduler.retire(state)
         req = state.request
         state.handle._finish(GenerationResult(
@@ -1341,6 +1519,13 @@ class GenerationEngine:
         self.metrics.observe_occupancy(
             len(self.scheduler.active()), self.scheduler.num_slots,
             self.cache.utilization())
+        # the prefix cache's shared-page gauge and the cache's COW and
+        # eviction counters, drained like the byte counters
+        if self.prefix_cache_enabled:
+            cow, evictions = self.cache.take_prefix_counters()
+            self.metrics.count_cow(cow)
+            self.metrics.count_prefix_evictions(evictions)
+            self.metrics.observe_shared_pages(self.cache.shared_pages)
 
     # --------------------------- lifecycle --------------------------
     def start(self):

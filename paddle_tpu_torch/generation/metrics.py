@@ -52,6 +52,21 @@ same names):
 - ``generation.tokens_per_s``         gauge: decode throughput (EWMA)
 - ``generation.slot_occupancy_pct``   gauge: active / decode slots
 - ``generation.page_utilization_pct`` gauge: pool pages in use
+- ``generation.prefix_cache_hit_tokens``  prompt tokens served from the
+                                      prefix cache (aliased pages) at first
+                                      admission instead of prefilled
+- ``generation.prefix_cache_hit_rate``  gauge: cumulative hit tokens /
+                                      prompt tokens looked up (0..1)
+- ``generation.shared_pages``         gauge: physical pages aliased by
+                                      more than one page table now
+- ``generation.cow_copies``           copy-on-write page copies (first
+                                      divergent append into a shared page)
+- ``generation.prefix_evictions``     cached refcount-0 pages evicted to
+                                      the free list under pool pressure
+                                      (LRU, before any preemption)
+- ``generation.prefix_pages_registered``  pages newly indexed: prompt
+                                      pages at prefill completion, decode
+                                      tail pages at retire
 - ``generation.kernel_path``          gauge (string): ``"<mode>:cuda"`` or
                                       ``"<mode>:torch-reference"``, stamped
                                       at engine build
@@ -136,6 +151,12 @@ SPEC_ACCEPTED_TOKENS = PREFIX + "spec_accepted_tokens"
 SPEC_ACCEPTANCE_RATE = PREFIX + "spec_acceptance_rate"
 SPEC_REWIND_TOKENS = PREFIX + "spec_rewind_tokens"
 SPEC_DRAFT_ROWS = PREFIX + "spec_draft_rows"
+PREFIX_CACHE_HIT_TOKENS = PREFIX + "prefix_cache_hit_tokens"
+PREFIX_CACHE_HIT_RATE = PREFIX + "prefix_cache_hit_rate"
+SHARED_PAGES = PREFIX + "shared_pages"
+COW_COPIES = PREFIX + "cow_copies"
+PREFIX_EVICTIONS = PREFIX + "prefix_evictions"
+PREFIX_PAGES_REGISTERED = PREFIX + "prefix_pages_registered"
 LOOP_STEPS = PREFIX + "loop_steps"
 DECODE_HOST_FETCHES_PER_TOKEN = PREFIX + "decode_host_fetches_per_token"
 LOOP_EARLY_EXITS = PREFIX + "loop_early_exits"
@@ -156,6 +177,8 @@ class GenerationMetrics:
         self._spec_accepted_cum = 0
         self._loop_fetch_cum = 0
         self._loop_token_cum = 0
+        self._prefix_hit_cum = 0
+        self._prefix_lookup_cum = 0
 
     def _stat(self, name):
         return self._reg.get_stat(name)
@@ -194,6 +217,40 @@ class GenerationMetrics:
     def count_chunk(self):
         """One prefill chunk packed into a step."""
         self._stat(PREFILL_CHUNKS_TOTAL).increase()
+
+    # --- prefix cache ---
+    def count_prefix_lookup(self, hit_tokens, prompt_tokens):
+        """One first-admission prefix lookup over `prompt_tokens` tokens,
+        `hit_tokens` of them served by aliased pages (0: cold); keeps the
+        cumulative hit-rate gauge."""
+        if hit_tokens:
+            self._stat(PREFIX_CACHE_HIT_TOKENS).increase(int(hit_tokens))
+        self._prefix_hit_cum += int(hit_tokens)
+        self._prefix_lookup_cum += int(prompt_tokens)
+        if self._prefix_lookup_cum:
+            self._stat(PREFIX_CACHE_HIT_RATE).set(
+                round(self._prefix_hit_cum / self._prefix_lookup_cum, 3))
+
+    def observe_shared_pages(self, n):
+        """Gauge: physical pages aliased by more than one page table."""
+        self._stat(SHARED_PAGES).set(int(n))
+
+    def count_cow(self, n=1):
+        # touch the stat even at 0 so every snapshot carries the key
+        stat = self._stat(COW_COPIES)
+        if n:
+            stat.increase(int(n))
+
+    def count_prefix_evictions(self, n=1):
+        stat = self._stat(PREFIX_EVICTIONS)
+        if n:
+            stat.increase(int(n))
+
+    def count_prefix_registered(self, n):
+        """Pages newly indexed into the prefix trie."""
+        stat = self._stat(PREFIX_PAGES_REGISTERED)
+        if n:
+            stat.increase(int(n))
 
     # --- signature cache (SignatureCache metrics interface via the
     # DecodeCacheMetrics adapter below) ---

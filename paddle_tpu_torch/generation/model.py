@@ -20,7 +20,10 @@ Forward paths over the SAME weights:
 - `prefill_chunk_fn(...)` — one legacy prefill chunk of one sequence,
   chunk-prefill attention;
 - `decode(tokens, positions, attend)` — the eager decode step, with the
-  engine's attend callback writing and reading the pools per layer.
+  engine's attend callback writing and reading the pools per layer;
+- `prefill_chunk(tokens, start, attend)` — one eager prefill chunk of one
+  sequence through the same kind of callback (a warm one-shot prefill's
+  suffix).
 
 With ``kv_quant=True`` the three step functions serve int8 pools: the
 per-layer ``[P + 1, H]`` scale arrays ride the state chain right after the
@@ -333,6 +336,33 @@ class TinyCausalLM(nn.Module):
             x = x + self._mlp(blk, _layer_norm(x, blk["ln2_s"],
                                                blk["ln2_b"]))
         return self._logits(params, x)
+
+    # -------------------------- eager chunk -----------------------------
+    @torch.no_grad()
+    def prefill_chunk(self, tokens, start, attend):
+        """One prefill CHUNK on the eager path (mirrors `decode`): tokens
+        [n] host ints are the prompt slice at positions ``start .. start +
+        n - 1``.  Per layer, ``attend(layer, q, k, v)`` (each [n, H, D])
+        writes the chunk's K/V into the engine-owned pools and returns
+        causal attention over prefix and chunk [n, H, D].  Returns the
+        chunk's LAST position logits [V] on the weights' device: for the
+        final chunk, the next-token logits, as `prefill` gives them.  The
+        engine's warm one-shot prefill resumes mid-prompt through it."""
+        params = self.decode_params()
+        dev = params["tok_emb"].device
+        tok = torch.as_tensor(np.asarray(tokens), dtype=torch.long,
+                              device=dev)
+        n = tok.shape[0]
+        x = self._embed(params, tok,
+                        int(start) + torch.arange(n, device=dev))
+        for li, blk in enumerate(params["blocks"]):
+            hn = _layer_norm(x, blk["ln1_s"], blk["ln1_b"])
+            q, k, v = self._qkv(blk, hn)
+            attn = attend(li, q, k, v)
+            x = x + attn.reshape(n, self.d_model) @ blk["wo"]
+            x = x + self._mlp(blk, _layer_norm(x, blk["ln2_s"],
+                                               blk["ln2_b"]))
+        return self._logits(params, x[n - 1:n])[0]
 
     # -------------------------- fused decode --------------------------
     def decode_step_fn(self, page_size, num_pages, pool_layout="token",

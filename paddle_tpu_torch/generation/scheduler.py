@@ -12,7 +12,9 @@ Preemption is recompute-style: the victim's pages return to the pool and
 its tokens-so-far become a new prefill when capacity returns.  Sampling
 state is per request (a seeded counter stream), so a preempted sequence
 resumes token-identically — preemption changes WHEN tokens are computed,
-never WHICH.
+never WHICH.  With the prefix cache on, admission aliases the longest
+cached page run of a sequence's tokens and its prefill resumes after it,
+so a preempted sequence whose prompt pages stayed cached resumes warm.
 """
 import collections
 import math
@@ -78,13 +80,18 @@ class ContinuousBatchingScheduler:
     decode_ready() -> the decode batch, retire()/preempt_youngest() on
     exit paths."""
 
-    def __init__(self, cache, num_slots=8, queue_depth=64, metrics=None):
+    def __init__(self, cache, num_slots=8, queue_depth=64, metrics=None,
+                 prefix_cache=False):
         if num_slots < 1:
             raise ValueError(f"num_slots must be >= 1, got {num_slots}")
         self.cache = cache
         self.num_slots = int(num_slots)
         self.queue = AdmissionQueue(queue_depth, metrics=metrics)
         self._metrics = metrics
+        # prefix caching: admission aliases the longest cached page run of
+        # every placed sequence (the engine sets this once it has resolved
+        # its policy: a warm hit resumes prefill mid-prompt)
+        self.prefix_cache = bool(prefix_cache)
         self.slots = [None] * self.num_slots
         # polled-but-not-yet-placed work: new requests waiting for pages,
         # and preempted SequenceStates waiting to re-prefill (these take
@@ -210,7 +217,18 @@ class ContinuousBatchingScheduler:
         """Move work into free slots while pages allow; returns the newly
         placed SequenceStates.  Head-of-line on capacity: admission stops
         at the first item that doesn't fit, preserving arrival order.
-        `limit` caps admissions per call."""
+        `limit` caps admissions per call.
+
+        With the prefix cache on, each placement first looks up the
+        longest cached page run of the sequence's tokens and ALIASES it
+        (adopt_prefix: zero bytes moved, prefill_pos advanced past the
+        match), so the page need charges only the suffix, plus one
+        copy-on-write page when the match was clipped mid-page.  The gate
+        compares against available_pages (free + evictable cached runs)
+        less the match's own evictable pages, which adoption pins: they
+        cannot count both as aliased for free and as evictable.  A
+        preempted sequence re-matches its own run on re-admission; only
+        first admissions count as lookups."""
         admitted = []
         committed = 0  # pages promised to THIS call's earlier admits
         while self.free_slots() > 0 and (limit is None
@@ -228,10 +246,22 @@ class ContinuousBatchingScheduler:
                 if self._metrics is not None:
                     self._metrics.count_rejected_deadline()
                 continue
-            tokens = len(state.tokens if state else req.prompt)
-            # +1: room for the first decode append after prefill
-            need = self._pages_for(tokens + 1)
-            if need > self.cache.available_pages - committed \
+            readmitted = state is not None
+            token_list = state.tokens if state else req.prompt
+            tokens = len(token_list)
+            match_pages, match_tokens = (), 0
+            if self.prefix_cache:
+                match_pages, match_tokens = self.cache.match_prefix(
+                    token_list)
+            # +1: room for the first decode append after prefill; aliased
+            # pages are free of charge, a clipped match owes its tail
+            # page's copy-on-write
+            need = self._pages_for(tokens + 1) - len(match_pages)
+            if match_tokens % self.cache.page_size:
+                need += 1
+            avail = (self.cache.available_pages
+                     - self.cache.evictable_pages_in(match_pages))
+            if need > avail - committed \
                     and (self.active() or self._pending or admitted):
                 # not enough pages now, but retiring sequences will free
                 # some — wait in line rather than rejecting
@@ -242,6 +272,21 @@ class ContinuousBatchingScheduler:
                 state = SequenceState(self._next_seq, req)
                 self._next_seq += 1
             self.cache.allocate(state.seq_id)
+            if match_tokens:
+                # same-step adoption: the incref pins the matched pages
+                # before any later reserve could evict them
+                self.cache.adopt_prefix(state.seq_id, match_pages,
+                                        match_tokens)
+                state.prefill_pos = match_tokens
+            handle = state.handle
+            if getattr(handle, "prefix_hit_tokens", 0) is None:
+                # the first admission stamps the handle
+                handle.prefix_hit_tokens = match_tokens
+            if self.prefix_cache and self._metrics is not None \
+                    and not readmitted:
+                # hits measure sharing ACROSS requests: a re-admission
+                # re-matching its own run would inflate the rate
+                self._metrics.count_prefix_lookup(match_tokens, tokens)
             self._place(state)
             admitted.append(state)
         return admitted
@@ -259,7 +304,7 @@ class ContinuousBatchingScheduler:
     def preempt(self, state):
         """Recompute-preempt: free pages + slot, queue for re-prefill at
         the FRONT of the pending line.  The victim restarts its prefill
-        from position 0."""
+        from position 0, or past its cached run on a prefix hit."""
         self.retire(state)
         state.preemptions += 1
         state.prefilling = True

@@ -771,3 +771,61 @@ def test_captured_loop_replay_equals_eager_on_card(kv_dtype):
         assert torch.equal(a, b)
     assert lp.replays == replays + 1 and lp.captures >= 1
     eng.shutdown()
+
+
+@pytest.mark.parametrize("layout", ["token", "kernel"])
+@pytest.mark.parametrize("kv_dtype", ["float32", "bfloat16", "int8"])
+def test_prefix_page_copy_export_import_on_card(kv_dtype, layout):
+    """The prefix cache's device work on a CUDA pool against the same
+    operations on a CPU pool: a prefill, its registration, a clipped
+    adoption whose next reserve copies the tail page on write (bytes and
+    int8 scale rows), the export of the run, and its import into a fresh
+    card pool of the other layout — the bookkeeping equal, and every
+    pool byte, scale and payload bitwise equal to the CPU's.  The copy
+    and the import write the pools in place (same addresses)."""
+    _need_card()
+    dtype = pgen.engine._kv_dtype(kv_dtype)
+    rng = np.random.default_rng(0)
+    prompt = [3, 1, 4, 1, 5, 9, 2, 6, 5, 3, 5, 8]
+    k = torch.as_tensor(rng.standard_normal((1, 2, 12, 2, 8)),
+                        dtype=torch.float32)
+    v = torch.as_tensor(rng.standard_normal((1, 2, 12, 2, 8)),
+                        dtype=torch.float32)
+    runs = {}
+    for device in ("cpu", "cuda"):
+        pool = pgen.DeviceKVPool(2, 2, 8, num_pages=16, page_size=4,
+                                 dtype=dtype, pool_layout=layout,
+                                 device=device)
+        ptrs = [t.data_ptr() for t in pool.take_pool_state()]
+        pool.allocate("donor")
+        pool.reserve("donor", 12)
+        pool.write_prefill_batch(["donor"], [0], [12], k.to(device),
+                                 v.to(device))
+        assert pool.register_prefix("donor", prompt) == 3
+        pages, m = pool.match_prefix(prompt)
+        pool.allocate("warm")
+        pool.adopt_prefix("warm", pages, m)
+        pool.reserve("warm", 1)                  # the copy on write
+        payload = pool.export_pages(pages)
+        other = pgen.DeviceKVPool(
+            2, 2, 8, num_pages=16, page_size=4, dtype=dtype,
+            pool_layout="token" if layout == "kernel" else "kernel",
+            device=device)
+        imported = other.import_pages(*payload)
+        assert [t.data_ptr() for t in pool.take_pool_state()] == ptrs
+        runs[device] = dict(
+            tables=(pool.page_table("warm"), imported), pool=pool,
+            other=other, payload=payload,
+            back=other.export_pages(imported),
+            counters=pool.take_prefix_counters())
+    cpu, card = runs["cpu"], runs["cuda"]
+    assert card["tables"] == cpu["tables"]
+    assert card["counters"] == cpu["counters"] == (1, 0)
+    for a, b in zip(card["payload"] + card["back"],
+                    cpu["payload"] + cpu["back"]):
+        assert a.device.type == "cpu" and torch.equal(a, b)
+    for name in ("k_pool", "v_pool") + (("k_scale", "v_scale")
+                                        if kv_dtype == "int8" else ()):
+        for key in ("pool", "other"):
+            np.testing.assert_array_equal(getattr(card[key], name),
+                                          getattr(cpu[key], name))

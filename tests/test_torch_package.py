@@ -118,14 +118,34 @@ def test_training_entry_points_default_to_the_card(build):
         build()
 
 
-@pytest.mark.parametrize("setting", [
-    dict(prefix_cache=True), dict(mesh=object()),
-    dict(prefix_cache=True, spec_mode="ngram", loop_steps=4)])
+@pytest.mark.parametrize("setting", [dict(mesh=object())])
 def test_unported_settings_raise_at_build(setting):
     cfg = pgen.GenerationConfig(device="cpu", **setting)
     with pytest.raises(NotImplementedError, match="not supported"):
         pgen.GenerationEngine(pgen.TinyCausalLM(device="cpu"), cfg,
                               start=False)
+
+
+@pytest.mark.parametrize("setting", [
+    dict(prefix_cache=True),
+    dict(prefix_cache=True, spec_mode="ngram", loop_steps=4)],
+    ids=["prefix", "prefix_spec_loop"])
+def test_prefix_cache_settings_build_on_cpu(setting):
+    """Prefix caching is ported: the engine builds on the CPU, and a
+    second request with the first's prompt plus a token hits its cached
+    pages and serves the oracle's stream (alone and with speculation and
+    the host-free loop)."""
+    model = pgen.TinyCausalLM(device="cpu")
+    eng = pgen.GenerationEngine(model, pgen.GenerationConfig(
+        device="cpu", num_pages=32, page_size=4, **setting), start=False)
+    assert eng.prefix_cache_enabled
+    prompt = [1, 2, 3, 1, 2, 3, 1, 2]
+    for p, hit in ((prompt, 0), (prompt + [4], 8)):
+        h = eng.submit(p, max_new_tokens=6)
+        eng.run_until_idle()
+        assert h.result(timeout=5).token_ids == model.greedy_reference(p, 6)
+        assert h.prefix_hit_tokens == hit
+    eng.shutdown()
 
 
 @pytest.mark.parametrize("setting", [
