@@ -35,9 +35,12 @@ carries on:
    on the card, as chunked prefill is, and off on the CPU: phase 7's two
    requests that resend phase 3's first two prompts hit the cache on the
    card, so its holds there are warm runs against cold ones);
-4. the same engine, weights and prompts on the CPU (the kernels' plain
+4. the same engine, weights and prompts cut to 2 layers, on the card
+   (ragged launches = 2 x steps) and on the CPU (the kernels' plain
    versions): first-token logits within 1e-3, greedy streams identical
-   or diverging only at a near tie (CPU top-2 logit gap < 1e-4);
+   or diverging only at a near tie (CPU top-2 logit gap < 1e-4); the
+   card-vs-CPU runs of phases 6 (b), 7 (a) and 12 run at that cut depth
+   too, since a CPU run of their traffic at full depth takes minutes;
 5. the legacy step at the same width and traffic (fused decode, chunked
    prefill of 64): on the card, the decode and chunk kernels' launches
    must equal num_layers x their step calls; then on the CPU, held to
@@ -46,10 +49,11 @@ carries on:
 6. int8 KV pools at GPT-2-small width, the same model, pool (512 pages
    of 16) and traffic with ``kv_dtype="int8"``: (a) the ragged step on
    the card, the int8 ragged kernel's launches equal to num_layers x
-   steps and no float launch; (b) the same on the CPU, held to phase 4's
-   rule with int8's bounds (first-token logits within 3e-2, near ties
-   below 6e-2: a K/V value that differs in its last bits between the
-   devices may quantize one step apart); (c) the legacy step on the card,
+   steps and no float launch; (b) int8 at 2 layers on the card and the
+   CPU, held to phase 4's rule with int8's bounds (first-token logits
+   within 3e-2, near ties below 6e-2: a K/V value that differs in its
+   last bits between the devices may quantize one step apart); (c) the
+   legacy step on the card,
    the int8 decode and chunk kernels' launches equal to num_layers x
    their calls, held to (a) by the same rule; printed, not gated: greedy
    agreement and first-token logit drift against phase 3's float32 run,
@@ -66,15 +70,16 @@ carries on:
    can grow its page's scale, so int8 spec against spec off is printed,
    not gated, as the JAX package pins rather than guarantees it);
    (a) speculation accepts and rewinds drafts, and on a subset of the
-   traffic spec-on card vs CPU holds by the same rules (the CPU engine
-   with the prefix cache on, as the card's resolves); (b) the loop
+   traffic spec-on card vs CPU at 2 layers holds by the same rules (the
+   CPU engine with the prefix cache on, as the card's resolves); (b)
+   the loop
    fetches at most once per N tokens on its path; (c) per dtype one
    captured loop's replay equals the eager loop bitwise (output and
    pools, the sink page aside); (d) the device sampler on the card
    against the host sampler over seeded [8, 50304] logits across the
    sampling menu: at most 1 row in 1000 sampling another token, the
    counters equal; (e) is in phase 2 (the verify and loop shapes) and
-   (f) in phase 13;
+   (f) in phase 14;
 8. training at GPT-2-small width (the JAX package's ``bench_gpt_zero``
    configuration: vocab 50257, 12 layers of 768, 12 heads, 512
    positions, flash attention, AdamW lr 1e-4, bf16 amp): at dropout 0,
@@ -165,7 +170,39 @@ carries on:
    engine whose request 0 then prefills only its suffix and is held to
    (a)'s by phase 4's rule, and an int8 payload refused by a float32
    engine;
-13. numbers: each kernel's and its plain version's times at its main
+13. the serving fleet at GPT-2-small width (phase 12's model and replica:
+   512 pages of 16, 8 slots, chunks of 64, the prefix cache on; the
+   traffic: the 7 requests sharing the 512-token system prompt and a
+   two-turn conversation, 32 new tokens each, 6 greedy and 3 seeded
+   stochastic), every stream held by phase 4's rule to one cold card
+   engine on the same traffic (turn 2 where both runs' turn-1 answers
+   agree): (a) two in-process replicas on affinity routing with worker
+   threads: the shared prompts routed by the prefix rung (at least 6),
+   turn 2 by the session rung to turn 1's replica; ragged launches =
+   num_layers x the replicas' steps, as in every in-process run below;
+   a one-replica fleet beside it, and phase 3's 8 requests on one and
+   on two replicas; (b) a drain in mid-decode of stepped replicas: live
+   (``fleet.live_migrated_total`` >= 1, ``migrated_replay_tokens`` 0,
+   each migrated sequence's pages exported again on the importer
+   bitwise the snapshot's), then cold (``live_migration=False``: more
+   than 0 replayed tokens); (c) one ``role="prefill"`` and one
+   ``role="decode"`` replica: ``fleet.pd_handoffs`` = the requests, the
+   prefill replica samples one token per request; (d) two replicas with
+   ``loop_steps=4`` stepping at once on their worker threads, a loop
+   captured while the sibling completes steps, held by phase 7's rule
+   to (a)'s fleet, and one captured replay bitwise the eager loop; (e)
+   a ``transport="proc"`` and a ``transport="tcp"`` replica, child
+   processes on the card: the system prompt warm on one, a request on
+   the other adopting it peer to peer at ``page_codec="compressed"``
+   (``fleet.pages_adopted`` >= 32, ``page_relay_bytes`` 0, only the
+   suffix prefilled); a SIGKILL of one child in mid-stream, its streams
+   completed on the other (``replica_dead_total`` 1); then
+   ``FleetSupervisor.tick`` brings it back and it serves a request; (f)
+   an int8 replica beside a float32 one: float32 pages refused by the
+   int8 replica (``import_prefix_pages`` 0, no page adopted), its
+   request a cold prefill held to one int8 engine by phase 6's near-tie
+   bound;
+14. numbers: each kernel's and its plain version's times at its main
    path's shape beside its bound (the paged kernels on float32, int8
    and bfloat16 pools, each with its live and launched blocks (from the
    host mirrors of its items) and its counters' zero-fill alone; the
@@ -198,7 +235,13 @@ carries on:
    time to first token of the seven warm requests, prefill tokens,
    tokens/s and peak pages in use, cold against warm, and the device
    time of one copy on write and of one 32-page export and import;
-14. the result line.
+   phase 13's requests by routing rung, the warm requests' time to first
+   token on one replica and on the fleet, tokens/s of one and of two
+   in-process replicas, the wall time and bytes of one live migration,
+   the peer-to-peer wire bytes against raw and the transfer's wall, the
+   handoff latency, spawn to ``describe`` of a proc and a tcp child, and
+   the longest step of an in-process replica;
+15. the result line.
 
 Each phase prints its wall seconds.
 
@@ -259,11 +302,22 @@ LOOP_PREWARM = (16, 32, 64)
 # stochastic requests; the counters a run reads, set to 0 before it
 PREFIX_SYSTEM, PREFIX_SHARED = 512, 7
 PREFIX_ENGINE = dict(prefill_chunk_tokens=64)
-PREFIX_HELD_LAYERS = 2     # the card-vs-CPU runs' depth
+# the card-vs-CPU runs' depth (phases 4, 6 (b), 7 (a) and 12): the same
+# widths, weights and traffic on the card and on the CPU, cut to 2 layers,
+# since a CPU run of the traffic at full depth takes minutes on a
+# contended host (phases 4 and 6 at 12 layers: 116 and 124 s on the CPU
+# of an NVIDIA H100 80GB HBM3 host)
+HELD_LAYERS = 2
 PREFIX_STOCHASTIC = (1, 3, 5, 7, 10)
 PREFIX_COUNTERS = ("prefix_cache_hit_tokens", "prefix_pages_registered",
                    "cow_copies", "prefix_evictions", "prefill_tokens_total",
                    "preempted_total")
+# the serving fleet (phase 13): phase 12's replica (pool, chunks, the
+# prefix cache on) and traffic cut to the 7 shared requests and the two
+# conversation turns; the seeded stochastic requests (6 of 9 greedy); the
+# loop replicas' N
+FLEET_STOCHASTIC = (1, 3, 5)
+FLEET_LOOP = 4
 # the device sampler against the host sampler over [8, vocab] logits:
 # rows sampled, and the most that may differ (a draw within ULPs of a
 # CDF boundary, where the reductions' order decides)
@@ -902,6 +956,16 @@ def traffic(rng):
     return prompts
 
 
+def held_models(pgen):
+    """The card-vs-CPU runs' models: MODEL's widths and seed at
+    HELD_LAYERS layers, on the card and (the same weights) on the CPU."""
+    card = pgen.TinyCausalLM(**{**MODEL, "num_layers": HELD_LAYERS})
+    cpu = pgen.TinyCausalLM.from_numpy_params(
+        card.decode_params("cpu"), num_heads=MODEL["num_heads"],
+        seed=MODEL["seed"], device="cpu")
+    return card, cpu
+
+
 def serve(pgen, model, prompts, device, settings=None, max_new=MAX_NEW,
           stochastic=STOCHASTIC, extras=None):
     """Serve the traffic on one engine; returns the engine, the handles,
@@ -1281,11 +1345,12 @@ def phase_legacy(pgen, model, cpu_model, prompts, ragged_gpu):
     return gpu, one
 
 
-def phase_int8(pgen, model, cpu_model, prompts, gpu_f32):
+def phase_int8(pgen, model, cpu_model, prompts, gpu_f32, held):
     """int8 pools at GPT-2-small width: (a) the ragged step on the card,
-    (b) on the CPU held to phase 4's rule, (c) the legacy step on the card
-    held to (a); then, not gated, the int8 card run against the float32
-    one.  Returns the card's ragged and legacy runs."""
+    (b) on the card and the CPU at HELD_LAYERS layers (`held`: the two
+    models) held to phase 4's rule, (c) the legacy step on the card held
+    to (a); then, not gated, the int8 card run against the float32 one.
+    Returns the card's ragged and legacy runs."""
     n_layers = MODEL["num_layers"]
 
     def full_length(label, run):
@@ -1306,12 +1371,18 @@ def phase_int8(pgen, model, cpu_model, prompts, gpu_f32):
     if gpu["launches"] != want or gpu["launches"] == 0:
         fail(f"int8 ragged kernel launched {gpu['launches']} times, want "
              f"{want}")
-    log("  (b) the same int8 engine on the CPU (plain versions)")
-    cpu = run_engine(pgen, model, prompts, "cpu", INT8)
+    log(f"  (b) the int8 engine on the card and on the CPU (plain "
+        f"versions) at {HELD_LAYERS} layers")
+    card = run_engine(pgen, held[0], prompts, "cuda", INT8)
+    if card["launches"] != HELD_LAYERS * card["steps"] \
+            or not card["launches"]:
+        fail(f"int8 ragged kernel launched {card['launches']} times at "
+             f"{HELD_LAYERS} layers, want {HELD_LAYERS} x {card['steps']}")
+    cpu = run_engine(pgen, held[1], prompts, "cpu", INT8)
     if any(cpu["all_launches"].values()):
         fail("the CPU int8 engine launched a CUDA kernel")
-    worst = hold_ragged("int8 card vs CPU", gpu, cpu, prompts,
-                        INT8_LOGIT_TOL, INT8_NEAR_TIE)
+    worst = hold_ragged(f"int8 card vs CPU, {HELD_LAYERS} layers", card,
+                        cpu, prompts, INT8_LOGIT_TOL, INT8_NEAR_TIE)
     log("  (c) the int8 legacy step on the card")
     legacy = run_engine(pgen, model, prompts, "cuda", {**LEGACY, **INT8})
     full_length("int8 legacy", legacy)
@@ -1527,7 +1598,7 @@ def check_serving_run(label, run, extras):
                  f" host fetches per token on the loop path, want <= 1/{n}")
 
 
-def phase_serving(pgen, model, cpu_model, prompts, base):
+def phase_serving(pgen, model, cpu_model, prompts, base, held):
     """Phase 7: speculation (K=4) and the host-free decode loop (N = 4,
     8) at GPT-2-small width on float32 and int8 pools, with phase 3's
     engine and weights over `serving_traffic`: every spec x N x dtype
@@ -1540,8 +1611,9 @@ def phase_serving(pgen, model, cpu_model, prompts, base):
     as in the JAX package: spec on against off is printed, not gated);
     (a) speculation accepts and rewinds drafts, and a
     subset of the traffic (prompts 0-2, the repeated span, the two stop
-    requests) with speculation on is held card vs CPU, the CPU on the
-    card's warm path; (b) the loop
+    requests) with speculation on is held card vs CPU at HELD_LAYERS
+    layers (`held`: the two models), the CPU on the card's warm path;
+    (b) the loop
     fetches at most once per N tokens on its path; (c) one captured
     loop bitwise against the eager loop, per dtype.  Returns the runs
     by (dtype, spec, N), each with its profiled second pass."""
@@ -1574,13 +1646,13 @@ def phase_serving(pgen, model, cpu_model, prompts, base):
         near_tie = INT8_NEAR_TIE if int8 else NEAR_TIE
         off = runs[(kv_dtype, False, 1)]
 
-        def gap_in(ref, prompts_, i, k):
+        def gap_in(ref, prompts_, i, k, recompute=cpu_model):
             """The top-2 gap where `ref` sampled request i's token k, or,
             where a draft or a loop call produced it, the CPU full
-            recompute's."""
+            recompute's (on `recompute`, the model of `ref`'s depth)."""
             row = logits_at(ref, i, k, len(prompts_[i]), required=False)
             if row is None:
-                return top2_gap(cpu_model, list(prompts_[i])
+                return top2_gap(recompute, list(prompts_[i])
                                 + ref["results"][i].token_ids[:k])
             top2 = np.sort(row)[-2:]
             return float(top2[1] - top2[0])
@@ -1632,13 +1704,13 @@ def phase_serving(pgen, model, cpu_model, prompts, base):
         # the subset's requests sample as they do in the whole traffic
         sub_stoch = tuple(j for j, i in enumerate(keep) if i in STOCHASTIC)
         settings = serving_settings(kv_dtype, True, 1)
-        card = run_engine(pgen, model, sub, "cuda", settings,
+        card = run_engine(pgen, held[0], sub, "cuda", settings,
                           stochastic=sub_stoch, extras=sub_extras)
         # the CPU serves the path the card resolved to (an unset
         # prefix_cache is on on the card): the subset resends prompt 0,
         # and an int8 page's values depend on its write history, which a
         # warm hit changes (phase 12 holds warm against cold)
-        cpu = run_engine(pgen, cpu_model, sub, "cpu",
+        cpu = run_engine(pgen, held[1], sub, "cpu",
                          dict(settings, prefix_cache=True),
                          stochastic=sub_stoch, extras=sub_extras)
         if any(cpu["all_launches"].values()):
@@ -1653,11 +1725,12 @@ def phase_serving(pgen, model, cpu_model, prompts, base):
                 fail(f"{kv_dtype} spec card vs CPU request {j}: first-token "
                      f"logits differ by {diff:.3e} > {tol}")
         _, same = hold_to_rule(
-            f"(a) {kv_dtype} spec on card vs CPU", card, cpu, sub, cpu_model,
+            f"(a) {kv_dtype} spec on card vs CPU", card, cpu, sub, held[1],
             sub_stoch, logits=False,
-            gap_of=lambda j, k: gap_in(cpu, sub, j, k), near_tie=near_tie,
-            quiet=True)
-        log(f"  (a) {kv_dtype} spec on, card vs CPU over {len(sub)} "
+            gap_of=lambda j, k: gap_in(cpu, sub, j, k, held[1]),
+            near_tie=near_tie, quiet=True)
+        log(f"  (a) {kv_dtype} spec on, card vs CPU at {HELD_LAYERS} "
+            f"layers over {len(sub)} "
             f"requests: first-token logits max|diff| {worst:.3e}; {same} of "
             f"{len(sub)} streams identical; CPU accepted "
             f"{cpu['stats']['generation.spec_accepted_tokens']} drafts")
@@ -1985,24 +2058,18 @@ def phase_prefix(pgen, model, cpu_model):
     cache; (f) the page service.  Returns the runs and the payloads."""
     n_layers = MODEL["num_layers"]
     runs = {}
-    # card against CPU at a cut depth: a CPU run of this traffic at full
-    # depth takes minutes
-    held = {**MODEL, "num_layers": PREFIX_HELD_LAYERS}
-    held_card = pgen.TinyCausalLM(**held)
-    held_cpu = pgen.TinyCausalLM.from_numpy_params(
-        held_card.decode_params("cpu"), num_heads=MODEL["num_heads"],
-        seed=MODEL["seed"], device="cpu")
+    held_card, held_cpu = held_models(pgen)
 
     def card_vs_cpu(label, settings, tol, near_tie):
         """The warm run at the cut depth on the card and on the CPU: the
         same hits and counters, streams by phase 4's rule."""
         card = prefix_serve(pgen, held_card, "cuda", settings)
         cpu = prefix_serve(pgen, held_cpu, "cpu", settings)
-        check_prefix_ragged(f"{label} card, {PREFIX_HELD_LAYERS} layers",
-                            card, PREFIX_HELD_LAYERS)
-        check_prefix_warm(f"{label} card, {PREFIX_HELD_LAYERS} layers",
+        check_prefix_ragged(f"{label} card, {HELD_LAYERS} layers",
+                            card, HELD_LAYERS)
+        check_prefix_warm(f"{label} card, {HELD_LAYERS} layers",
                           card, None)
-        check_prefix_warm(f"{label} CPU, {PREFIX_HELD_LAYERS} layers", cpu,
+        check_prefix_warm(f"{label} CPU, {HELD_LAYERS} layers", cpu,
                           None)
         if any(cpu["launches"].values()):
             fail("the CPU prefix engine launched a CUDA kernel")
@@ -2011,12 +2078,12 @@ def phase_prefix(pgen, model, cpu_model):
             fail(f"{label}: card counters {prefix_counters(card)} (peak "
                  f"shared {card['peak_shared']}) != CPU "
                  f"{prefix_counters(cpu)} ({cpu['peak_shared']})")
-        hold_prefix(f"{label} card vs CPU, {PREFIX_HELD_LAYERS} layers",
+        hold_prefix(f"{label} card vs CPU, {HELD_LAYERS} layers",
                     card, cpu, held_cpu, tol, near_tie)
         return card, cpu
 
     log(f"  (a) the ragged step: cold and warm on the card; warm on the "
-        f"card and the CPU at {PREFIX_HELD_LAYERS} layers")
+        f"card and the CPU at {HELD_LAYERS} layers")
     cold = runs["cold"] = prefix_serve(pgen, model, "cuda",
                                        dict(prefix_cache=False))
     warm = runs["warm"] = prefix_serve(pgen, model, "cuda",
@@ -2070,7 +2137,7 @@ def phase_prefix(pgen, model, cpu_model):
     runs["one_shot"] = one
 
     log(f"  (d) int8 pools: cold and warm on the card; warm on the card "
-        f"and the CPU at {PREFIX_HELD_LAYERS} layers")
+        f"and the CPU at {HELD_LAYERS} layers")
     q = {}
     q["cold"] = prefix_serve(pgen, model, "cuda",
                              dict(INT8, prefix_cache=False))
@@ -2349,6 +2416,726 @@ def serving_numbers(card, runs):
         else:
             log("    torch.profiler recorded no device time: device idle "
                 "share not measured")
+
+
+# ------------------------------ the serving fleet ----------------------------
+
+
+def reset_fleet_stats():
+    """Zero the process's fleet.* counters: every FleetRouter of this
+    process counts into them, so each fleet run starts from 0."""
+    from paddle_tpu_torch.profiler.monitor import StatRegistry
+    from paddle_tpu_torch.serving import fleet as fleet_mod
+
+    reg = StatRegistry.instance()
+    for name in list(reg.stats()):
+        if name.startswith(fleet_mod.PREFIX):
+            reg.get_stat(name).reset()
+
+
+def fleet_stat(name):
+    from paddle_tpu_torch.profiler.monitor import StatRegistry
+    from paddle_tpu_torch.serving import fleet as fleet_mod
+
+    return StatRegistry.instance().get_stat(fleet_mod.PREFIX + name).get()
+
+
+def replica_stat(fl, name, stat):
+    """One generation.* counter of an in-process replica (0 untouched)."""
+    return fl._replicas[name].engine.metrics.snapshot().get(
+        "generation." + stat, 0)
+
+
+def on_device(fn):
+    """``(fn(), wall seconds, device ms)``: the device time between CUDA
+    events around the call on the current stream (None off the card)."""
+    cuda = torch.cuda.is_available()
+    if cuda:
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.synchronize()
+        e0.record()
+    t0 = time.perf_counter()
+    out = fn()
+    if not cuda:
+        return out, time.perf_counter() - t0, None
+    e1.record()
+    e1.synchronize()
+    return out, time.perf_counter() - t0, e0.elapsed_time(e1)
+
+
+def fleet_traffic():
+    """Phase 13's prompts: phase 12's 7 requests sharing the 512-token
+    system prompt and the conversation's first turn (turn 2 comes later,
+    with that run's own answer).  Returns (wave, system, turn 2's new
+    tokens)."""
+    prompts, system, new2 = prefix_traffic()
+    return prompts[:PREFIX_SHARED] + [prompts[-1]], system, new2
+
+
+def fleet_sampling(pgen, i):
+    return (pgen.SamplingParams(temperature=0.8, top_k=50, top_p=0.95,
+                                seed=300 + i)
+            if i in FLEET_STOCHASTIC else pgen.SamplingParams())
+
+
+def fleet_config(pgen, **kw):
+    return pgen.GenerationConfig(
+        **{**ENGINE, **PREFIX_ENGINE, "prefix_cache": True, **kw})
+
+
+def fleet_oracle(pgen, model, settings=None, wave=None):
+    """The traffic on ONE cold card engine: the wave together, then turn
+    2 (turn 1's prompt, its answer and 24 new tokens) when `wave` is the
+    whole fleet traffic; `wave` alone otherwise."""
+    whole = wave is None
+    if whole:
+        wave, _, new2 = fleet_traffic()
+    eng = pgen.GenerationEngine(model, fleet_config(
+        pgen, prefix_cache=False, **(settings or {})), start=False)
+    handles = [eng.submit(p, max_new_tokens=MAX_NEW,
+                          sampling=fleet_sampling(pgen, i))
+               for i, p in enumerate(wave)]
+    eng.run_until_idle()
+    prompts = list(wave)
+    if whole:
+        prompts.append(wave[-1] + handles[-1].result(timeout=60).token_ids
+                       + new2)
+        handles.append(eng.submit(prompts[-1], max_new_tokens=MAX_NEW,
+                                  sampling=fleet_sampling(pgen,
+                                                          len(wave))))
+        eng.run_until_idle()
+    results = [h.result(timeout=60) for h in handles]
+    eng.shutdown()
+    return dict(prompts=prompts, results=results)
+
+
+def hold_fleet(label, run, oracle, cpu_model, near_tie=NEAR_TIE,
+               stochastic=FLEET_STOCHASTIC):
+    """Phase 4's rule between a fleet run and the oracle on the requests
+    whose prompts are equal (turn 2 carries each run's own turn-1
+    answer): every stream `MAX_NEW` tokens long, greedy streams identical
+    or diverging only where the CPU full recompute's top-2 logit gap
+    after the shared prefix is < `near_tie`.  Returns the identical
+    count."""
+    same = 0
+    for i, (pa_, pb_) in enumerate(zip(run["prompts"], oracle["prompts"])):
+        r = run["results"][i]
+        if r.finish_reason != "length" or len(r.token_ids) != MAX_NEW:
+            fail(f"{label} request {i} finished {r.finish_reason!r} with "
+                 f"{len(r.token_ids)} tokens, want {MAX_NEW}")
+        if pa_ != pb_:
+            log(f"  {label} request {i}: prompts differ (turn 1's answers "
+                f"diverged at a near tie): not compared")
+            continue
+        at, bt = r.token_ids, oracle["results"][i].token_ids
+        if at == bt:
+            same += 1
+            continue
+        k = next((j for j, (x, y) in enumerate(zip(at, bt)) if x != y),
+                 min(len(at), len(bt)))
+        gap = top2_gap(cpu_model, list(pb_) + list(bt[:k]))
+        kind = "stochastic" if i in stochastic else "greedy"
+        log(f"  {label} request {i} ({kind}): streams diverge at token "
+            f"{k}; CPU top-2 gap {gap:.3e}")
+        if kind == "greedy" and gap >= near_tie:
+            fail(f"{label}: greedy request {i} diverges at token {k} where "
+                 f"the top-2 gap is {gap:.3e} >= {near_tie}")
+    log(f"  {label}: {same} of {len(run['results'])} streams identical")
+    return same
+
+
+class StepSpy:
+    """Counts one in-process replica's ragged step calls and times its
+    engine steps (the longest one is what a wedge clock would see)."""
+
+    def __init__(self, eng):
+        self.eng = eng
+        self.restart()
+        real_ragged, real_step = eng._ragged.step, eng.step
+
+        def ragged(*args):
+            self.ragged += 1
+            return real_ragged(*args)
+
+        def step():
+            t0 = time.perf_counter()
+            try:
+                return real_step()
+            finally:
+                self.longest = max(self.longest, time.perf_counter() - t0)
+
+        eng._ragged.step = ragged
+        eng.step = step   # the worker thread calls self.step()
+
+    def restart(self):
+        """Count from here (after a warm-up request)."""
+        self.ragged = 0
+        self.longest = 0.0
+        lp = self.eng._loop
+        self.loop0 = (lp.replays, lp.captures) if lp is not None else None
+
+    def want_launches(self):
+        """num_layers x (ragged steps + N x (loop replays + captures)) of
+        this replica since the spy went on or restarted."""
+        calls = 0
+        lp = self.eng._loop
+        if lp is not None:
+            calls = lp.loop_steps * (lp.replays - self.loop0[0]
+                                     + lp.captures - self.loop0[1])
+        return MODEL["num_layers"] * (self.ragged + calls)
+
+
+def fleet_check_launches(label, spies):
+    got = read_launches()
+    want = sum(s.want_launches() for s in spies)
+    log(f"  {label}: ragged steps per replica "
+        f"{[s.ragged for s in spies]}; ragged launches "
+        f"{got['ragged_paged_attention']} (num_layers x (the replicas' "
+        f"steps + N x loop calls) = {want}); longest step "
+        f"{max(s.longest for s in spies):.3f} s")
+    if got["ragged_paged_attention"] != want or want == 0:
+        fail(f"{label}: ragged kernel launched "
+             f"{got['ragged_paged_attention']} times, want {want}")
+    others = {k: v for k, v in got.items()
+              if k != "ragged_paged_attention" and v}
+    if others:
+        fail(f"{label}: a fleet of ragged replicas launched {others}")
+
+
+def fleet_inproc(pgen, model, names, start, roles=None, settings=None,
+                 **fleet_kw):
+    """A FleetRouter over in-process replicas sharing `model`, each with
+    its step spy."""
+    from paddle_tpu_torch.serving import FleetConfig, FleetRouter, ReplicaSpec
+
+    reset_fleet_stats()
+    specs = [ReplicaSpec(n, model, fleet_config(pgen, **(settings or {})),
+                         role=(roles or {}).get(n, "mixed"))
+             for n in names]
+    fl = FleetRouter(specs, FleetConfig(start=start, seed=0, **fleet_kw))
+    spies = [StepSpy(fl._replicas[n].engine) for n in names]
+    return fl, spies
+
+
+def fleet_drive(pgen, fl, session=True, wait=None):
+    """Phase 13's traffic through fleet `fl`: request 0 until its first
+    token (so the others find its pages), the rest of the wave (turn 1
+    under session "chat" when `session`), then turn 2 under the same
+    session.  `wait(handles)` drives a stepped fleet; a threaded one is
+    waited on.  Returns the prompts, results, handles and wall time."""
+    wave, _, new2 = fleet_traffic()
+    wait = wait or (lambda hs: [h.result(timeout=300) for h in hs])
+    handles = []
+
+    def submit(i, prompt):
+        handles.append(fl.submit(
+            prompt, max_new_tokens=MAX_NEW, sampling=fleet_sampling(pgen, i),
+            session="chat" if session and i >= len(wave) - 1 else None))
+
+    t0 = time.perf_counter()
+    submit(0, wave[0])
+    deadline = time.monotonic() + 120
+    while handles[0].first_token_s is None:
+        if time.monotonic() > deadline:
+            fail("the fleet's request 0 produced no token in 120 s")
+        if fl.config.start:
+            time.sleep(0.002)
+        else:
+            for rep in fl._replicas.values():
+                rep.transport.pump()
+    for i in range(1, len(wave)):
+        submit(i, wave[i])
+    wait(handles)
+    prompts = list(wave)
+    prompts.append(wave[-1] + handles[-1].result(timeout=60).token_ids
+                   + new2)
+    submit(len(wave), prompts[-1])
+    wait(handles)
+    wall = time.perf_counter() - t0
+    return dict(prompts=prompts, results=[h.result(timeout=60)
+                                          for h in handles],
+                handles=handles, wall=wall)
+
+
+def warm_ttft(run):
+    t = sorted(h.first_token_s - h.submitted_s
+               for h in run["handles"][1:PREFIX_SHARED])
+    return t[len(t) // 2], t[-1]
+
+
+def fleet_throughput(pgen, model, prompts, names):
+    """Phase 3's 8 requests (distinct prompts, so the prefix rung's hash
+    spreads them) through a threaded in-process fleet of `names`: wall
+    and tokens."""
+    fl, spies = fleet_inproc(pgen, model, names, start=True)
+    warm = fl.submit([1, 2, 3], max_new_tokens=2)
+    warm.result(timeout=60)
+    reset_launches()
+    for s in spies:
+        s.restart()
+    t0 = time.perf_counter()
+    handles = [fl.submit(p, max_new_tokens=MAX_NEW,
+                         sampling=fleet_sampling(pgen, i))
+               for i, p in enumerate(prompts)]
+    results = [h.result(timeout=300) for h in handles]
+    wall = time.perf_counter() - t0
+    fleet_check_launches(f"{len(names)}-replica fleet, phase 3's traffic",
+                         spies)
+    per = {n: replica_stat(fl, n, "requests_total") for n in names}
+    fl.shutdown()
+    return dict(wall=wall, tokens=sum(len(r.token_ids) for r in results),
+                per_replica=per, results=results,
+                longest=max(s.longest for s in spies))
+
+
+def phase_fleet(pgen, model, cpu_model, prompts):
+    """Phase 13: the serving fleet at GPT-2-small width (phase 12's model,
+    pool, chunks and system-prompt traffic, the prefix cache on in every
+    replica).  (a) two in-process replicas on affinity routing; (b) a
+    drain in mid-decode, live and cold; (c) a prefill/decode split; (d)
+    two loop replicas stepping at once; (e) a `proc` and a `tcp` replica
+    on the card: peer-to-peer adoption, a SIGKILL, the supervisor; (f) an
+    int8 replica beside a float32 one.  Returns the numbers."""
+    import os
+
+    from paddle_tpu_torch.serving import (FleetConfig, FleetRouter,
+                                          FleetSupervisor, ReplicaSpec)
+
+    out = {}
+    oracle = fleet_oracle(pgen, model)
+    log(f"  oracle: one cold card engine, {len(oracle['results'])} "
+        f"requests (prompts {min(map(len, oracle['prompts']))}.."
+        f"{max(map(len, oracle['prompts']))} tokens)")
+
+    # (a) affinity over two threaded in-process replicas
+    log("  (a) two in-process replicas, affinity routing, worker threads")
+    fl1, spies1 = fleet_inproc(pgen, model, ["solo"], start=True)
+    reset_launches()
+    one = fleet_drive(pgen, fl1)
+    fleet_check_launches("1-replica fleet", spies1)
+    fl1.shutdown()
+    hold_fleet("1-replica fleet vs oracle", one, oracle, cpu_model)
+    fl, spies = fleet_inproc(pgen, model, ["a0", "a1"], start=True)
+    reset_launches()
+    run = fleet_drive(pgen, fl)
+    fleet_check_launches("2-replica fleet", spies)
+    rungs = {r: fleet_stat("routed_" + r) for r in
+             ("affinity", "prefix", "balance", "spill", "role", "random")}
+    chat = fl.replica_of("chat")
+    per = {n: replica_stat(fl, n, "requests_total") for n in ("a0", "a1")}
+    log(f"  requests routed by rung {rungs}; session 'chat' on {chat}; "
+        f"requests per replica {per}")
+    if rungs["prefix"] < PREFIX_SHARED - 1:
+        fail(f"fleet.routed_prefix {rungs['prefix']} < {PREFIX_SHARED - 1}")
+    if rungs["affinity"] != 1:
+        fail(f"turn 2 was not routed by the session rung ({rungs})")
+    hold_fleet("2-replica fleet vs oracle", run, oracle, cpu_model)
+    a_run = run
+    out["ttft"] = (warm_ttft(one), warm_ttft(run))
+    out["rungs"] = rungs
+    out["longest"] = {"a": max(s.longest for s in spies + spies1)}
+    fl.shutdown()
+    solo = fleet_throughput(pgen, model, prompts, ["t0"])
+    pair = fleet_throughput(pgen, model, prompts, ["t0", "t1"])
+    out["throughput"] = (solo, pair)
+    log(f"  phase 3's traffic: 1 replica {solo['tokens'] / solo['wall']:.1f}"
+        f" tokens/s, 2 replicas {pair['tokens'] / pair['wall']:.1f} "
+        f"(requests per replica {pair['per_replica']})")
+    hold_fleet("phase 3's traffic, 2 replicas vs 1",
+               dict(prompts=list(prompts), results=pair["results"]),
+               dict(prompts=list(prompts), results=solo["results"]),
+               cpu_model)
+
+    # (b) a drain in mid-decode: live, then cold
+    log("  (b) a drain in mid-decode, stepped replicas: live, then cold")
+    mig = {"export": [], "import": [], "bytes": [], "bitwise": [],
+           "export_dev": [], "import_dev": [], "verify_s": 0.0}
+    for live in (True, False):
+        fl, spies = fleet_inproc(pgen, model, ["b0", "b1"], start=False,
+                                 live_migration=live)
+        engines = {n: fl._replicas[n].engine for n in ("b0", "b1")}
+        for eng in engines.values():
+            real_export, real_import = eng._export_sequence, \
+                eng.import_sequence
+
+            def export(state, eng=eng, real=real_export):
+                snap, wall, dev = on_device(lambda: real(state))
+                mig["export"].append(wall)
+                mig["export_dev"].append(dev)
+                mig["bytes"].append(sum(
+                    t.numel() * t.element_size()
+                    for t in (snap["k"], snap["v"])))
+                return snap
+
+            def import_(snap, handle=None, eng=eng, real=real_import):
+                ok, wall, dev = on_device(lambda: real(snap, handle))
+                mig["import"].append(wall)
+                mig["import_dev"].append(dev)
+                if ok:
+                    # the check's own export is kept out of the drain's
+                    # time
+                    t0 = time.perf_counter()
+                    fut = snap["future"] if handle is None else handle
+                    st = next(s for s in eng.scheduler.active()
+                              if s.handle is fut)
+                    again = eng.cache.export_pages(
+                        eng.cache.page_table(st.seq_id))
+                    mig["bitwise"].append(
+                        torch.equal(again[0], snap["k"])
+                        and torch.equal(again[1], snap["v"]))
+                    mig["verify_s"] += time.perf_counter() - t0
+                return ok
+
+            eng._export_sequence = export
+            eng.import_sequence = import_
+        wave, _, new2 = fleet_traffic()
+        reset_launches()
+        # request 0 first, to its first token: the fleet index then holds
+        # the system prompt's pages and routes the rest to the same home
+        handles = [fl.submit(wave[0], max_new_tokens=MAX_NEW,
+                             sampling=fleet_sampling(pgen, 0),
+                             session="home")]
+        home = fl.replica_of("home")
+        eng = engines[home]
+        while handles[0].first_token_s is None:
+            eng.step()
+        handles += [fl.submit(p, max_new_tokens=MAX_NEW,
+                              sampling=fleet_sampling(pgen, i),
+                              session="chat" if i == len(wave) - 1
+                              else None)
+                    for i, p in enumerate(wave) if i]
+        for _ in range(600):
+            act = eng.scheduler.active()
+            if len(act) == len(wave) and all(s.n_generated >= 2
+                                             for s in act):
+                break
+            eng.step()
+        else:
+            fail("the drained replica's sequences never all reached decode")
+        emitted = sum(s.n_generated for s in eng.scheduler.active())
+        verify0 = mig["verify_s"]
+        t0 = time.perf_counter()
+        fl.drain(home, migrate=True)
+        drain_s = time.perf_counter() - t0 - (mig["verify_s"] - verify0)
+        fl.run_until_idle()
+        prompts2 = list(wave)
+        prompts2.append(wave[-1] + handles[-1].result(timeout=60).token_ids
+                        + new2)
+        handles.append(fl.submit(prompts2[-1], max_new_tokens=MAX_NEW,
+                                 sampling=fleet_sampling(pgen, len(wave)),
+                                 session="chat"))
+        fl.run_until_idle()
+        res = dict(prompts=prompts2,
+                   results=[h.result(timeout=60) for h in handles])
+        fleet_check_launches(f"{'live' if live else 'cold'} drain", spies)
+        replay = fleet_stat("migrated_replay_tokens")
+        moved = fleet_stat("live_migrated_total")
+        log(f"  {'live' if live else 'cold'} drain of {home} after "
+            f"{emitted} tokens: {drain_s * 1e3:.1f} ms; "
+            f"live_migrated_total {moved}, migrated_replay_tokens {replay},"
+            f" migrated_total {fleet_stat('migrated_total')}")
+        if live and (moved < 1 or replay != 0):
+            fail(f"live drain: live_migrated_total {moved}, "
+                 f"migrated_replay_tokens {replay} (want >= 1 and 0)")
+        if live and not (mig["bitwise"] and all(mig["bitwise"])):
+            fail(f"a migrated sequence's pages exported again on the "
+                 f"importer differ from the snapshot: {mig['bitwise']}")
+        if not live and replay <= 0:
+            fail(f"cold drain: migrated_replay_tokens {replay}, want > 0")
+        hold_fleet(f"{'live' if live else 'cold'} drain vs oracle", res,
+                   oracle, cpu_model)
+        if live:
+            out["migration"] = dict(mig, drain_s=drain_s, moved=moved)
+        else:
+            out["cold_replay"] = replay
+        fl.shutdown()
+
+    # (c) the prefill/decode split
+    log("  (c) one prefill and one decode replica, worker threads")
+    fl, spies = fleet_inproc(pgen, model, ["pf", "dc"], start=True,
+                             roles={"pf": "prefill", "dc": "decode"},
+                             pd_prefill_threshold_tokens=64)
+    # the handoff's latency: the prefill replica's export (the park) to
+    # the decode replica's import done, per stream
+    parked, walls = {}, []
+    pf_eng, dc_eng = fl._replicas["pf"].engine, fl._replicas["dc"].engine
+    real_export, real_import = pf_eng._export_sequence, dc_eng.import_sequence
+
+    def park(state):
+        parked[id(state.request.future)] = time.perf_counter()
+        return real_export(state)
+
+    def place(snap, handle=None):
+        ok = real_import(snap, handle)
+        fut = snap["future"] if handle is None else handle
+        if ok and id(fut) in parked:
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - parked.pop(id(fut)))
+        return ok
+
+    pf_eng._export_sequence = park
+    dc_eng.import_sequence = place
+    reset_launches()
+    run = fleet_drive(pgen, fl, session=False)
+    fleet_check_launches("P/D split", spies)
+    handoffs = fleet_stat("pd_handoffs")
+    pf_tokens = replica_stat(fl, "pf", "tokens_total")
+    log(f"  pd_handoffs {handoffs} of {len(run['results'])} requests; the "
+        f"prefill replica sampled {pf_tokens} tokens; replay "
+        f"{fleet_stat('migrated_replay_tokens')}")
+    if handoffs != len(run["results"]):
+        fail(f"fleet.pd_handoffs {handoffs} != {len(run['results'])}")
+    if pf_tokens != len(run["results"]):
+        fail(f"the prefill replica sampled {pf_tokens} tokens, want one "
+             f"per request ({len(run['results'])})")
+    hold_fleet("P/D split vs oracle", run, oracle, cpu_model)
+    out["handoff_s"] = walls
+    out["longest"]["c"] = max(s.longest for s in spies)
+    fl.shutdown()
+
+    # (d) two loop replicas stepping at once
+    log(f"  (d) two in-process replicas with loop_steps={FLEET_LOOP}, "
+        f"stepping at once; a capture beside the sibling's steps")
+    fl, spies = fleet_inproc(pgen, model, ["l0", "l1"], start=True,
+                             settings=dict(loop_steps=FLEET_LOOP),
+                             routing="random")
+    engines = [fl._replicas[n].engine for n in ("l0", "l1")]
+    beside = []
+    for me, sib in ((0, 1), (1, 0)):
+        lp = engines[me]._loop
+        real_capture = lp._capture
+
+        def capture(bucket_p, state, real=real_capture, sib=engines[sib]):
+            # let the sibling be inside a step when the capture starts
+            deadline = time.monotonic() + 2.0
+            while not sib.in_step and time.monotonic() < deadline:
+                time.sleep(0.0005)
+            seq0 = sib.step_seq
+            g = real(bucket_p, state)
+            beside.append(sib.step_seq - seq0)
+            return g
+
+        lp._capture = capture
+    reset_launches()
+    run = fleet_drive(pgen, fl, session=False)
+    fleet_check_launches(f"loop N={FLEET_LOOP} fleet", spies)
+    caps = [e._loop.captures for e in engines]
+    log(f"  captures per replica {caps}; sibling steps completed during "
+        f"each capture {beside}")
+    if engines[0]._loop.use_graph and not any(beside):
+        fail("no capture overlapped a sibling's step")
+    hold_fleet(f"loop N={FLEET_LOOP} fleet vs (a)'s N=1 fleet", run,
+               a_run, cpu_model)
+    out["longest"]["d"] = max(s.longest for s in spies)
+    busy = max(engines, key=lambda e: e._loop.replays)
+    with busy._lock:   # the worker thread waits out the probe
+        probe = loop_probe(busy, bitwise=True)
+    log(f"  a captured replay bitwise the eager loop: {probe['bitwise']}")
+    out["beside"] = beside
+    fl.shutdown()
+
+    # (e) out of process: proc and tcp replicas on the card
+    log("  (e) a proc and a tcp replica on the card")
+    reset_fleet_stats()
+    cfg = fleet_config(pgen)
+    fcfg = FleetConfig(start=True, seed=0, page_codec="compressed",
+                       async_adoption=False)
+    t0 = time.perf_counter()
+    fl = FleetRouter([ReplicaSpec("p0", model, cfg, transport="proc")],
+                     fcfg)
+    spawn = {"proc": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    fl.add_replica(ReplicaSpec("t0", model, cfg, transport="tcp"))
+    spawn["tcp"] = time.perf_counter() - t0
+    for name in ("p0", "t0"):
+        d = fl._replicas[name].transport.describe()
+        log(f"  {name}: {fl._replicas[name].kind} child pid {d['pid']} "
+            f"(this process {os.getpid()}), device {d['device']}; spawn to "
+            f"describe {spawn['proc' if name == 'p0' else 'tcp']:.2f} s")
+        if d["pid"] == os.getpid() or not d["device"].startswith(
+                cfg.device):
+            fail(f"replica {name} is not a child process on "
+                 f"{cfg.device}: {d}")
+    wave, system, _ = fleet_traffic()
+    fl._sessions["warm"] = "p0"
+    h0 = fl.submit(wave[0], max_new_tokens=MAX_NEW,
+                   sampling=fleet_sampling(pgen, 0), session="warm")
+    h0.result(timeout=120)
+    deadline = time.monotonic() + 30
+    ps = ENGINE["page_size"]
+    while True:
+        fl.stats_snapshot()
+        hit = fl._page_index.lookup(wave[1], ps)
+        if hit is not None and hit[1] >= PREFIX_SYSTEM:
+            break
+        if time.monotonic() > deadline:
+            fail(f"the fleet index never learned p0's system pages: {hit}")
+        time.sleep(0.05)
+    adopter = fl._replicas["t0"].transport
+    fetch = []
+    real_fetch = adopter.import_prefix_from
+
+    def import_from(*a, **kw):
+        t0 = time.perf_counter()
+        res = real_fetch(*a, **kw)
+        fetch.append((time.perf_counter() - t0, res))
+        return res
+
+    adopter.import_prefix_from = import_from
+    fl._sessions["adopt"] = "t0"
+    h1 = fl.submit(wave[1], max_new_tokens=MAX_NEW,
+                   sampling=fleet_sampling(pgen, 1), session="adopt")
+    h1.result(timeout=120)
+    snap = fl.stats_snapshot()
+    t0_prefill = snap["replicas"]["t0"]["generation"][
+        "generation.prefill_tokens_total"]
+    adopted = fleet_stat("pages_adopted")
+    relay = fleet_stat("page_relay_bytes")
+    wire, raw = fleet_stat("page_p2p_bytes"), fleet_stat("page_raw_bytes")
+    log(f"  adoption on t0: pages_adopted {adopted}, page_relay_bytes "
+        f"{relay}, wire {wire} of raw {raw} bytes; t0 prefilled "
+        f"{t0_prefill} tokens of {len(wave[1])} (hit {h1.prefix_hit_tokens})")
+    if adopted < PREFIX_SYSTEM // ps or relay != 0 or not fetch:
+        fail(f"peer-to-peer adoption: pages_adopted {adopted} (want >= "
+             f"{PREFIX_SYSTEM // ps}), page_relay_bytes {relay} (want 0)")
+    if t0_prefill != len(wave[1]) - PREFIX_SYSTEM:
+        fail(f"the adopter prefilled {t0_prefill} tokens, want the suffix's "
+             f"{len(wave[1]) - PREFIX_SYSTEM}")
+    out["p2p"] = dict(wire=wire, raw=raw, wall=fetch[0][0])
+    out["spawn"] = spawn
+    # SIGKILL p0 in mid-stream: its streams move to t0
+    victims = list(range(2, PREFIX_SHARED))
+    hs = []
+    for i in victims:
+        fl._sessions[f"v{i}"] = "p0"
+        hs.append(fl.submit(wave[i], max_new_tokens=MAX_NEW,
+                            sampling=fleet_sampling(pgen, i),
+                            session=f"v{i}"))
+    tr = fl._replicas["p0"].transport
+    deadline = time.monotonic() + 120
+    while True:
+        with tr._lock:
+            emitted = [e["emitted"] for e in tr._inflight.values()]
+        if len(emitted) == len(victims) and min(emitted) >= 2:
+            break
+        if time.monotonic() > deadline:
+            fail(f"p0's streams never started: {emitted}")
+        time.sleep(0.01)
+    tr.kill()
+    results = [h.result(timeout=300) for h in hs]
+    dead = fleet_stat("replica_dead_total")
+    log(f"  SIGKILL of p0 with {len(victims)} streams at {emitted} tokens: "
+        f"replica_dead_total {dead}; every stream completed on t0")
+    if dead != 1:
+        fail(f"fleet.replica_dead_total {dead}, want 1")
+    hold_fleet("the proc/tcp fleet vs oracle",
+               dict(prompts=[wave[0], wave[1]] + [wave[i] for i in victims],
+                    results=[h0.result(), h1.result()] + results),
+               dict(prompts=[wave[0], wave[1]] + [wave[i] for i in victims],
+                    results=[oracle["results"][i]
+                             for i in [0, 1] + victims]),
+               cpu_model, stochastic={k for k, i in enumerate(
+                   [0, 1] + victims) if i in FLEET_STOCHASTIC})
+    sup = FleetSupervisor(fl)
+    t0 = time.perf_counter()
+    deadline = time.monotonic() + 120
+    while fl._replicas["p0"].state != "serving":
+        if time.monotonic() > deadline:
+            fail("FleetSupervisor.tick never brought p0 back")
+        sup.tick()
+        time.sleep(0.1)
+    back = time.perf_counter() - t0
+    fl._sessions["back"] = "p0"
+    h = fl.submit(wave[0], max_new_tokens=MAX_NEW,
+                  sampling=fleet_sampling(pgen, 0), session="back")
+    r = h.result(timeout=120)
+    log(f"  the supervisor brought p0 back in {back:.2f} s (restarts "
+        f"{fleet_stat('supervisor_restart_total')}); it served a request "
+        f"of {len(r.token_ids)} tokens")
+    hold_fleet("the restarted p0 vs oracle",
+               dict(prompts=[wave[0]], results=[r]),
+               dict(prompts=[wave[0]], results=[oracle["results"][0]]),
+               cpu_model)
+    out["restart_s"] = back
+    fl.shutdown()
+
+    # (f) int8 beside float32
+    log("  (f) an int8 replica beside a float32 one")
+    q_oracle = fleet_oracle(pgen, model, INT8, wave=[wave[1]])
+    reset_fleet_stats()
+    fl = FleetRouter(
+        [ReplicaSpec("f32", model, fleet_config(pgen)),
+         ReplicaSpec("q8", model, fleet_config(pgen, **INT8))],
+        FleetConfig(start=False, seed=0, async_adoption=False))
+    fl._sessions["warm"] = "f32"
+    hw = fl.submit(wave[0], max_new_tokens=MAX_NEW,
+                   sampling=fleet_sampling(pgen, 0), session="warm")
+    fl.run_until_idle()
+    hw.result(timeout=60)
+    f_eng, q_eng = fl._replicas["f32"].engine, fl._replicas["q8"].engine
+    refused = q_eng.import_prefix_pages(f_eng.export_prefix_pages(system))
+    fl._sessions["q"] = "q8"
+    hq = fl.submit(wave[1], max_new_tokens=MAX_NEW,
+                   sampling=fleet_sampling(pgen, 0), session="q")
+    fl.run_until_idle()
+    rq = hq.result(timeout=60)
+    failed = fleet_stat("page_transfers_failed")
+    log(f"  float32 pages offered to the int8 replica: import_prefix_pages "
+        f"-> {refused}; page_transfers_failed {failed}, pages_adopted "
+        f"{fleet_stat('pages_adopted')}; the int8 request's prefix hit "
+        f"{hq.prefix_hit_tokens} (a cold prefill)")
+    if refused != 0 or hq.prefix_hit_tokens != 0 \
+            or fleet_stat("pages_adopted") != 0:
+        fail("the int8 replica took float32 pages")
+    hold_fleet("int8 replica vs one int8 engine",
+               dict(prompts=[wave[1]], results=[rq]), q_oracle, cpu_model,
+               near_tie=INT8_NEAR_TIE, stochastic=())
+    fl.shutdown()
+    return out
+
+
+def fleet_numbers(card, out):
+    """Phase 13's numbers."""
+    log(f"  [{card}] fleet: requests routed by rung {out['rungs']}")
+    (m1, x1), (m2, x2) = out["ttft"]
+    log(f"  [{card}] fleet: TTFT of the warm requests 1-"
+        f"{PREFIX_SHARED - 1}, median / max: one replica {m1 * 1e3:.1f} / "
+        f"{x1 * 1e3:.1f} ms, two-replica fleet {m2 * 1e3:.1f} / "
+        f"{x2 * 1e3:.1f} ms")
+    solo, pair = out["throughput"]
+    log(f"  [{card}] fleet: phase 3's 8 requests, one replica "
+        f"{solo['tokens'] / solo['wall']:.1f} tokens/s ({solo['wall']:.3f} "
+        f"s), two in-process replicas on one card "
+        f"{pair['tokens'] / pair['wall']:.1f} tokens/s "
+        f"({pair['wall']:.3f} s): {solo['wall'] / pair['wall']:.2f}x")
+    mig = out["migration"]
+    n = len(mig["bytes"])
+    def dev(key):
+        ms = [x for x in mig[key] if x is not None]
+        return f"{np.median(ms):.2f} ms" if ms else "not measured"
+
+    log(f"  [{card}] fleet: live migration of {n} sequences, per sequence "
+        f"median export {np.median(mig['export']) * 1e3:.2f} ms wall / "
+        f"{dev('export_dev')} on the device, import "
+        f"{np.median(mig['import']) * 1e3:.2f} ms / {dev('import_dev')}, "
+        f"{np.median(mig['bytes']) / 2**20:.1f} MiB (K and V); the drain "
+        f"of {n} {mig['drain_s'] * 1e3:.1f} ms wall; the cold drain "
+        f"replayed {out['cold_replay']} tokens")
+    p2p = out["p2p"]
+    log(f"  [{card}] fleet: peer-to-peer adoption of the system prompt, "
+        f"compressed: {p2p['wire']} wire bytes of {p2p['raw']} raw "
+        f"({p2p['wire'] / max(p2p['raw'], 1):.3f}), {p2p['wall']:.3f} s "
+        f"wall")
+    hs = out["handoff_s"]
+    log(f"  [{card}] fleet: P/D handoff, park to placement, median "
+        f"{np.median(hs) * 1e3:.1f} ms, max {max(hs) * 1e3:.1f} ms over "
+        f"{len(hs)} handoffs")
+    log(f"  [{card}] fleet: spawn to describe, proc "
+        f"{out['spawn']['proc']:.2f} s, tcp {out['spawn']['tcp']:.2f} s; "
+        f"supervisor restart {out['restart_s']:.2f} s")
+    log(f"  [{card}] fleet: longest step of an in-process replica per run "
+        f"{ {k: round(v, 3) for k, v in out['longest'].items()} } s "
+        f"(the child replicas' steps: not measured)")
 
 
 # ------------------------ flash attention cases -------------------------
@@ -3903,11 +4690,22 @@ def main():
     if gpu["launches"] != want or gpu["launches"] == 0:
         fail(f"ragged kernel launched {gpu['launches']} times, want {want}")
 
-    phase("phase 4: the same engine on the CPU (plain version)")
-    cpu = run_engine(pgen, model, prompts, "cpu")
+    phase(f"phase 4: the same engine on the card and on the CPU (plain "
+          f"versions) at {HELD_LAYERS} layers")
+    held = held_models(pgen)
+    gpu_held = run_engine(pgen, held[0], prompts, "cuda")
+    want = HELD_LAYERS * gpu_held["steps"]
+    log(f"  {HELD_LAYERS} layers on the card: {gpu_held['steps']} ragged "
+        f"steps, kernel launches {gpu_held['launches']} (num_layers x steps "
+        f"= {want})")
+    if gpu_held["launches"] != want or want == 0:
+        fail(f"ragged kernel launched {gpu_held['launches']} times at "
+             f"{HELD_LAYERS} layers, want {want}")
+    cpu = run_engine(pgen, held[1], prompts, "cpu")
     if any(cpu["all_launches"].values()):
         fail("the CPU engine launched a CUDA kernel")
-    worst_logit = hold_ragged("card vs CPU", gpu, cpu, prompts)
+    worst_logit = hold_ragged(f"card vs CPU, {HELD_LAYERS} layers",
+                              gpu_held, cpu, prompts)
 
     phase("phase 5: the legacy step at GPT-2-small width (fused decode, "
           "chunked prefill of 64), card then CPU; then one-shot prefill")
@@ -3919,11 +4717,12 @@ def main():
 
     phase("phase 6: int8 KV pools at GPT-2-small width (ragged card, "
           "ragged CPU, legacy card)")
-    q_ragged, q_legacy = phase_int8(pgen, model, cpu_model, prompts, gpu)
+    q_ragged, q_legacy = phase_int8(pgen, model, cpu_model, prompts, gpu,
+                                    held)
 
     phase("phase 7: speculation (ngram, K=4) and the host-free decode loop "
           "(N=4, 8) at GPT-2-small width, float32 and int8 pools")
-    serving = phase_serving(pgen, model, cpu_model, prompts, gpu)
+    serving = phase_serving(pgen, model, cpu_model, prompts, gpu, held)
     phase_sampler(pgen)
 
     phase("phase 8: training at GPT-2-small width (bench_gpt_zero's "
@@ -3970,7 +4769,12 @@ def main():
           "loop; page export and import)")
     prefix = phase_prefix(pgen, model, cpu_model)
 
-    phase("phase 13: numbers")
+    phase("phase 13: the serving fleet at GPT-2-small width (in-process, "
+          "proc and tcp replicas; live and cold drains; P/D handoff; the "
+          "loop beside a sibling; the supervisor; int8 beside float32)")
+    fleet = phase_fleet(pgen, model, cpu_model, prompts)
+
+    phase("phase 14: numbers")
     numbers = paged_numbers(pa, card, torch.float32, "")
     numbers.update(paged_numbers(pa, card, torch.int8, "_int8"))
     paged_numbers(pa, card, torch.bfloat16, "_bf16")  # printed only
@@ -3996,6 +4800,7 @@ def main():
     ragged_shape_numbers(pa, card)
     serving_numbers(card, serving)
     prefix_numbers(card, prefix)
+    fleet_numbers(card, fleet)
     for label, settings in (("ragged", None), ("legacy", LEGACY),
                             ("int8 ragged", INT8),
                             ("int8 legacy", {**LEGACY, **INT8})):

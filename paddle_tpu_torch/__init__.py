@@ -11,14 +11,20 @@ compiled step's update rules and LR schedulers (``optimizer``); and
 trains ResNet-50 through the static ``Program``/``Executor`` with
 ``append_backward``, static bf16 AMP and Momentum (``static``); and
 trains the vision models in dygraph (``vision.models``: LeNet, ResNet,
-VGG, MobileNet) through autograd and the optimizers' eager `step`.
+VGG, MobileNet) through autograd and the optimizers' eager `step`; and
+serves a fleet of generation replicas (``serving.FleetRouter``: in
+process, in a subprocess or over TCP, with live migration, the page
+service, prefill/decode handoff and ``serving.FleetSupervisor``).
 It imports torch and numpy, never jax and never paddle_tpu.  Entry
 points run on the card unless the caller asks for the CPU
 (``device="cpu"``), where every kernel call takes the kernel's plain
 PyTorch version.
 """
+# serving first: its fleet tier imports the generation engine, which
+# imports serving.admission back
+from . import serving  # noqa: I001
 from . import generation, models, nn, ops, optimizer, parallel, profiler, \
-    regularizer, serving, static, vision
+    regularizer, static, vision
 from .generation import (GenerationConfig, GenerationEngine,
                          SamplingParams, TinyCausalLM)
 

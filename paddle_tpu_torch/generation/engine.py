@@ -67,6 +67,7 @@ ever failing a request.
 """
 import concurrent.futures
 import math
+import os
 import queue
 import threading
 import time
@@ -84,7 +85,8 @@ from .fused import (ChunkedPrefillStep, FusedDecodeStep,
                     LoopedRaggedStep, RaggedStep, decode_batch_menu)
 from .kv_cache import DeviceKVPool, OutOfPagesError
 from .metrics import GenerationMetrics, StepTimer
-from .sampling import SamplingParams, sample_token, sample_tokens_batch
+from .sampling import (SampleStream, SamplingParams, sample_token,
+                       sample_tokens_batch)
 from .scheduler import (ContinuousBatchingScheduler, GenerationRequest,
                         SequenceState)
 from .speculation import NgramProposer
@@ -267,6 +269,41 @@ def _require(model, names, what):
                          f"lacks {', '.join(missing)})")
 
 
+class _FifoLock:
+    """The engine's step lock, handed out in arrival order.  The worker
+    thread releases it at the end of a step and asks for it again at
+    once; a plain lock lets it win that race step after step, so a
+    thread waiting for the engine (a fleet's live import or handoff, a
+    cancel, a drain) could wait tens of steps.  Here each waiter gets the
+    lock at the next step boundary.  Not reentrant, like the lock it
+    replaces."""
+
+    def __init__(self):
+        self._cond = threading.Condition(threading.Lock())
+        self._tickets = 0    # handed out
+        self._serving = 0    # the ticket that holds the lock
+
+    def acquire(self):
+        with self._cond:
+            ticket = self._tickets
+            self._tickets += 1
+            while ticket != self._serving:
+                self._cond.wait()
+        return True
+
+    def release(self):
+        with self._cond:
+            self._serving += 1
+            self._cond.notify_all()
+
+    def __enter__(self):
+        return self.acquire()
+
+    def __exit__(self, *exc):
+        self.release()
+        return False
+
+
 class GenerationResult:
     """Final outcome of one request."""
 
@@ -299,11 +336,16 @@ class GenerationHandle:
         # prompt tokens the prefix cache served at FIRST admission (0:
         # cold, None: not admitted yet)
         self.prefix_hit_tokens = None
+        # delivered-token count: a fleet remigration reads it as the
+        # replay-skip floor, so no ledger race can replay a token this
+        # handle already streamed
+        self.n_streamed = 0
 
     # --- engine side ---
     def _push_token(self, token):
         if self.first_token_s is None:
             self.first_token_s = time.monotonic()
+        self.n_streamed += 1
         self._events.put(int(token))
 
     def _finish(self, result):
@@ -327,6 +369,14 @@ class GenerationHandle:
 
     def exception(self, timeout=None):
         return self._fut.exception(timeout)
+
+    def add_done_callback(self, fn):
+        """Run ``fn(handle)`` once the request resolves, with a result or
+        a typed failure (called at once if already done).  The fleet
+        tier hangs its route confirmation here: prefix_hit_tokens is
+        stamped at first admission, so a completed handle says whether a
+        prefix-affinity bet paid."""
+        self._fut.add_done_callback(lambda _f: fn(self))
 
     def tokens(self, timeout=None):
         """Yield token ids as they stream; `timeout` bounds the wait for
@@ -452,7 +502,22 @@ class GenerationEngine:
         # schema is complete from the first snapshot
         self.metrics.set_spec_mode(cfg.spec_mode)
         self.metrics.set_loop_steps(self.loop_steps)
-        self._lock = threading.Lock()  # one stepper at a time
+        self._lock = _FifoLock()  # one stepper at a time
+        # step progress: bumped after every completed step(), with
+        # `_in_step` set while a step holds the lock (a first-shape build
+        # or a loop capture inside a step is progress, not a wedge).  A
+        # subprocess replica's heartbeat carries both: work without
+        # progress outside a step is the fleet's wedge signature
+        self._step_seq = 0
+        self._in_step = False
+        # prefill/decode handoff: a prefill-class engine parks every
+        # sequence the moment its prompt is consumed, exported as a
+        # live-migration snapshot into _handoff_out, and `on_handoff` is
+        # called after the step lock is released (the collector drains
+        # take_handoffs(), so no router lock is taken under this lock)
+        self._handoff = False
+        self.on_handoff = None
+        self._handoff_out = []
         self._closed = False
         self._stop = threading.Event()
         self._thread = None
@@ -574,6 +639,278 @@ class GenerationEngine:
         snap.update({"cache." + k: v for k, v in self.cache.stats().items()})
         return snap
 
+    # -------------------------- fleet hooks -------------------------
+    # The fleet tier (serving/fleet.py) drains, migrates and hands off
+    # through these.  Every one runs under the step lock: no token can
+    # land on, and no page be evicted from, state in flight.  Snapshots
+    # carry page bytes as host tensors (export_pages), never device
+    # tensors, so they pickle across a process boundary as they are.
+
+    def evacuate(self, include_active=False):
+        """Extract unfinished work for a fleet drain: every request not
+        yet placed (admission queue and the pending re-prefill line),
+        plus with `include_active` every slot holder, retired here
+        (slot and pages freed) WITHOUT resolving its handle.  Returns
+        ``[(GenerationRequest, n_emitted)]``; the caller resubmits each
+        (sampling is seeded per request, so a cold resubmit replays the
+        identical stream and a relay handle skips the first `n_emitted`
+        tokens).  Expired requests are reaped with the typed deadline
+        error instead."""
+        with self._lock:
+            out = self.scheduler.take_pending()
+            if include_active:
+                for state in self.scheduler.active():
+                    self.scheduler.retire(state)
+                    if state.request.expired():
+                        state.request.reject_expired()
+                        self.metrics.count_rejected_deadline()
+                        continue
+                    out.append((state.request, state.n_generated))
+            return out
+
+    def evacuate_for_migration(self):
+        """The live-migration drain: what evacuate() moves, but decode-
+        phase residents leave as SEQUENCE SNAPSHOTS (page bytes and
+        decode state) for ``import_sequence`` on a sibling.  Returns
+        ``(cold, live)``: `cold` is evacuate()'s list (queued work and
+        mid-prefill slot holders), `live` the snapshots, each carrying
+        the client handle under "future".  Snapshots already parked for
+        a prefill/decode handoff ride the live list unchanged."""
+        with self._lock:
+            cold = self.scheduler.take_pending()
+            live, self._handoff_out = self._handoff_out, []
+            for state in self.scheduler.active():
+                if state.request.expired():
+                    self.scheduler.retire(state)
+                    state.request.reject_expired()
+                    self.metrics.count_rejected_deadline()
+                    continue
+                if state.prefilling or not self.cache.has(state.seq_id):
+                    self.scheduler.retire(state)
+                    cold.append((state.request, state.n_generated))
+                    continue
+                live.append(self._export_sequence(state))
+            return cold, live
+
+    def _export_sequence(self, state):
+        """Snapshot one decode-phase resident (page bytes first, then
+        retire, which frees the pages): tokens so far, the generated
+        count, the sampling stream ``(seed, counter)`` — the stream
+        position of a stochastic request — and the cache length the
+        pages cover.  The handle is not resolved: the importer keeps
+        pushing into it."""
+        req = state.request
+        length = self.cache.seq_len(state.seq_id)
+        out = self.cache.export_pages(self.cache.page_table(state.seq_id))
+        # an int8 pool exports (k, v, k_scale, v_scale): the grid
+        # travels with the bytes
+        k, v = out[0], out[1]
+        k_scale, v_scale = (out[2], out[3]) if len(out) == 4 \
+            else (None, None)
+        snap = {
+            "prompt": list(req.prompt),
+            "max_new_tokens": int(req.max_new_tokens),
+            "stop_tokens": tuple(req.stop_tokens),
+            "sampling": req.params,
+            "deadline": req.deadline,
+            "tokens": list(state.tokens),
+            "n_generated": int(state.n_generated),
+            "preemptions": int(state.preemptions),
+            "rng": SampleStream(state.rng.seed, state.rng.counter),
+            "cache_len": int(length),
+            "k": k, "v": v,
+            "k_scale": k_scale, "v_scale": v_scale,
+            "future": req.future,
+        }
+        self.scheduler.retire(state)
+        return snap
+
+    def import_sequence(self, snap, handle=None):
+        """Live-migration import: install a sibling's exported resident
+        — its page bytes into this pool (in place), its SequenceState
+        (tokens, sampling stream, counters) into a free slot — so the
+        step loop resumes its decode with ZERO replayed tokens.  True
+        when adopted; False when this engine cannot hold it now (no free
+        slot, the pool too full even after eviction, or an incompatible
+        payload such as int8 pages for a float pool): the caller falls
+        back to a cold resubmit, which is always correct."""
+        if handle is None:
+            handle = snap.get("future")
+        with self._lock:
+            if self._closed or self.scheduler.free_slots() == 0:
+                return False
+            try:
+                # KVQuantMismatchError (a ValueError) lands here too
+                pages = self.cache.import_pages(
+                    snap["k"], snap["v"], snap.get("k_scale"),
+                    snap.get("v_scale"))
+            except (OutOfPagesError, ValueError):
+                return False
+            seq_id = None
+            attached = False
+            try:
+                req = GenerationRequest(
+                    snap["prompt"], handle, snap["sampling"],
+                    max_new_tokens=snap["max_new_tokens"],
+                    stop_tokens=snap["stop_tokens"],
+                    deadline=snap.get("deadline"))
+                state = SequenceState(self.scheduler.next_seq_id(), req)
+                seq_id = state.seq_id
+                self.cache.allocate(seq_id)
+                self.cache.adopt_imported(seq_id, pages, snap["cache_len"])
+                attached = True
+                rng = snap["rng"]
+                state.tokens = list(snap["tokens"])
+                state.n_generated = int(snap["n_generated"])
+                state.preemptions = int(snap["preemptions"])
+                state.rng = SampleStream(rng.seed, rng.counter)
+                state.prefilling = False
+                state.prefill_pos = int(snap["cache_len"])
+                self.scheduler.place_imported(state)
+            except Exception:   # noqa: BLE001 — a poisoned snapshot or a
+                # failure mid-install must not leak the imported pages
+                # or strand a half-built resident: give everything back
+                # and refuse (the caller's cold ladder)
+                self._recover_failed_import(seq_id, attached, pages)
+                return False
+            self.metrics.count_request()
+            return True
+
+    def _recover_failed_import(self, seq_id, attached, pages):
+        """Roll back a failed import_sequence so the pool stays whole:
+        free the sequence when its table holds the pages, else route
+        the ownerless pages through a throwaway adopter so the free
+        list gets every one back."""
+        try:
+            if attached and seq_id is not None:
+                self.cache.free(seq_id)
+                return
+            if seq_id is not None and self.cache.has(seq_id):
+                self.cache.free(seq_id)
+            if pages:
+                rid = ("__import_recovery__", id(pages))
+                self.cache.allocate(rid)
+                self.cache.adopt_imported(
+                    rid, pages, len(pages) * self.cache.page_size)
+                self.cache.free(rid)
+        except Exception:   # noqa: BLE001 — recovery is best effort;
+            pass            # never mask the refusal with a new error
+
+    def drain_work(self, migrate=True, live=True, timeout=60.0):
+        """The drain both transport halves run (InprocTransport.drain and
+        the worker's evacuate op): evacuate unfinished work and shut the
+        engine down.  migrate=False lets residents finish first —
+        stepping the engine here when no worker thread runs — and
+        evacuates those that outlive `timeout` (live snapshots when
+        `live`, cold resubmits otherwise), so a drain always ends.
+        Returns ``(cold, live_snaps)``."""
+        if migrate:
+            if live:
+                cold, live_snaps = self.evacuate_for_migration()
+            else:
+                cold, live_snaps = self.evacuate(include_active=True), []
+        else:
+            cold, live_snaps = self.evacuate(include_active=False), []
+            deadline = time.monotonic() + float(timeout)
+            while self.scheduler.active() \
+                    or self.scheduler.pending_count():
+                if time.monotonic() > deadline:
+                    if live:
+                        c2, l2 = self.evacuate_for_migration()
+                    else:
+                        c2, l2 = self.evacuate(include_active=True), []
+                    cold += c2
+                    live_snaps += l2
+                    break
+                if self._thread is not None and self._thread.is_alive():
+                    time.sleep(0.005)
+                else:
+                    self.step()   # stepped mode: the drain drives them
+        # handoff snapshots still parked leave with everything else (a
+        # prefill engine's residents land here by construction)
+        with self._lock:
+            parked, self._handoff_out = self._handoff_out, []
+        for snap in parked:
+            if live:
+                live_snaps.append(snap)
+            else:
+                req = GenerationRequest(
+                    snap["prompt"], snap["future"], snap["sampling"],
+                    max_new_tokens=snap["max_new_tokens"],
+                    stop_tokens=snap["stop_tokens"],
+                    deadline=snap.get("deadline"))
+                cold.append((req, int(snap["n_generated"])))
+        self.shutdown()
+        return cold, live_snaps
+
+    def describe(self):
+        """Static replica facts the router's capacity filter needs
+        without an RPC (the transport ``describe`` contract)."""
+        cfg = self.config
+        return {
+            "page_size": cfg.page_size,
+            "num_pages": cfg.num_pages,
+            "max_positions": getattr(self.model, "max_positions", None),
+            "default_max_new_tokens": cfg.default_max_new_tokens,
+            # the denominator of the autoscaler's decode occupancy
+            "max_decode_slots": cfg.max_decode_slots,
+            "pid": os.getpid(),
+            "device": str(self.device),
+        }
+
+    def load_info(self):
+        """Live load facts for the router's least-loaded rung (the
+        transport ``load_info`` contract; a subprocess replica sends
+        them on every heartbeat)."""
+        sched = self.scheduler
+        return {
+            "queue_depth": sched.pending_count(),
+            "active": len(sched.active()),
+            "pages_in_use": self.cache.pages_in_use,
+            "num_pages": self.cache.num_pages,
+            # parked handoffs are unfinished work: a prefill replica
+            # with uncollected snapshots must not read as idle
+            "idle": not (sched.active() or sched.pending_count()
+                         or self._handoff_out),
+        }
+
+    # ------------------------ P/D handoff seam ------------------------
+    def enable_handoff(self):
+        """Make this a PREFILL-class engine: every sequence is parked the
+        moment its prompt is consumed (exported like a live migration)
+        instead of decoding here.  The owner drains take_handoffs() and
+        places each snapshot on a decode-class sibling through
+        import_sequence; `on_handoff`, called after each step that
+        parked something and outside the step lock, is the wakeup."""
+        self._handoff = True
+
+    def _sweep_handoffs_locked(self):
+        """Park every prefill-complete resident (under the step lock, at
+        the end of step()): ready once its prefill is done and its first
+        token sampled, so n_generated is the importer's resume base."""
+        parked = False
+        for state in self.scheduler.active():
+            if state.prefilling or state.n_generated < 1:
+                continue
+            if state.request.expired():
+                continue   # the next step's deadline reaper owns it
+            if not self.cache.has(state.seq_id):
+                continue
+            self._handoff_out.append(self._export_sequence(state))
+            parked = True
+        return parked
+
+    def take_handoffs(self):
+        """Drain the parked prefill-complete snapshots (each carries the
+        client handle under "future" and page bytes: the pool pages were
+        freed at export, so a parked snapshot never holds pages)."""
+        with self._lock:
+            out, self._handoff_out = self._handoff_out, []
+        return out
+
+    def handoffs_pending(self):
+        return bool(self._handoff_out)
+
     def cancel(self, handle):
         """Cancel the request owned by `handle` wherever it lives —
         admission queue, pending re-prefill line, or a live slot (slot
@@ -591,17 +928,29 @@ class GenerationEngine:
                     self.metrics.count_finished()
                     return True
             item = self.scheduler.cancel_pending(handle)
-            if item is None:
-                return False
-            if isinstance(item, SequenceState):   # preempted
-                handle._finish(GenerationResult(
-                    item.tokens[len(item.request.prompt):], "cancelled",
-                    len(item.request.prompt), item.preemptions))
-            else:   # still queued, nothing generated
-                handle._finish(GenerationResult(
-                    [], "cancelled", len(item.prompt), 0))
-            self.metrics.count_finished()
-            return True
+            if item is not None:
+                if isinstance(item, SequenceState):   # preempted
+                    handle._finish(GenerationResult(
+                        item.tokens[len(item.request.prompt):],
+                        "cancelled", len(item.request.prompt),
+                        item.preemptions))
+                else:   # still queued, nothing generated
+                    handle._finish(GenerationResult(
+                        [], "cancelled", len(item.prompt), 0))
+                self.metrics.count_finished()
+                return True
+            for i, snap in enumerate(self._handoff_out):
+                if snap["future"] is handle:
+                    # parked for a handoff but not yet collected: the
+                    # snapshot holds bytes, not pages — drop it
+                    del self._handoff_out[i]
+                    handle._finish(GenerationResult(
+                        snap["tokens"][len(snap["prompt"]):],
+                        "cancelled", len(snap["prompt"]),
+                        snap["preemptions"]))
+                    self.metrics.count_finished()
+                    return True
+        return False
 
     # --------------------------- stepping ---------------------------
     def step(self):
@@ -609,13 +958,41 @@ class GenerationEngine:
         every decode-ready sequence — on the ragged step, or on the
         legacy step (chunked or one-shot prefill).  Returns the number of
         sequences that advanced (0 == idle).  Thread-safe; the background
-        worker uses exactly this."""
+        worker uses exactly this.  A prefill-class engine parks its
+        prefill-complete sequences at the end of the step and calls
+        `on_handoff` after releasing the lock."""
+        parked = False
         with self._lock:
-            if self._ragged is not None:
-                return self._step_ragged()
-            if self.prefill_chunk_tokens:
-                return self._step_chunked()
-            return self._step_one_shot()
+            self._in_step = True
+            try:
+                if self._ragged is not None:
+                    out = self._step_ragged()
+                elif self.prefill_chunk_tokens:
+                    out = self._step_chunked()
+                else:
+                    out = self._step_one_shot()
+            finally:
+                self._in_step = False
+            if self._handoff:
+                parked = self._sweep_handoffs_locked()
+        self._step_seq += 1
+        if parked and self.on_handoff is not None:
+            # outside the step lock: the collector may take router or
+            # transport locks of its own
+            self.on_handoff()
+        return out
+
+    @property
+    def step_seq(self):
+        """Completed-step counter: the wedge watchdog's progress stamp
+        (frozen while the step loop is blocked or idle)."""
+        return self._step_seq
+
+    @property
+    def in_step(self):
+        """True while a step holds the step lock (real work, possibly a
+        first-shape build or a loop capture)."""
+        return self._in_step
 
     # ---------------------------- legacy step ------------------------
     def _step_one_shot(self):

@@ -38,15 +38,14 @@ one call of the model's ragged step function:
 - greedy is folded in: the step returns both the argmax ids [S] and the
   logits [S, V] on the device, and the engine fetches one of them.
 """
+import threading
 import time
 
 import numpy as np
 import torch
 
-from ..ops.paged_attention import (chunk_prefill_attention_kernel,
-                                   paged_decode_attention_kernel,
-                                   ragged_paged_attention_kernel,
-                                   ragged_score_blocks)
+from ..ops.paged_attention import (add_launches, ragged_score_blocks,
+                                   recording_launches)
 from ..serving.bucketing import ShapeBucketer, SignatureCache
 from .metrics import DecodeCacheMetrics
 
@@ -336,28 +335,9 @@ class RaggedStep:
         return ids, logits
 
 
-# the paged kernels' wrappers: a captured loop adds its launches to their
-# counts once per replay
-_PAGED_WRAPPERS = (ragged_paged_attention_kernel,
-                   paged_decode_attention_kernel,
-                   chunk_prefill_attention_kernel)
-
-
-def _launch_counts():
-    return [(w.launches, dict(w.launches_by_dtype)) for w in _PAGED_WRAPPERS]
-
-
-def _restore_launch_counts(counts):
-    for w, (n, by_dtype) in zip(_PAGED_WRAPPERS, counts):
-        w.launches = n
-        w.launches_by_dtype = dict(by_dtype)
-
-
-def _add_launches(delta):
-    for w, (n, by_dtype) in zip(_PAGED_WRAPPERS, delta):
-        w.launches += n
-        for key, k in by_dtype.items():
-            w.launches_by_dtype[key] += k
+# one CUDA graph capture at a time in the process: the in-process replicas
+# of a fleet each capture their own loops on their own worker threads
+_CAPTURE_LOCK = threading.Lock()
 
 
 class _LoopGraph:
@@ -396,12 +376,16 @@ class LoopedRaggedStep:
     buffer.  The pools are written in place, so their addresses hold;
     new pool storage (``reset_pools`` after a failed step) has new
     addresses, and the graph is keyed by them, so a graph never replays
-    over freed storage.  The kernel wrappers count launches in Python,
-    which runs once, at capture: the capture's counts are taken back and
-    each replay adds them, so the counts stay the launches the device
-    ran.  A failed capture or replay raises (after the pools are reset,
-    as for any failed step).  On the CPU the same function runs
-    eagerly."""
+    over freed storage.  The capture runs in the thread-local capture
+    mode, on this step's own stream and one capture of the process at a
+    time, so a sibling engine stepping on another thread of the process
+    (an in-process fleet replica) neither breaks nor joins it.  The
+    kernel wrappers count launches in Python, which runs once, at
+    capture: the capturing thread records its launches apart
+    (``recording_launches``) and each replay adds them, so the counts
+    stay the launches the device ran.  A failed capture or replay
+    raises (after the pools are reset, as for any failed step).  On the
+    CPU the same function runs eagerly."""
 
     def __init__(self, model, cache, metrics, max_seqs, loop_steps, device,
                  spec_tokens=0, max_stop_ids=8, max_stop_seqs=4,
@@ -431,6 +415,7 @@ class LoopedRaggedStep:
             max_stop_len=self.max_stop_len)
         self._signatures = SignatureCache(DecodeCacheMetrics(metrics))
         self._graphs = {}     # (pages bucket, pool data_ptrs) -> _LoopGraph
+        self._capture_stream = None
         # capture accounting, read by the smoke run
         self.captures = 0
         self.replays = 0
@@ -518,21 +503,25 @@ class LoopedRaggedStep:
             with torch.cuda.stream(side):
                 self._fn(self._params, *args, *groups)
             torch.cuda.current_stream(self.device).wait_stream(side)
-            before = _launch_counts()
             graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph):
+            # a sibling engine of this process (a fleet replica on its
+            # own worker thread) may launch, allocate and sync its own
+            # stream meanwhile: the capture is thread-local, on a stream
+            # of this step's own, one capture of the process at a time,
+            # and the launches THIS thread records are what a replay adds
+            if self._capture_stream is None:
+                self._capture_stream = torch.cuda.Stream(self.device)
+            with _CAPTURE_LOCK, recording_launches() as launches, \
+                    torch.cuda.graph(graph, stream=self._capture_stream,
+                                     capture_error_mode="thread_local"):
                 out = self._fn(self._params, *args, *groups)[0]
-            torch.cuda.synchronize(self.device)
+            torch.cuda.current_stream(self.device).synchronize()
         except BaseException:
             self._cache.reset_pools()
             raise
-        after = _launch_counts()
-        _restore_launch_counts(before)   # capture launched nothing
-        delta = [(a - b, {k: ad[k] - bd[k] for k in ad})
-                 for (a, ad), (b, bd) in zip(after, before)]
         self.captures += 1
         self.capture_seconds.append(time.perf_counter() - t0)
-        return _LoopGraph(graph, flat, out, delta)
+        return _LoopGraph(graph, flat, out, launches)
 
     def prewarm(self, pages_cols):
         """Touch the pages bucket a loop over `pages_cols` page-table
@@ -577,7 +566,7 @@ class LoopedRaggedStep:
             except BaseException:
                 self._cache.reset_pools()
                 raise
-            _add_launches(g.launches)
+            add_launches(g.launches)
             self.replays += 1
         else:
             flat = torch.as_tensor(host, device=self.device)

@@ -194,6 +194,19 @@ class TinyCausalLM(nn.Module):
                    max_positions=arrays["pos_emb"].shape[0], seed=seed,
                    device=device, _arrays=arrays)
 
+    def __reduce__(self):
+        """Pickle as the constructor's arguments plus the weights as numpy
+        arrays: an unpickler (a replica's worker process) rebuilds the
+        model on ITS device of the same type, and never unpickles device
+        storage."""
+        arrays = {k: getattr(self, k).detach().cpu().numpy()
+                  for k in ("tok_emb", "pos_emb", "ln_f_s", "ln_f_b",
+                            "head")}
+        arrays["blocks"] = [{k: getattr(b, k).detach().cpu().numpy()
+                             for k in _BLOCK_KEYS} for b in self.blocks]
+        return (_rebuild_tiny_causal_lm,
+                (self.num_heads, self.seed, self.device.type, arrays))
+
     @property
     def device(self):
         """Where the weights live."""
@@ -773,3 +786,9 @@ class TinyCausalLM(nn.Module):
             tokens.append(nxt)
             out.append(nxt)
         return out
+
+
+def _rebuild_tiny_causal_lm(num_heads, seed, device, arrays):
+    """The unpickler of TinyCausalLM.__reduce__."""
+    return TinyCausalLM.from_numpy_params(arrays, num_heads, seed=seed,
+                                          device=device)

@@ -213,6 +213,20 @@ class ContinuousBatchingScheduler:
                 return
         raise AssertionError("no free slot (checked by caller)")
 
+    def next_seq_id(self):
+        """One sequence id outside the admission path: a live-migration
+        import (engine.import_sequence) builds its SequenceState
+        directly, bypassing the queue."""
+        sid = self._next_seq
+        self._next_seq += 1
+        return sid
+
+    def place_imported(self, state):
+        """Seat a live-migrated SequenceState straight into a free slot
+        (the caller checked free_slots() > 0 and installed its pages):
+        migration moves a resident, it never queues one."""
+        self._place(state)
+
     def admit(self, limit=None):
         """Move work into free slots while pages allow; returns the newly
         placed SequenceStates.  Head-of-line on capacity: admission stops
@@ -326,6 +340,34 @@ class ContinuousBatchingScheduler:
 
     def pending_count(self):
         return len(self._pending) + len(self.queue)
+
+    def take_pending(self):
+        """Pull every item not yet placed — the pending line first
+        (preempted sequences have seniority), then the admission queue
+        in FIFO order — for a fleet drain (engine.evacuate).  Returns
+        ``[(GenerationRequest, n_emitted)]``, `n_emitted` the tokens the
+        request already streamed (nonzero only for preempted
+        SequenceStates, whose pages were freed at preemption).  Expired
+        requests are reaped with the typed deadline error, as a queue
+        poll would."""
+        out = []
+        while self._pending:
+            item = self._pending.popleft()
+            if isinstance(item, SequenceState):
+                if item.request.expired():
+                    item.request.reject_expired()
+                    if self._metrics is not None:
+                        self._metrics.count_rejected_deadline()
+                    continue
+                out.append((item.request, item.n_generated))
+            else:
+                out.append((item, 0))
+        while True:
+            req = self.queue.poll(timeout=0)   # reaps expired itself
+            if req is None:
+                break
+            out.append((req, 0))
+        return out
 
     def cancel_pending(self, handle):
         """Remove the not-yet-placed item owned by `handle` WITHOUT

@@ -38,9 +38,11 @@ H100.
   the [8, page_size] score blocks of the JAX package's
   ``generation.step_score_blocks`` metric.
 """
-import ctypes
 import collections
+import contextlib
+import ctypes
 import math
+import threading
 
 import torch
 
@@ -309,8 +311,49 @@ def _launch(wrapper, lib_name, entry, q, k_pool, v_pool, layout, page_size,
     if rc != 0:
         raise RuntimeError(f"{lib_name} launch failed: CUDA error {rc} "
                            f"({lib.pa_error_string(rc).decode()})")
-    wrapper.launches += 1
-    wrapper.launches_by_dtype[str(k_pool.dtype).replace("torch.", "")] += 1
+    _count(wrapper, str(k_pool.dtype).replace("torch.", ""))
+
+
+# several engines of one process (a fleet's in-process replicas) launch
+# from their own worker threads: the counts move under one lock, and a
+# thread recording its launches (a CUDA graph capture) counts apart
+_COUNT_LOCK = threading.Lock()
+_RECORDING = threading.local()
+
+
+def _count(wrapper, dtype_name, n=1):
+    rec = getattr(_RECORDING, "counts", None)
+    if rec is not None:
+        entry = rec.setdefault(wrapper, [0, {}])
+        entry[0] += n
+        entry[1][dtype_name] = entry[1].get(dtype_name, 0) + n
+        return
+    with _COUNT_LOCK:
+        wrapper.launches += n
+        wrapper.launches_by_dtype[dtype_name] += n
+
+
+@contextlib.contextmanager
+def recording_launches():
+    """Count the paged kernels' launches made by THIS thread apart from
+    the global counts, into the yielded ``{wrapper: [n, {dtype: n}]}``:
+    a CUDA graph capture launches nothing, and its recorded launches are
+    what each replay adds (``add_launches``), whatever other threads
+    launch meanwhile."""
+    prev = getattr(_RECORDING, "counts", None)
+    _RECORDING.counts = rec = {}
+    try:
+        yield rec
+    finally:
+        _RECORDING.counts = prev
+
+
+def add_launches(recorded):
+    """Add a ``recording_launches`` record to the global counts (one
+    replay of a captured graph)."""
+    for wrapper, (_, by_dtype) in recorded.items():
+        for dtype_name, n in by_dtype.items():
+            _count(wrapper, dtype_name, n)
 
 
 def _counted(wrapper):

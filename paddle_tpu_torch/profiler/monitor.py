@@ -2,6 +2,7 @@
 thread-safe registry (``StatRegistry``).  Readers snapshot via
 stats()/get."""
 import threading
+import time
 
 
 class Stat:
@@ -66,3 +67,19 @@ class StatRegistry:
         with self._lock:
             items = list(self._stats.items())
         return {n: s.get() for n, s in items}
+
+    def reset_all(self):
+        with self._lock:
+            items = list(self._stats.values())
+        for s in items:
+            s.reset()
+
+    def stats_snapshot(self, prefix=None):
+        """A sorted ``{"ts": unix seconds, "stats": {name: value}}`` dict
+        of the registry, optionally filtered to names starting with
+        `prefix` (e.g. "generation." or "fleet.")."""
+        stats = self.stats()
+        if prefix:
+            stats = {k: v for k, v in stats.items() if k.startswith(prefix)}
+        return {"ts": round(time.time(), 3),
+                "stats": dict(sorted(stats.items()))}

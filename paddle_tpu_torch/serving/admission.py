@@ -31,6 +31,14 @@ class RequestTooLargeError(ServingError):
     """A single request can never be scheduled; rejected at submit."""
 
 
+class ReplicaTimeoutError(ServingError, TimeoutError):
+    """A cross-replica RPC exceeded its bounded deadline (the peer is
+    hung, wedged, or the channel is poisoned — not a client deadline,
+    which is DeadlineExceededError).  Idempotent ops retry with backoff
+    under a bounded attempt budget; non-idempotent ops fail fast into the
+    fleet's remigration ladder."""
+
+
 class Request:
     """One in-flight request."""
 

@@ -47,7 +47,38 @@ def test_import_pulls_in_neither_jax_nor_paddle_tpu():
         "nn.layers.pooling", "nn.layers.norm", "nn.layers.container",
         "regularizer", "vision.models.lenet", "vision.models.resnet",
         "vision.models.vgg", "vision.models.mobilenet",
-        "generation.speculation")} <= walked
+        "generation.speculation", "serving.fleet", "serving.control",
+        "serving.disagg.rpc", "serving.disagg.pagecodec",
+        "serving.disagg.page_service", "serving.disagg.faults",
+        "serving.disagg.data_plane", "serving.disagg.transport",
+        "serving.disagg.worker", "serving.disagg.tcp",
+        "serving.disagg.chaos")} <= walked
+
+
+def test_replica_worker_imports_neither_jax_nor_paddle_tpu():
+    """The child process a subprocess replica runs: importing its module
+    pulls in neither JAX nor the JAX package, and the fleet's public
+    names are there."""
+    code = textwrap.dedent("""
+        import sys
+        import paddle_tpu_torch.serving.disagg.worker
+        from paddle_tpu_torch.serving import (
+            CircuitBreaker, FleetConfig, FleetMetrics, FleetRouter,
+            FleetSupervisor, ReplicaSpec, SupervisorConfig)
+        from paddle_tpu_torch.serving.disagg import (
+            FleetPrefixIndex, InprocTransport, SubprocTransport,
+            TcpTransport, page_chain_hashes)
+        bad = sorted(m for m in sys.modules
+                     if m == "jax" or m.startswith("jax.")
+                     or m == "paddle_tpu" or m.startswith("paddle_tpu."))
+        assert not bad, bad
+        print("ok")
+    """)
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0 and proc.stdout.strip() == "ok", \
+        proc.stdout + proc.stderr
 
 
 def test_default_config_resolves_to_cuda_and_never_falls_back():
