@@ -241,7 +241,37 @@ carries on:
    the peer-to-peer wire bytes against raw and the transfer's wall, the
    handoff latency, spawn to ``describe`` of a proc and a tcp child, and
    the longest step of an in-process replica;
-15. the result line.
+15. tensor parallel at GPT-2-small width, every shard on card 0 (a mesh
+   of tp shards named outright, ``tp_mesh(tp, devices=["cuda:0"] * tp)``):
+   (a) the three paged kernels per shard at tp 2 and 4 (6 and 3 heads a
+   shard) on phase 2's main-path operands, float32 and int8, both
+   layouts: one launch a shard, each shard's output against the
+   unsharded call's heads (bitwise is printed; the hold is 2e-5) and
+   against its plain version's shard within 2e-5; (b) phase 3's model
+   and traffic at full depth: the float32 ragged step at tp 2 and 4
+   against phase 3's tp 1 run by phase 4's rule, ragged launches = tp x
+   num_layers x steps and each shard's pool bytes 1/tp of the tp 1
+   pool's; the legacy step at tp 4 against phase 5's run by the same
+   rule, decode and chunk launches = tp x num_layers x calls; int8 at
+   tp 4 against phase 6 (a)'s run by phase 6's bounds, and the int8
+   legacy step at tp 4 against phase 6 (c)'s by its near-tie bound (gaps
+   from phase 6 (a)'s logits), launches counted as above; int8 with the
+   quantized ring (``quantized_collectives``) at tp 4 against its
+   float32-collective sibling: the collective bytes per step cut >= 3x,
+   ``generation.collective_quantized`` 1 and 0, every greedy divergence
+   at a top-2 gap below phase 6's 6e-2 (the int8 ring rounds each
+   all-reduce to a 127th of its chunk's abs-max, as int8 pools round
+   K/V), and its position-wise greedy agreement >= 0.45; the ring
+   itself at tp 4 on row-split products at the main path's width, on
+   the card against the CPU (bitwise, else 4 ulps) and within ``2 tp
+   max|sum| / 127`` of the exact sum; float32 with
+   speculation (K=4) and the captured loop (N=4) at tp 4 against tp 4
+   spec off N=1 by phase 7's rule; (c) at 2 layers, tp 4 on the card and
+   on the CPU, by phase 4's rule; (d) where the call sees 4 cards, (b)'s
+   float32 ragged run over ``tp_mesh(4)``, else a line saying it has
+   one; printed, not gated: tokens/s of every run and the device idle
+   share at tp 1, 2 and 4 over 24 steps of the traffic;
+16. the result line.
 
 Each phase prints its wall seconds.
 
@@ -270,6 +300,22 @@ NEAR_TIE = 1e-4         # CPU top-2 logit gap under which greedy may differ
 # every K/V value)
 INT8_LOGIT_TOL = 3e-2
 INT8_NEAR_TIE = 2 * INT8_LOGIT_TOL  # each of the top two may move that far
+# the int8 ring against float32 collectives (phase 15, int8 pools, tp 4):
+# the least position-wise greedy agreement.  Each divergence may fall only
+# at a near tie, but a stream is not held after its first divergence, so
+# the floor holds the rest: a ring wired wrong (a lost scale, a shard
+# summed twice) turns whole streams to other tokens.  It sits below every
+# reading of the JAX package's own ring against its float32 collectives
+# at this width on the CPU, 0.496-0.793 at 2, 4 and 6 layers over four
+# seeds of this traffic (tests/torch_tp_ring_agreement.py), since on
+# random weights the top two logits are close and a ring's rounding
+# flips them: the port read 0.609-0.805 there and 0.833 on an NVIDIA
+# H100 80GB HBM3 at 700 W at 12 layers.  The rounding itself is held
+# element by element (phase_tp_ring).
+RING_AGREEMENT_FLOOR = 0.45
+# the ring on the card against the same ring on the CPU, where not bitwise
+# (the CPU tests' bound against the JAX ring)
+RING_ULPS = 4
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM published peaks
 FP32_FLOPS_PER_S = 67e12       # CUDA-core FMAs
 # fp32-accurate products on the tensor cores: 3xTF32 takes three TF32
@@ -318,6 +364,15 @@ PREFIX_COUNTERS = ("prefix_cache_hit_tokens", "prefix_pages_registered",
 # loop replicas' N
 FLEET_STOCHASTIC = (1, 3, 5)
 FLEET_LOOP = 4
+# tensor parallel (phase 15): the degrees run with every shard on one card,
+# and the degree of the legacy, int8, quantized-collective and spec + loop
+# runs; the loop's N there
+TP_DEGREES = (2, 4)
+TP_MAIN = 4
+SPEC_LOOP = 4
+# the steps of the traffic whose idle share phase 15 traces: after 8, the
+# next 24 (prefill and decode mixed)
+TP_IDLE_STEPS = (8, 24)
 # the device sampler against the host sampler over [8, vocab] logits:
 # rows sampled, and the most that may differ (a draw within ULPs of a
 # CDF boundary, where the reductions' order decides)
@@ -1125,8 +1180,8 @@ def run_engine(pgen, model, prompts, device, settings=None,
     ttft = sorted(h.first_token_s - h.submitted_s for h in handles
                   if h.first_token_s is not None)
     stats = eng.stats()
-    pool_bytes = sum(t.numel() * t.element_size()
-                     for t in eng.cache.take_pool_state())
+    shard_bytes = eng.cache.bytes_per_shard()
+    pool_bytes = sum(shard_bytes)
     loop = {}
     if lp is not None:
         loop = dict(n=lp.loop_steps, replays=lp.replays - loop0[0],
@@ -1143,7 +1198,8 @@ def run_engine(pgen, model, prompts, device, settings=None,
                 wall=wall, launches=launches["ragged_paged_attention" + tag]
                 if ragged else launches, all_launches=launches, tag=tag,
                 steps=ragged_steps, stats=stats, ttft=ttft,
-                pool_bytes=pool_bytes, loop=loop, extra=extra)
+                pool_bytes=pool_bytes, shard_bytes=shard_bytes, loop=loop,
+                extra=extra)
 
 
 def device_kernels(prof):
@@ -1285,11 +1341,12 @@ def hold_to_rule(label, a, b, prompts, cpu_model, stochastic, logits=True,
     return worst, same
 
 
-def check_legacy_launches(label, run, want_chunk, chunk_calls=None):
+def check_legacy_launches(label, run, want_chunk, chunk_calls=None, tp=1):
     """The legacy step's decode and chunk launches against num_layers x
-    their calls: `chunk_calls` where given (a warm one-shot run's eager
-    suffixes), else the chunk step's calls."""
-    n_layers = MODEL["num_layers"]
+    their calls (x `tp`: a mesh launches once per shard): `chunk_calls`
+    where given (a warm one-shot run's eager suffixes), else the chunk
+    step's calls."""
+    n_layers = MODEL["num_layers"] * tp
     calls = run["records"]
     got = run["launches"]
     tag = run["tag"]
@@ -1556,12 +1613,12 @@ def profile_pass(pgen, eng, traffic, extras):
     return dict(wall=wall, busy=busy)
 
 
-def check_serving_run(label, run, extras):
+def check_serving_run(label, run, extras, tp=1):
     """Every request finished by its length or its stop, and the ragged
     kernel launched num_layers x (ragged steps + N x (loop replays + the
     loop's captures in the run, each after an eager warm-up of N
-    iterations)) times."""
-    n_layers = MODEL["num_layers"]
+    iterations)) times, x `tp` on a mesh (a launch per shard)."""
+    n_layers = MODEL["num_layers"] * tp
     for i, r in enumerate(run["results"]):
         if i in extras:
             if r.finish_reason != "stop":
@@ -3136,6 +3193,375 @@ def fleet_numbers(card, out):
     log(f"  [{card}] fleet: longest step of an in-process replica per run "
         f"{ {k: round(v, 3) for k, v in out['longest'].items()} } s "
         f"(the child replicas' steps: not measured)")
+
+
+# ---------------------------- tensor parallel ----------------------------
+
+
+def card_mesh(tp):
+    """`tp` head shards, every one on card 0, named outright: tp_mesh puts
+    two shards on one card only when asked."""
+    from paddle_tpu_torch.parallel import tp_mesh
+
+    return tp_mesh(tp, devices=["cuda:0"] * tp)
+
+
+def phase_tp_kernels(pa, rng):
+    """Phase 15 (a): each paged kernel per shard at tp 2 and 4 on phase
+    2's main-path operands (12 heads), float32 and int8, both layouts:
+    each shard's output against the unsharded kernel's heads (bitwise,
+    else within KERNEL_TOL with the largest difference printed) and
+    against its plain version's shard, one launch per shard.  Returns
+    the kernel rows' worst shard-vs-plain error and whether every shard
+    was bitwise."""
+    mixed = main_path_desc(rng)
+    lens = main_decode_lens(rng)
+    kinds = [
+        ("ragged_paged_attention",
+         lambda **kw: make_case(rng, desc=mixed, **kw, **MAIN), attn_args,
+         pa.ragged_paged_attention_kernel, pa.ragged_paged_attention_torch),
+        ("paged_decode_attention",
+         lambda **kw: make_decode_case(rng, lens=lens, **kw, **MAIN),
+         decode_args, pa.paged_decode_attention_kernel,
+         pa.paged_decode_attention_torch),
+        ("chunk_prefill_attention",
+         lambda **kw: make_chunk_case(rng, start=536, n=64, **kw, **MAIN),
+         chunk_args, pa.chunk_prefill_attention_kernel,
+         pa.chunk_prefill_attention_torch)]
+    worst, all_bitwise = {}, True
+    for name, make, args_of, kernel, plain in kinds:
+        for kv_dtype, tag in ((torch.float32, ""), (torch.int8, "_int8")):
+            for layout in ("token", "kernel"):
+                case = make(layout=layout, kv_dtype=kv_dtype)
+                args, scales = args_of(case), case["scales"]
+                whole = kernel(*args, layout=layout, **scales)
+                for tp in TP_DEGREES:
+                    mesh = card_mesh(tp)
+                    reset_launches()
+                    shards = kernel(*args, layout=layout, mesh=mesh,
+                                    **scales)
+                    torch.cuda.synchronize()
+                    n = read_launches()[name + tag]
+                    ref = plain(*args, layout=layout, mesh=mesh, **scales)
+                    hs = whole.shape[1] // tp
+                    bitwise, err_whole, err_plain = True, 0.0, 0.0
+                    for i, (got, want) in enumerate(zip(shards, ref)):
+                        part = whole[:, i * hs:(i + 1) * hs]
+                        bitwise &= torch.equal(got, part)
+                        err_whole = max(err_whole,
+                                        float((got - part).abs().max()))
+                        err_plain = max(err_plain,
+                                        float((got - want).abs().max()))
+                    log(f"  {name + tag:29s} {layout:6s} tp {tp} "
+                        f"({hs} heads a shard): {n} launches, shards vs "
+                        f"the unsharded call bitwise={bitwise} max|diff|="
+                        f"{err_whole:.3e}, vs plain max|diff|="
+                        f"{err_plain:.3e}")
+                    if n != tp:
+                        fail(f"{name}{tag} at tp {tp} launched {n} times, "
+                             f"want one a shard ({tp})")
+                    for err, what in ((err_whole, "the unsharded call"),
+                                      (err_plain, "its plain version")):
+                        if not math.isfinite(err) or err > KERNEL_TOL:
+                            fail(f"{name}{tag} tp {tp} {layout}: a shard "
+                                 f"differs from {what} by {err:.3e} > "
+                                 f"{KERNEL_TOL}")
+                    all_bitwise &= bitwise
+                    worst[name + tag] = max(worst.get(name + tag, 0.0),
+                                            err_plain)
+    return worst, all_bitwise
+
+
+def phase_tp_ring(rng):
+    """Phase 15 (b)'s quantized ring held element by element: at tp 4,
+    every shard on card 0, on row-split products at the main path's
+    width (72 packed rows, and 70, which pads), the card's result on
+    every shard against the same ring on the CPU (bitwise, else within
+    RING_ULPS ulps: a rounding that flipped on some hop moves a value by
+    a 127th of its chunk's abs-max) and against the exact sum within
+    ``2 tp max|sum| / 127``, the bound the CPU tests hold the JAX ring's
+    arithmetic to.  Returns the worst error against the exact sum, as a
+    share of that bound, and whether the card was bitwise the CPU."""
+    from paddle_tpu_torch.parallel import quantized_ring_allreduce, tp_mesh
+
+    d = MODEL["num_heads"] * MODEL["head_dim"]
+    cpu_mesh = tp_mesh(TP_MAIN, devices=["cpu"] * TP_MAIN)
+    worst, bitwise = 0.0, True
+    for rows in (72, 70):
+        parts = [torch.from_numpy(
+            rng.standard_normal((rows, d // TP_MAIN)).astype(np.float32)
+            @ (0.02 * rng.standard_normal((d // TP_MAIN, d))).astype(
+                np.float32)) for _ in range(TP_MAIN)]
+        card = quantized_ring_allreduce([p.cuda() for p in parts],
+                                        card_mesh(TP_MAIN))
+        cpu = quantized_ring_allreduce(parts, cpu_mesh)[0]
+        exact = torch.stack(parts).double().sum(0)
+        bound = 2 * TP_MAIN * float(exact.abs().max()) / 127
+        ulps = RING_ULPS * float(torch.finfo(torch.float32).eps
+                                 * cpu.abs().max())
+        for i, got in enumerate(card):
+            got = got.cpu()
+            same = torch.equal(got, cpu)
+            err_cpu = float((got - cpu).abs().max())
+            err = float((got.double() - exact).abs().max())
+            bitwise &= same
+            worst = max(worst, err / bound)
+            if not same and err_cpu > ulps:
+                fail(f"the quantized ring on the card (shard {i}, {rows} "
+                     f"rows) differs from the CPU's by {err_cpu:.3e} > "
+                     f"{RING_ULPS} ulps ({ulps:.3e})")
+            if not err <= bound:
+                fail(f"the quantized ring (shard {i}, {rows} rows) is "
+                     f"{err:.3e} from the exact sum, > {bound:.3e}")
+        log(f"  quantized ring, tp {TP_MAIN}, [{rows}, {d}] partials: card "
+            f"vs CPU bitwise={bitwise}, worst |ring - exact sum| "
+            f"{worst:.3f} of the bound 2 tp max|sum| / 127")
+    return worst, bitwise
+
+
+def check_tp_run(label, run, tp, base, kernel="ragged_paged_attention",
+                 calls=None):
+    """A mesh run's launches (tp x num_layers x its step calls: `calls`
+    where given, else its ragged steps) and its shards' pool bytes (each
+    1/tp of the one-device run `base`'s)."""
+    want = tp * MODEL["num_layers"] * (run["steps"] if calls is None
+                                       else calls)
+    got = (run["launches"] if isinstance(run["launches"], int)
+           else run["launches"][kernel + run["tag"]])
+    shards = run["shard_bytes"]
+    st = run["stats"]
+    log(f"  {label}: {run['steps']} steps, {run['wall']:.3f} s; "
+        f"{kernel + run['tag']} launches {got} (tp x num_layers x calls "
+        f"= {want}); shard pool bytes {shards[0]} x {len(shards)} against "
+        f"{base['shard_bytes'][0]} on one device; collective bytes per step "
+        f"{st['generation.collective_bytes_per_step']} (quantized "
+        f"{st['generation.collective_quantized']}); mesh devices "
+        f"{st['generation.mesh_devices']}")
+    if got != want or got == 0:
+        fail(f"{label}: {kernel}{run['tag']} launched {got} times, want "
+             f"{want}")
+    if len(shards) != tp or any(b * tp != base["shard_bytes"][0]
+                                for b in shards):
+        fail(f"{label}: shard pool bytes {shards}, want "
+             f"{base['shard_bytes'][0]} / {tp} each")
+    if st["generation.mesh_devices"] != tp:
+        fail(f"{label}: generation.mesh_devices "
+             f"{st['generation.mesh_devices']}, want {tp}")
+
+
+def greedy_agreement(a, b, stochastic=STOCHASTIC):
+    """Matching greedy tokens position by position between two runs, and
+    their count."""
+    match = total = 0
+    for i, (x, y) in enumerate(zip(a["results"], b["results"])):
+        if i in stochastic:
+            continue
+        total += max(len(x.token_ids), len(y.token_ids))
+        match += sum(p == q for p, q in zip(x.token_ids, y.token_ids))
+    return match, total
+
+
+def phase_tp(pgen, pa, model, cpu_model, prompts, held, base):
+    """Phase 15: tensor-parallel serving, every shard on card 0 (and on
+    several cards where this call sees them).  `base` holds this call's
+    one-device card runs of the same traffic: phase 3's float32 ragged,
+    phase 5's legacy, phase 6 (a)'s int8 ragged and (c)'s int8 legacy.
+    Returns the runs and numbers phase 15's numbers and the result line
+    read."""
+    n_layers = MODEL["num_layers"]
+    out = {}
+    log(f"  (a) the paged kernels per shard at tp {TP_DEGREES} on the "
+        f"main path's operands")
+    out["kernel_err"], out["bitwise"] = phase_tp_kernels(
+        pa, np.random.default_rng(15))
+    log(f"  (b) the engine at GPT-2-small width, {n_layers} layers, every "
+        f"shard on cuda:0")
+    runs = {1: base["ragged"]}
+    for tp in TP_DEGREES:
+        runs[tp] = run_engine(pgen, model, prompts, "cuda",
+                              {"mesh": card_mesh(tp)})
+        check_tp_run(f"float32 ragged tp {tp}", runs[tp], tp, base["ragged"])
+        hold_ragged(f"float32 ragged tp {tp} vs tp 1", runs[tp],
+                    base["ragged"], prompts)
+    mesh = card_mesh(TP_MAIN)
+    legacy = run_engine(pgen, model, prompts, "cuda",
+                        {**LEGACY, "mesh": mesh})
+    check_legacy_launches(f"legacy tp {TP_MAIN}", legacy, want_chunk=True,
+                          tp=TP_MAIN)
+    check_tp_run(f"legacy tp {TP_MAIN}", legacy, TP_MAIN, base["legacy"],
+                 "paged_decode_attention", legacy["records"]["decode"])
+    hold_to_rule(f"legacy tp {TP_MAIN} vs tp 1", legacy, base["legacy"],
+                 prompts, cpu_model, STOCHASTIC)
+    int8 = run_engine(pgen, model, prompts, "cuda", {**INT8, "mesh": mesh})
+    check_tp_run(f"int8 ragged tp {TP_MAIN}", int8, TP_MAIN, base["int8"])
+    hold_ragged(f"int8 ragged tp {TP_MAIN} vs tp 1", int8, base["int8"],
+                prompts, INT8_LOGIT_TOL, INT8_NEAR_TIE)
+    int8_legacy = run_engine(pgen, model, prompts, "cuda",
+                             {**LEGACY, **INT8, "mesh": mesh})
+    check_legacy_launches(f"int8 legacy tp {TP_MAIN}", int8_legacy,
+                          want_chunk=True, tp=TP_MAIN)
+
+    def int8_legacy_gap(i, k):
+        top2 = np.sort(logits_at(base["int8"], i, k, len(prompts[i])))[-2:]
+        return float(top2[1] - top2[0])
+
+    hold_to_rule(f"int8 legacy tp {TP_MAIN} vs tp 1", int8_legacy,
+                 base["int8_legacy"], prompts, cpu_model, STOCHASTIC,
+                 logits=False, gap_of=int8_legacy_gap,
+                 near_tie=INT8_NEAR_TIE)
+    quant = run_engine(pgen, model, prompts, "cuda",
+                       {**INT8, "mesh": mesh, "quantized_collectives": True})
+    check_tp_run(f"int8 ragged tp {TP_MAIN}, quantized collectives", quant,
+                 TP_MAIN, base["int8"])
+    out["ring_err"], out["ring_bitwise"] = phase_tp_ring(
+        np.random.default_rng(16))
+    match, total = greedy_agreement(int8, quant)
+    fp_b = int8["stats"]["generation.collective_bytes_per_step"]
+    q_b = quant["stats"]["generation.collective_bytes_per_step"]
+    if quant["stats"]["generation.collective_quantized"] != 1 \
+            or int8["stats"]["generation.collective_quantized"] != 0:
+        fail("generation.collective_quantized does not say which run "
+             "carried the quantized ring")
+    if fp_b / q_b < 3.0:
+        fail(f"quantized collectives cut the bytes per step "
+             f"{fp_b / q_b:.2f}x, want >= 3x")
+
+    def int8_gap(i, k):
+        top2 = np.sort(logits_at(int8, i, k, len(prompts[i])))[-2:]
+        return float(top2[1] - top2[0])
+
+    # the int8 ring rounds every all-reduce to a 127th of its chunk's
+    # abs-max, 24 times a token: like int8 pools it may flip a near tie,
+    # held by phase 6's bound; what follows a divergence, by the floor
+    _, same = hold_to_rule(
+        f"int8 tp {TP_MAIN} quantized vs float32 collectives", quant, int8,
+        prompts, cpu_model, STOCHASTIC, logits=False, gap_of=int8_gap,
+        near_tie=INT8_NEAR_TIE)
+    log(f"  quantized collectives vs float32 collectives (int8 pools, tp "
+        f"{TP_MAIN}): {same} of {len(prompts)} streams identical; greedy "
+        f"agreement {match}/{total} = {match / total:.4f} (floor "
+        f"{RING_AGREEMENT_FLOOR}); "
+        f"collective bytes per step {q_b} vs {fp_b} ({fp_b / q_b:.2f}x "
+        f"fewer)")
+    if match / total < RING_AGREEMENT_FLOOR:
+        fail(f"quantized collectives agree with float32 collectives on "
+             f"{match}/{total} = {match / total:.4f} greedy tokens, want "
+             f">= {RING_AGREEMENT_FLOOR}")
+    spec = run_engine(pgen, model, prompts, "cuda",
+                      {**SPEC, "loop_steps": SPEC_LOOP, "mesh": mesh})
+    check_serving_run(f"float32 spec on N={SPEC_LOOP} tp {TP_MAIN}", spec,
+                      {}, tp=TP_MAIN)
+    if not spec["stats"]["generation.spec_accepted_tokens"]:
+        fail("speculation on the mesh accepted no draft")
+
+    def base_gap(i, k):
+        top2 = np.sort(logits_at(runs[TP_MAIN], i, k, len(prompts[i])))[-2:]
+        return float(top2[1] - top2[0])
+
+    hold_to_rule(f"spec on N={SPEC_LOOP} vs spec off N=1, tp {TP_MAIN}",
+                 spec, runs[TP_MAIN], prompts, cpu_model, STOCHASTIC,
+                 logits=False, gap_of=base_gap)
+    log(f"  (c) the card against the CPU at {HELD_LAYERS} layers, tp "
+        f"{TP_MAIN} on both (plain versions on the CPU)")
+    from paddle_tpu_torch.parallel import tp_mesh
+
+    card = run_engine(pgen, held[0], prompts, "cuda", {"mesh": mesh})
+    want = TP_MAIN * HELD_LAYERS * card["steps"]
+    if card["launches"] != want or not want:
+        fail(f"tp {TP_MAIN} at {HELD_LAYERS} layers: ragged kernel launched "
+             f"{card['launches']} times, want {want}")
+    cpu = run_engine(pgen, held[1], prompts, "cpu",
+                     {"mesh": tp_mesh(TP_MAIN, devices=["cpu"] * TP_MAIN)})
+    if any(cpu["all_launches"].values()):
+        fail("the CPU mesh engine launched a CUDA kernel")
+    out["card_vs_cpu"] = hold_ragged(
+        f"tp {TP_MAIN} card vs CPU, {HELD_LAYERS} layers", card, cpu,
+        prompts)
+    n_cards = torch.cuda.device_count()
+    log(f"  (d) torch.cuda.device_count() = {n_cards}")
+    if n_cards >= TP_MAIN:
+        cross = run_engine(pgen, model, prompts, "cuda",
+                           {"mesh": tp_mesh(TP_MAIN)})
+        check_tp_run(f"float32 ragged over {TP_MAIN} cards", cross, TP_MAIN,
+                     base["ragged"])
+        hold_ragged(f"{TP_MAIN} cards vs one", cross, base["ragged"],
+                    prompts)
+        log(f"  across {TP_MAIN} cards: "
+            f"{cross['stats']['generation.collective_bytes_per_step']} "
+            f"bytes moved between cards per step (the all-reduces' "
+            f"estimate)")
+        out["cross"] = cross
+    else:
+        log(f"  this call has {n_cards} card(s): no cross-card run made")
+    out.update(runs=runs, legacy=legacy, int8=int8, int8_legacy=int8_legacy,
+               quant=quant, spec=spec, agreement=(match, total),
+               bytes=(fp_b, q_b))
+    return out
+
+
+def profile_window(pgen, model, prompts, settings):
+    """The traffic on a fresh card engine, its steps TP_IDLE_STEPS[0] +
+    1 .. + TP_IDLE_STEPS[1] traced by torch.profiler (CUDA activity
+    only, so a mesh's tp-fold kernels stay cheap to read back): wall
+    seconds, kernel busy seconds on the device, and the steps traced."""
+    from torch.profiler import ProfilerActivity, profile
+
+    eng, handles, _, _ = serve(pgen, model, prompts, "cuda", settings)
+    skip, n = TP_IDLE_STEPS
+    for _ in range(skip):
+        eng.step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        steps = 0
+        while steps < n and (eng.scheduler.active()
+                             or eng.scheduler.pending_count()):
+            eng.step()
+            steps += 1
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    eng.run_until_idle()
+    for h in handles:
+        h.result(timeout=60)
+    eng.shutdown()
+    busy = sum(us for us, _ in device_kernels(prof).values()) / 1e6
+    return wall, busy, steps
+
+
+def tp_numbers(pgen, model, prompts, card, tp_out):
+    """Phase 15's numbers: tokens/s of its runs at tp 1, 2 and 4 on one
+    card, and each degree's device idle share under torch.profiler over a
+    window of the traffic's steps (printed, not gated: on one card a mesh
+    makes tp times the launches)."""
+    for label, run in [(f"tp {tp}", tp_out["runs"][tp])
+                       for tp in sorted(tp_out["runs"])] + [
+            (f"legacy tp {TP_MAIN}", tp_out["legacy"]),
+            (f"int8 tp {TP_MAIN}", tp_out["int8"]),
+            (f"int8 legacy tp {TP_MAIN}", tp_out["int8_legacy"]),
+            (f"int8 tp {TP_MAIN} quantized collectives", tp_out["quant"]),
+            (f"spec + N={SPEC_LOOP} tp {TP_MAIN}", tp_out["spec"])]:
+        toks = sum(len(r.token_ids) for r in run["results"])
+        log(f"  [{card}] {label}: {toks / run['wall']:.1f} tokens/s over "
+            f"{run['steps']} steps ({run['wall'] / run['steps'] * 1e3:.2f} "
+            f"ms per step); collective bytes per step "
+            f"{run['stats']['generation.collective_bytes_per_step']}")
+    for tp in sorted(tp_out["runs"]):
+        settings = None if tp == 1 else {"mesh": card_mesh(tp)}
+        wall, busy, steps = profile_window(pgen, model, prompts, settings)
+        if busy > 0:
+            log(f"  [{card}] ragged tp {tp} under torch.profiler, steps "
+                f"{TP_IDLE_STEPS[0] + 1}-{TP_IDLE_STEPS[0] + steps} of the "
+                f"run: wall {wall:.3f} s, kernels busy {busy:.3f} s, idle "
+                f"share {1 - busy / wall:.1%}")
+        else:
+            log(f"  [{card}] ragged tp {tp}: torch.profiler recorded no "
+                f"device time: device idle share not measured")
+    fp_b, q_b = tp_out["bytes"]
+    match, total = tp_out["agreement"]
+    log(f"  [{card}] tensor parallel: shards bitwise the unsharded kernels "
+        f"{tp_out['bitwise']}; card vs CPU first-token logits max|diff| "
+        f"{tp_out['card_vs_cpu']:.3e}; quantized collectives {q_b} bytes "
+        f"per step against {fp_b}, greedy agreement {match}/{total}")
 
 
 # ------------------------ flash attention cases -------------------------
@@ -4848,6 +5274,16 @@ def main():
     encoder_numbers(card, encoder)
     resnet_numbers(card, resnet)
     vision_numbers(card, vision, resnet)
+
+    phase("phase 15: tensor parallel at GPT-2-small width (tp 2 and 4, "
+          "every shard on one card: the paged kernels per shard; ragged, "
+          "legacy, int8, quantized collectives, spec + loop; card vs CPU)")
+    tp_out = phase_tp(pgen, pa, model, cpu_model, prompts, held,
+                      {"ragged": gpu, "legacy": legacy, "int8": q_ragged,
+                       "int8_legacy": q_legacy})
+    tp_numbers(pgen, model, prompts, card, tp_out)
+    for name, err in tp_out["kernel_err"].items():
+        max_err[name] = max(max_err[name], err)
     phase(None)
     log(f"  whole run {time.perf_counter() - t_start:.1f} s wall")
     launches = {"ragged_paged_attention": gpu["launches"],
@@ -4858,6 +5294,19 @@ def main():
                                 "chunk_prefill_attention")},
                 **{k["name"]: train["launches"][k["name"]]
                    for k in FLASH_KERNELS}}
+    # each paged kernel's launches per shard on phase 15's main-path mesh
+    # runs (tp TP_MAIN): the ragged kernel's float32 and int8 ragged runs,
+    # the decode and chunk kernels' float32 and int8 legacy runs
+    per_shard = {
+        "ragged_paged_attention": tp_out["runs"][TP_MAIN]["launches"],
+        "ragged_paged_attention_int8": tp_out["int8"]["launches"],
+        **{name + tag: tp_out[run]["launches"][name + tag]
+           for run, tag in (("legacy", ""), ("int8_legacy", "_int8"))
+           for name in ("paged_decode_attention",
+                        "chunk_prefill_attention")}}
+    mesh_keys = {name: {"mesh": {"tp": TP_MAIN,
+                                 "launches_per_shard": n // TP_MAIN}}
+                 for name, n in per_shard.items()}
     print(json.dumps({"kernels": [{
         "name": k["name"], "route": "cuda",
         "source": f"paddle_tpu_torch/csrc/{k['lib']}.cu",
@@ -4866,7 +5315,8 @@ def main():
         "plain_ms": numbers[k["name"]][1],
         "bound_ms": numbers[k["name"]][2],
         "bound_by": numbers[k["name"]][3],
-        "library_ms": numbers[k["name"]][4]}
+        "library_ms": numbers[k["name"]][4],
+        **mesh_keys.get(k["name"], {})}
         for k in KERNELS + FLASH_KERNELS]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -16,7 +16,9 @@ PyTorch version (the ``*_reference`` names):
 
 Each takes ``k_scale`` / ``v_scale``, the ``[P, H]`` scales of an int8
 pool (``DeviceKVPool.layer_scales``), and refuses an int8 pool without
-them or scales with a float pool.
+them or scales with a float pool.  Each takes ``mesh=`` too: under a
+tensor-parallel mesh the pools, scales and queries are lists of head
+shards and the call runs once per shard, returning the output shards.
 
 Their masking makes padded keys contribute exactly zero
 (``exp(NEG_INF - m)`` underflows to 0.0), so padding the key or

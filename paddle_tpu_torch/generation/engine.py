@@ -60,6 +60,17 @@ The engine runs on the card unless the config asks for the CPU: a
 engine raises when CUDA is absent.  On the CPU every attention call
 takes the kernel's plain PyTorch version.
 
+With ``mesh`` (``parallel.tp_mesh``) the engine serves tensor parallel:
+one process drives every shard.  The pools and int8 scales split on
+their head axis, the weights Megatron style (Q/K/V and w1 by column, wo
+and w2 by row), each paged attention call runs once per shard on its
+``num_heads / tp`` heads, and the two row-split matmuls of each layer
+end in one all-reduce (float32, or the int8 ring with
+``quantized_collectives``).  Scheduling, page tables, the prefix index
+and sampling stay host state, computed once per step; the ragged and
+legacy steps, the one-shot prefill, speculation, the loop, prefix
+caching and page export/import all run on it.
+
 Overload behaviour: a full queue raises ServerBusyError at submit,
 lapsed deadlines resolve handles with DeadlineExceededError, and page
 exhaustion preempts the youngest sequences (recompute-style) before
@@ -76,13 +87,15 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..parallel.env import TPMesh
 from ..profiler import RecordEvent
 from ..serving.admission import RequestTooLargeError, ServingError
 from ..serving.bucketing import ShapeBucketer, SignatureCache
 from .decode_attention import (chunk_prefill_attention,
                                paged_decode_attention)
 from .fused import (ChunkedPrefillStep, FusedDecodeStep,
-                    LoopedRaggedStep, RaggedStep, decode_batch_menu)
+                    LoopedRaggedStep, RaggedStep, _shard_params,
+                    decode_batch_menu, refuse_cross_card_loop)
 from .kv_cache import DeviceKVPool, OutOfPagesError
 from .metrics import GenerationMetrics, StepTimer
 from .sampling import (SampleStream, SamplingParams, sample_token,
@@ -157,9 +170,18 @@ class GenerationConfig:
         the card with chunked prefill on, off on the CPU (where the
         parity tests anchor on the cold path; warm against cold is
         tested on its own).
-
-    A mesh, which the JAX engine takes, is accepted here and refused with
-    NotImplementedError when the engine is built.
+    mesh: a ``parallel.TPMesh`` (``tp_mesh``) turning on tensor-parallel
+        serving over its shards (the module docstring).  The model's
+        heads must divide by the mesh axis, and the legacy decode must
+        be the fused one.  `device` defaults to the mesh's first device,
+        where host-fed inputs land, and must be it when given.
+    tp_axis: the mesh axis to shard heads over; None = the mesh's first
+        axis.  Only meaningful with `mesh`.
+    quantized_collectives: the two per-layer all-reduces of a sharded
+        step run as the int8 ring (``parallel.quantized_allreduce``),
+        cutting ``generation.collective_bytes_per_step`` about 4x at a
+        bounded logit drift; inert without a mesh or at tp 1
+        (``generation.collective_quantized`` says whether it is on).
     """
 
     def __init__(self, max_decode_slots=8, num_pages=256, page_size=16,
@@ -169,7 +191,7 @@ class GenerationConfig:
                  prefill_chunk_tokens=None, step_token_budget=None,
                  step_mode=None, prefill_pack=True, spec_mode=None,
                  spec_tokens=4, loop_steps=1, prefix_cache=None, mesh=None,
-                 device=None):
+                 tp_axis=None, quantized_collectives=False, device=None):
         self.max_decode_slots = int(max_decode_slots)
         self.num_pages = int(num_pages)
         self.page_size = int(page_size)
@@ -246,19 +268,21 @@ class GenerationConfig:
                 f"prefix_cache must be True, False or None (auto), got "
                 f"{prefix_cache!r}")
         self.prefix_cache = prefix_cache
+        self.quantized_collectives = bool(quantized_collectives)
+        if mesh is not None:
+            if not isinstance(mesh, TPMesh):
+                raise ValueError(
+                    f"mesh must be a parallel.TPMesh with a named axis, got "
+                    f"{type(mesh).__name__}")
+            tp_axis = mesh.tp_axis(tp_axis)
+        elif tp_axis is not None:
+            raise ValueError(
+                f"tp_axis={tp_axis!r} without a mesh makes no sense")
         self.mesh = mesh
-        self.device = "cuda" if device is None else str(device)
-
-
-def _refuse_unported(cfg):
-    """NotImplementedError for the setting the port does not run yet — a
-    mesh — never a silent switch to another path."""
-    if cfg.mesh is not None:
-        raise NotImplementedError(
-            "not supported by the PyTorch port yet: mesh (it serves the "
-            "ragged and legacy steps, prefix caching, speculative decoding "
-            "and the host-free decode loop on float32, bfloat16 and int8 "
-            "pools of one card)")
+        self.tp_axis = tp_axis
+        if device is None:
+            device = mesh.devices[0] if mesh is not None else "cuda"
+        self.device = str(device)
 
 
 def _require(model, names, what):
@@ -276,25 +300,46 @@ class _FifoLock:
     thread waiting for the engine (a fleet's live import or handoff, a
     cancel, a drain) could wait tens of steps.  Here each waiter gets the
     lock at the next step boundary.  Not reentrant, like the lock it
-    replaces."""
+    replaces.
+
+    A waiter whose wait raises (a KeyboardInterrupt in ``cancel`` or
+    ``generate``) gives its ticket up before the exception leaves: marked
+    abandoned, so the lock passes over it, or, when the lock reached it
+    as the wait died, passed straight on.  A lost ticket would otherwise
+    never be served, and every later acquire would block forever."""
 
     def __init__(self):
         self._cond = threading.Condition(threading.Lock())
         self._tickets = 0    # handed out
         self._serving = 0    # the ticket that holds the lock
+        self._abandoned = set()   # tickets whose waiter gave up
 
     def acquire(self):
         with self._cond:
             ticket = self._tickets
             self._tickets += 1
-            while ticket != self._serving:
-                self._cond.wait()
+            try:
+                while ticket != self._serving:
+                    self._cond.wait()
+            except BaseException:
+                if ticket == self._serving:
+                    self._advance()
+                else:
+                    self._abandoned.add(ticket)
+                raise
         return True
+
+    def _advance(self):
+        """Serve the next live ticket (the condition's lock held)."""
+        self._serving += 1
+        while self._serving in self._abandoned:
+            self._abandoned.discard(self._serving)
+            self._serving += 1
+        self._cond.notify_all()
 
     def release(self):
         with self._cond:
-            self._serving += 1
-            self._cond.notify_all()
+            self._advance()
 
     def __enter__(self):
         return self.acquire()
@@ -401,8 +446,21 @@ class GenerationEngine:
         self.model = model
         self.config = cfg = config or GenerationConfig()
         self.metrics = metrics or GenerationMetrics()
-        _refuse_unported(cfg)
+        if cfg.loop_steps > 1:
+            refuse_cross_card_loop(cfg.device, cfg.mesh)
         self.device = resolve_device(cfg.device, "GenerationEngine")
+        # tensor parallel: one process drives every shard of the mesh; the
+        # engine's device is its first, where host-fed inputs land
+        self.mesh = mesh = cfg.mesh
+        self.tp_axis = cfg.tp_axis
+        self.tp_degree = 1 if mesh is None else int(mesh.shape[cfg.tp_axis])
+        if mesh is not None and self.device != mesh.devices[0]:
+            raise ValueError(
+                f"the engine's device {self.device} is not the mesh's first "
+                f"device {mesh.devices[0]}: host-fed inputs land there")
+        # the quantized ring is real only where collectives exist (tp > 1)
+        self._quant_collectives = (cfg.quantized_collectives
+                                   and self.tp_degree > 1)
         spec_on = cfg.spec_mode == "ngram"
         loop_on = cfg.loop_steps > 1
         # speculation and the loop ride the ragged step: asking for either
@@ -412,13 +470,26 @@ class GenerationEngine:
             else "ragged")
         self.decode_mode = ("ragged" if self.step_mode == "ragged"
                             else cfg.decode or "fused")
+        if mesh is not None and self.decode_mode == "eager":
+            raise ValueError(
+                "a mesh serves only through the fused or ragged decode "
+                "(one step call per step); decode='eager' under a mesh is "
+                "not supported — the eager one-device path is the oracle "
+                "the sharded engine is held to")
         self.prefill_chunk_tokens = chunk = cfg.prefill_chunk_tokens
         self._check_model(model, chunk)
         self.cache = DeviceKVPool(
             model.num_layers, model.num_heads, model.head_dim,
             num_pages=cfg.num_pages, page_size=cfg.page_size,
             dtype=cfg.kv_dtype, pool_layout=cfg.pool_layout,
-            device=self.device)
+            device=self.device, mesh=mesh, tp_axis=cfg.tp_axis)
+        # the weights on their shards, shared by every step owner (None
+        # without a mesh: each owner takes the model's on its device)
+        self._tp_params = (None if mesh is None
+                           else _shard_params(model, mesh, cfg.tp_axis))
+        tp_kw = {} if mesh is None else {
+            "mesh": mesh, "quant_collectives": self._quant_collectives,
+            "params": self._tp_params}
         # int8 pools count their scale bytes apart, per step
         self.kv_quant = bool(self.cache.quantized)
         self.scheduler = ContinuousBatchingScheduler(
@@ -472,23 +543,24 @@ class GenerationEngine:
             self._ragged = RaggedStep(model, self.cache, self.metrics,
                                       max_tokens=self.step_token_budget,
                                       max_seqs=slots + 1, device=self.device,
-                                      spec_tokens=self.spec_tokens)
+                                      spec_tokens=self.spec_tokens, **tp_kw)
         else:
             if self.decode_mode == "fused":
                 self._fused = FusedDecodeStep(model, self.cache,
                                               self.metrics,
                                               decode_batch_menu(slots),
-                                              self.device)
+                                              self.device, **tp_kw)
             if chunk:
                 self._chunk_step = ChunkedPrefillStep(
-                    model, self.cache, self.metrics, chunk, self.device)
+                    model, self.cache, self.metrics, chunk, self.device,
+                    **tp_kw)
         # the host-free loop, built beside the single step, which stays
         # the path of every boundary that is not decode-only
         if loop_on:
             self._loop = LoopedRaggedStep(
                 model, self.cache, self.metrics, max_seqs=slots,
                 loop_steps=cfg.loop_steps, device=self.device,
-                spec_tokens=self.spec_tokens)
+                spec_tokens=self.spec_tokens, **tp_kw)
         self.loop_steps = cfg.loop_steps if loop_on else 1
         # the prompt-lookup proposer (None: speculation off)
         self._spec = NgramProposer() if spec_on else None
@@ -502,6 +574,9 @@ class GenerationEngine:
         # schema is complete from the first snapshot
         self.metrics.set_spec_mode(cfg.spec_mode)
         self.metrics.set_loop_steps(self.loop_steps)
+        # the topology and whether the quantized ring is really on
+        self.metrics.set_mesh_devices(self.tp_degree)
+        self.metrics.set_collective_quantized(self._quant_collectives)
         self._lock = _FifoLock()  # one stepper at a time
         # step progress: bumped after every completed step(), with
         # `_in_step` set while a step holds the lock (a first-shape build
@@ -1147,6 +1222,8 @@ class GenerationEngine:
         self.metrics.observe_decode_step(self._fused.last_dispatches,
                                          self._fused.last_syncs,
                                          self._fused.last_uploads)
+        self.metrics.observe_collective_bytes(
+            self._fused.last_collective_bytes)
         return all_greedy, out
 
     # -------------------------- one-shot prefill ---------------------
@@ -1246,12 +1323,14 @@ class GenerationEngine:
         attend callback writes the layer's K/V span into the pools, then
         runs chunk-prefill attention over the sequence's page table (the
         hand-written kernel on the card, its plain version on the CPU).
-        Returns the chunk's last-position logits on the device."""
+        Under a mesh the callback takes and returns per-shard lists, and
+        the call runs once per shard.  Returns the chunk's last-position
+        logits on the device."""
         seq_id = state.seq_id
-        n = len(tokens)
         layout = self.cache.pool_layout
         pt = torch.as_tensor(np.asarray(self.cache.page_table(seq_id),
                                         np.int32), device=self.device)
+        mesh_kw = {} if self.mesh is None else {"mesh": self.mesh}
 
         def attend(layer, q, k_new, v_new):
             self.cache.write_prefill_tokens(seq_id, start, layer, k_new,
@@ -1260,10 +1339,13 @@ class GenerationEngine:
             k_scale, v_scale = self.cache.layer_scales(layer)
             return chunk_prefill_attention(q, k_pool, v_pool, pt, start,
                                            layout=layout, k_scale=k_scale,
-                                           v_scale=v_scale)
+                                           v_scale=v_scale, **mesh_kw)
 
+        model_kw = {} if self.mesh is None else {
+            **mesh_kw, "quant_collectives": self._quant_collectives,
+            "params": self._tp_params}
         return self.model.prefill_chunk(np.asarray(tokens, np.int32), start,
-                                        attend)
+                                        attend, **model_kw)
 
     def _register_prefix(self, state):
         """Index the completed prompt's full pages for future matches (a
@@ -1300,6 +1382,8 @@ class GenerationEngine:
                 state.seq_id, state.tokens[start:start + n], start)
             # the scatter ran inside the call; count its O(tokens) bound
             self.cache.count_fused_append(n)
+            self.metrics.observe_collective_bytes(
+                self._chunk_step.last_collective_bytes)
         state.prefill_pos += n
         self.metrics.count_prefill(n)
         self.metrics.count_chunk()
@@ -1498,6 +1582,8 @@ class GenerationEngine:
                                                 ids_dev, logits_dev)
         self.metrics.observe_decode_step(self._ragged.last_dispatches,
                                          syncs, self._ragged.last_uploads)
+        self.metrics.observe_collective_bytes(
+            self._ragged.last_collective_bytes)
         # zero padded_token_waste by construction: descriptors cover
         # exactly the packed rows; the fixed axis's inert slots are
         # reported by step_row_utilization
@@ -1725,6 +1811,7 @@ class GenerationEngine:
                                          lp.last_uploads)
         self.metrics.observe_loop(sampled, lp.last_syncs, iters < n_steps,
                                   wasted)
+        self.metrics.observe_collective_bytes(lp.last_collective_bytes)
         self.metrics.observe_step_rows(lp.last_rows_useful,
                                        lp.last_rows_dispatched, 0)
         return b, sampled

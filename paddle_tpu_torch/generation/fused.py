@@ -37,6 +37,12 @@ one call of the model's ragged step function:
   capture would be keyed on);
 - greedy is folded in: the step returns both the argmax ids [S] and the
   logits [S, V] on the device, and the engine fetches one of them.
+
+Under a tensor-parallel mesh (``mesh=``) each owner calls the model's
+step function built with the mesh, on params committed to their shards by
+`_shard_params` (shared between an engine's owners), and records the
+estimated all-reduce bytes of each call (`last_collective_bytes`,
+`_collective_bytes_estimate`) from the padded rows it dispatched.
 """
 import threading
 import time
@@ -46,8 +52,82 @@ import torch
 
 from ..ops.paged_attention import (add_launches, ragged_score_blocks,
                                    recording_launches)
+from ..parallel.quantized_allreduce import quantized_collective_bytes
+from ..parallel.sharding_annotations import shard_heads
 from ..serving.bucketing import ShapeBucketer, SignatureCache
 from .metrics import DecodeCacheMetrics
+
+
+def _shard_params(model, mesh, tp_axis=None):
+    """The model's ``decode_params()`` committed to the mesh's shards, as
+    per-shard lists of leaves: each leaf its model's
+    ``decode_param_specs`` splits (Megatron column / row) becomes its
+    `shard_heads` pieces, a fresh contiguous tensor on each shard's
+    device; every other leaf one copy per distinct device.  A model
+    without specs runs replicated weights."""
+    tp_axis = mesh.tp_axis(tp_axis)
+    params = model.decode_params()
+    specs = (model.decode_param_specs(tp_axis)
+             if hasattr(model, "decode_param_specs") else None)
+
+    def place(t, spec):
+        if spec and tp_axis in spec:
+            return shard_heads(t, spec.index(tp_axis), mesh)
+        return mesh.replicate(t)
+
+    out = {k: place(v, () if specs is None else specs[k])
+           for k, v in params.items() if k != "blocks"}
+    out["blocks"] = [{k: place(v, () if specs is None
+                               else specs["blocks"][i][k])
+                      for k, v in blk.items()}
+                     for i, blk in enumerate(params["blocks"])]
+    return out
+
+
+def _collective_bytes_estimate(num_layers, rows, d_model, tp_degree,
+                               itemsize=4, quantized=False):
+    """Estimated on-wire all-reduce bytes of ONE sharded dispatch
+    (generation.collective_bytes_per_step), the JAX package's arithmetic:
+    two all-reduces per layer (after wo and after w2), each over the
+    [rows, d_model] activation block, a ring moving 2 (N-1)/N of the
+    payload per device; `rows` is the PADDED axis dispatched (padding
+    rows ride the collective too).  `quantized`: the int8 ring's bytes
+    (`quantized_collective_bytes`).  0 when unsharded."""
+    if tp_degree <= 1:
+        return 0
+    if quantized:
+        return quantized_collective_bytes(num_layers, rows, d_model,
+                                          tp_degree)
+    payload = int(rows) * int(d_model) * int(itemsize)
+    return int(2 * num_layers * payload * 2 * (tp_degree - 1)
+               / tp_degree)
+
+
+class _TPOwner:
+    """What every step owner keeps of the tensor-parallel mesh: its
+    degree, the model's widths for the collective-bytes estimate, and
+    the params (the engine's shared `_shard_params` under a mesh, the
+    model's on `device` otherwise)."""
+
+    def _init_tp(self, model, device, mesh, quant_collectives, params):
+        self.mesh = mesh
+        self.tp_degree = 1 if mesh is None else mesh.size
+        self.quant_collectives = bool(quant_collectives
+                                      and self.tp_degree > 1)
+        self._num_layers = int(model.num_layers)
+        self._d_model = int(model.num_heads) * int(model.head_dim)
+        if params is None:
+            params = (model.decode_params(device) if mesh is None
+                      else _shard_params(model, mesh))
+        self._params = params
+        self.last_collective_bytes = 0
+        return {} if mesh is None else {
+            "mesh": mesh, "quant_collectives": self.quant_collectives}
+
+    def _count_collective(self, rows, iterations=1):
+        self.last_collective_bytes = _collective_bytes_estimate(
+            self._num_layers, rows, self._d_model, self.tp_degree,
+            quantized=self.quant_collectives) * int(iterations)
 
 
 def _dispatch_in_place(cache, call):
@@ -90,7 +170,7 @@ def _pages_bucketer(cache, batch_buckets=(1,)):
                                                     start=1))
 
 
-class FusedDecodeStep:
+class FusedDecodeStep(_TPOwner):
     """The legacy decode step as ONE call of the model's decode step
     function per engine step.
 
@@ -102,15 +182,17 @@ class FusedDecodeStep:
     sync fetches B ids instead of B x V logits.  `last_*` are per-call
     counts the engine's gauges are set from."""
 
-    def __init__(self, model, cache, metrics, batch_buckets, device):
+    def __init__(self, model, cache, metrics, batch_buckets, device,
+                 mesh=None, quant_collectives=False, params=None):
         self._cache = cache
         self.device = torch.device(device)
-        self._params = model.decode_params(self.device)
+        tp_kw = self._init_tp(model, self.device, mesh, quant_collectives,
+                              params)
         self._bucketer = _pages_bucketer(cache, tuple(batch_buckets))
         self._fns = {greedy: model.decode_step_fn(
             cache.page_size, cache.num_pages,
             pool_layout=cache.pool_layout, greedy=greedy,
-            kv_quant=cache.quantized) for greedy in (False, True)}
+            kv_quant=cache.quantized, **tp_kw) for greedy in (False, True)}
         self._signatures = SignatureCache(DecodeCacheMetrics(metrics))
         self.last_dispatches = 0
         self.last_syncs = 0
@@ -170,10 +252,11 @@ class FusedDecodeStep:
         # (generation.padded_token_waste)
         self.last_rows_useful = b_real
         self.last_rows_dispatched = bucket_b
+        self._count_collective(bucket_b)
         return host
 
 
-class ChunkedPrefillStep:
+class ChunkedPrefillStep(_TPOwner):
     """The legacy prefill step: ONE call of the model's chunk function
     per prefill chunk.  The token axis is fixed at `chunk_tokens`, so a
     chunk's signature is its pages bucket alone, whatever the prompt
@@ -182,17 +265,19 @@ class ChunkedPrefillStep:
     logits on the device unfetched: the engine fetches only the final
     chunk's, so mid-prompt chunks cost no host sync."""
 
-    def __init__(self, model, cache, metrics, chunk_tokens, device):
+    def __init__(self, model, cache, metrics, chunk_tokens, device,
+                 mesh=None, quant_collectives=False, params=None):
         self._cache = cache
         self.device = torch.device(device)
         self.chunk_tokens = int(chunk_tokens)
         if self.chunk_tokens < 1:
             raise ValueError("chunk_tokens must be >= 1")
-        self._params = model.decode_params(self.device)
+        tp_kw = self._init_tp(model, self.device, mesh, quant_collectives,
+                              params)
         self._bucketer = _pages_bucketer(cache)
         self._fn = model.prefill_chunk_fn(cache.page_size, cache.num_pages,
                                           pool_layout=cache.pool_layout,
-                                          kv_quant=cache.quantized)
+                                          kv_quant=cache.quantized, **tp_kw)
         self._signatures = SignatureCache(metrics)
         self.last_rows_useful = 0
         self.last_rows_dispatched = 0
@@ -228,16 +313,18 @@ class ChunkedPrefillStep:
         # sequence's call (generation.padded_token_waste)
         self.last_rows_useful = n
         self.last_rows_dispatched = self.chunk_tokens
+        self._count_collective(self.chunk_tokens)
         return logits
 
 
-class RaggedStep:
+class RaggedStep(_TPOwner):
     """Owns the packing, the upload and the per-bucket signature cache of
     the ragged step.  `last_*` are per-call counts the engine's gauges
     are set from."""
 
     def __init__(self, model, cache, metrics, max_tokens, max_seqs,
-                 device, spec_tokens=0):
+                 device, spec_tokens=0, mesh=None, quant_collectives=False,
+                 params=None):
         self._cache = cache
         self.device = torch.device(device)
         self.max_tokens = int(max_tokens)
@@ -249,13 +336,15 @@ class RaggedStep:
         if self.max_tokens < 1 or self.max_seqs < 1:
             raise ValueError("max_tokens and max_seqs must be >= 1")
         self.use_kernel = self.device.type == "cuda"
-        self._params = model.decode_params(self.device)
+        tp_kw = self._init_tp(model, self.device, mesh, quant_collectives,
+                              params)
         self._bucketer = _pages_bucketer(cache)
         spec_kw = ({"spec_tokens": self.spec_tokens} if self.spec_tokens
                    else {})
         self._fn = model.ragged_step_fn(cache.page_size, cache.num_pages,
                                         pool_layout=cache.pool_layout,
-                                        kv_quant=cache.quantized, **spec_kw)
+                                        kv_quant=cache.quantized, **spec_kw,
+                                        **tp_kw)
         self._signatures = SignatureCache(DecodeCacheMetrics(metrics))
         self.last_dispatches = 0
         self.last_uploads = 0
@@ -332,12 +421,28 @@ class RaggedStep:
         self.last_uploads = len(host)
         self.last_rows_useful = t_real
         self.last_rows_dispatched = t
+        self._count_collective(t)
         return ids, logits
 
 
 # one CUDA graph capture at a time in the process: the in-process replicas
 # of a fleet each capture their own loops on their own worker threads
 _CAPTURE_LOCK = threading.Lock()
+
+
+def refuse_cross_card_loop(device, mesh):
+    """NotImplementedError for the captured decode loop on a mesh whose
+    shards span several cards: one CUDA graph captures one card's stream,
+    and a graph per card joined by cross-card events is not built.  On
+    one card (every shard there) or on the CPU (no graph) the loop
+    runs."""
+    if (torch.device(device).type == "cuda" and mesh is not None
+            and len(mesh.distinct_devices) > 1):
+        raise NotImplementedError(
+            "not supported by the PyTorch port yet: the captured decode "
+            "loop (loop_steps > 1) on a mesh whose shards span several "
+            "cards; put every shard on one card (tp_mesh(devices=["
+            "'cuda:0'] * tp)) or use loop_steps=1")
 
 
 class _LoopGraph:
@@ -354,7 +459,7 @@ class _LoopGraph:
         self.launches = launches
 
 
-class LoopedRaggedStep:
+class LoopedRaggedStep(_TPOwner):
     """N ragged decode steps in ONE call and ONE host fetch — the
     host-free decode loop (model.ragged_loop_fn).
 
@@ -389,7 +494,8 @@ class LoopedRaggedStep:
 
     def __init__(self, model, cache, metrics, max_seqs, loop_steps, device,
                  spec_tokens=0, max_stop_ids=8, max_stop_seqs=4,
-                 max_stop_len=8):
+                 max_stop_len=8, mesh=None, quant_collectives=False,
+                 params=None):
         self._cache = cache
         self.device = torch.device(device)
         self.max_seqs = int(max_seqs)
@@ -405,14 +511,16 @@ class LoopedRaggedStep:
         self._kd = max(self.spec_tokens, 1)
         self.max_emit = self.loop_steps + self.spec_tokens
         self.use_graph = self.device.type == "cuda"
-        self._params = model.decode_params(self.device)
+        refuse_cross_card_loop(self.device, mesh)
+        tp_kw = self._init_tp(model, self.device, mesh, quant_collectives,
+                              params)
         self._bucketer = _pages_bucketer(cache)
         self._fn = model.ragged_loop_fn(
             cache.page_size, cache.num_pages, pool_layout=cache.pool_layout,
             kv_quant=cache.quantized, spec_tokens=self.spec_tokens,
             loop_steps=self.loop_steps, max_stop_ids=self.max_stop_ids,
             max_stop_seqs=self.max_stop_seqs,
-            max_stop_len=self.max_stop_len)
+            max_stop_len=self.max_stop_len, **tp_kw)
         self._signatures = SignatureCache(DecodeCacheMetrics(metrics))
         self._graphs = {}     # (pages bucket, pool data_ptrs) -> _LoopGraph
         self._capture_stream = None
@@ -483,7 +591,8 @@ class LoopedRaggedStep:
         """The captured loop for this pages bucket over the cache's
         current pool storage (captured on first use)."""
         state = self._cache.take_pool_state()
-        key = (bucket_p, tuple(t.data_ptr() for t in state))
+        key = (bucket_p, tuple(p.data_ptr() for t in state
+                               for p in (t if isinstance(t, list) else [t])))
         got = self._graphs.get(key)
         if got is None:
             got = self._graphs[key] = self._capture(bucket_p, state)
@@ -581,4 +690,8 @@ class LoopedRaggedStep:
         self.last_iters = int(out[0, -1])
         self.last_rows_useful = s_real
         self.last_rows_dispatched = self.max_seqs
+        # two all-reduces per layer per iteration over the packed axis, in
+        # the iterations some row was active (the JAX loop's count)
+        self._count_collective(self.max_seqs * (1 + self.spec_tokens),
+                               max(self.last_iters, 0))
         return out[:s_real]

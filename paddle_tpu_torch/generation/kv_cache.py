@@ -46,6 +46,9 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..parallel.sharding_annotations import (HeadSharding, gather_heads,
+                                             kv_pool_spec, kv_scale_spec,
+                                             shard_list)
 from .quantized_kv import dequantize_int8, quantized_pool_write
 
 
@@ -963,6 +966,12 @@ def scatter_pool_update(pool, pages, rows, x, layout):
     return pool
 
 
+def _whole(parts, sharded):
+    """The entry a pool-state slot holds: the shard list under a mesh,
+    else the one tensor."""
+    return parts if sharded else parts[0]
+
+
 class DeviceKVPool(PagedKVCache):
     """PagedKVCache whose pools are tensors on `device` (None: "cuda",
     which raises without a card).
@@ -977,6 +986,18 @@ class DeviceKVPool(PagedKVCache):
     V (`layer_scales`); a page's scale rows go back to zero when the page
     is handed out again (queued at reserve, zeroed before the next read or
     write of the scales).
+
+    mesh / tp_axis (``parallel.tp_mesh``): tensor-parallel head sharding.
+    Each layer's pools and int8 scales are then lists of `tp_degree` head
+    shards, shard ``i`` on ``mesh.devices[i]`` with ``num_heads / tp``
+    heads of every page, so a shard's bytes are 1/tp of the whole pool's
+    (`bytes_per_shard`); `layer_pools` / `layer_scales` and the pool state
+    hand out the lists.  The page axis is never split: every write, scale
+    reset, copy-on-write page copy and truncate runs per shard with no
+    collective, and `export_pages` gathers the heads into the canonical
+    payload that `import_pages` splits again, so a page moves between
+    sharded and unsharded pools byte for byte.  `device` defaults to the
+    mesh's first device, the home of host-fed inputs, and must be it.
 
     The ragged and fused steps write the pools in place
     (`scatter_pool_update`, or `quantized_pool_write` for int8) and read
@@ -994,7 +1015,7 @@ class DeviceKVPool(PagedKVCache):
 
     def __init__(self, num_layers, num_heads, head_dim, num_pages=256,
                  page_size=16, dtype=torch.float32, pool_layout="token",
-                 device=None):
+                 device=None, mesh=None, tp_axis=None):
         if pool_layout not in ("token", "kernel"):
             raise ValueError(
                 f"pool_layout must be 'token' or 'kernel', got "
@@ -1007,35 +1028,105 @@ class DeviceKVPool(PagedKVCache):
                          num_pages=num_pages, page_size=page_size,
                          dtype=dtype)
         self.pool_layout = pool_layout
+        self.mesh = mesh
+        self.tp_axis = None
+        self.tp_degree = 1
+        if mesh is not None:
+            tp_axis = mesh.tp_axis(tp_axis)
+            tp = int(mesh.shape[tp_axis])
+            if self.num_heads % tp:
+                raise ValueError(
+                    f"num_heads={self.num_heads} is not divisible by "
+                    f"tp_degree={tp}: the pools shard the head axis")
+            self.tp_axis, self.tp_degree = tp_axis, tp
+            if device is None:
+                device = mesh.devices[0]
         self.device = resolve_device(device, "DeviceKVPool")
-        if pool_layout == "kernel":
-            self._shape = (self.num_heads, self.num_pages + 1,
-                           self.page_size, self.head_dim)
-        else:
-            self._shape = (self.num_pages + 1, self.page_size,
-                           self.num_heads, self.head_dim)
+        if mesh is not None and self.device != mesh.devices[0]:
+            raise ValueError(f"device {self.device} is not the mesh's first "
+                             f"device {mesh.devices[0]}")
+        self._devices = (list(mesh.devices) if mesh is not None
+                         else [self.device])
+        self._heads = self.num_heads // self.tp_degree
+        # one shard's pool and scale shapes: the heads on the axes that
+        # kv_pool_spec / kv_scale_spec name
+        self._shape = [self.num_pages + 1, self.page_size, self.head_dim]
+        self._shape.insert(kv_pool_spec(pool_layout), self._heads)
+        self._scale_shape = [self.num_pages + 1]
+        self._scale_shape.insert(kv_scale_spec(), self._heads)
         self._materialize_pools()
 
+    # --------------------------- sharding ----------------------------
+    @property
+    def pool_sharding(self):
+        """The pools' `HeadSharding` (head axis, shard devices); None
+        unsharded."""
+        if self.mesh is None:
+            return None
+        return HeadSharding(kv_pool_spec(self.pool_layout),
+                            tuple(self._devices))
+
+    @property
+    def scale_sharding(self):
+        """The int8 scale arrays' `HeadSharding`; None unsharded."""
+        if self.mesh is None:
+            return None
+        return HeadSharding(kv_scale_spec(), tuple(self._devices))
+
+    def _upload(self, a):
+        """Host array `a` as a per-shard list of tensors, one upload per
+        distinct device."""
+        made = {}
+        for d in self._devices:
+            if d not in made:
+                made[d] = torch.as_tensor(a, device=d)
+        return [made[d] for d in self._devices]
+
+    def _head_part(self, x, i, axis=-2):
+        """Shard `i`'s heads of payload `x` (heads on `axis`), on shard
+        `i`'s device; a list is already per shard."""
+        if isinstance(x, list):
+            return x[i]
+        if self.mesh is not None:
+            x = x.narrow(axis, i * self._heads, self._heads)
+        return x.to(self._devices[i])
+
+    def bytes_per_shard(self):
+        """Device bytes each head shard holds: every layer's K and V pool
+        shard plus, for int8, its scale shards."""
+        groups = [self._k, self._v]
+        if self.quantized:
+            groups += [self._ks, self._vs]
+        out = [0] * self.tp_degree
+        for group in groups:
+            for entry in group:
+                for i, t in enumerate(shard_list(entry)):
+                    out[i] += _nbytes(t)
+        return out
+
     def _materialize_pools(self):
+        sharded = self.mesh is not None
+
         def zeros(shape, dtype):
-            return torch.zeros(shape, dtype=dtype, device=self.device)
+            return _whole([torch.zeros(shape, dtype=dtype, device=d)
+                           for d in self._devices], sharded)
 
         self._k = [zeros(self._shape, self.dtype)
                    for _ in range(self.num_layers)]
         self._v = [zeros(self._shape, self.dtype)
                    for _ in range(self.num_layers)]
         if self.quantized:
-            sshape = (self.num_pages + 1, self.num_heads)
-            self._ks = [zeros(sshape, torch.float32)
+            self._ks = [zeros(self._scale_shape, torch.float32)
                         for _ in range(self.num_layers)]
-            self._vs = [zeros(sshape, torch.float32)
+            self._vs = [zeros(self._scale_shape, torch.float32)
                         for _ in range(self.num_layers)]
             # pages handed out since the last flush: their scale rows are
             # zeroed together before the scales are next read or written
             self._pending_scale_reset = []
 
     def layer_pools(self, layer):
-        """One layer's live ``(k, v)`` pool tensors (sink page included)."""
+        """One layer's live ``(k, v)`` pool tensors (sink page included);
+        under a mesh, the lists of head shards."""
         return self._k[layer], self._v[layer]
 
     # ---------------------- quantized-scale state --------------------
@@ -1045,15 +1136,16 @@ class DeviceKVPool(PagedKVCache):
     def _flush_scale_resets(self):
         if not self.quantized or not self._pending_scale_reset:
             return
-        idx = torch.as_tensor(self._pending_scale_reset, dtype=torch.long,
-                              device=self.device)
+        idx = self._upload(np.asarray(self._pending_scale_reset, np.int64))
         self._pending_scale_reset = []
-        for s in self._ks + self._vs:
-            s.index_fill_(0, idx, 0.0)
+        for entry in self._ks + self._vs:
+            for i, s in enumerate(shard_list(entry)):
+                s.index_fill_(0, idx[i], 0.0)
 
     def layer_scales(self, layer):
         """One layer's ``(k_scale, v_scale)`` ``[num_pages + 1, H]`` arrays
-        for the attention dequant; ``(None, None)`` for a float pool."""
+        for the attention dequant (under a mesh, lists of head shards);
+        ``(None, None)`` for a float pool."""
         if not self.quantized:
             return None, None
         self._flush_scale_resets()
@@ -1067,24 +1159,28 @@ class DeviceKVPool(PagedKVCache):
         return int(len(np.unique(arr[arr < self.num_pages])))
 
     def _scatter(self, layers, pages, rows, k, v, real_tokens):
-        """Scatter k[i], v[i] ([n, H, D] each) into the pools of
-        ``layers[i]`` at (pages, rows) — host int arrays uploaded once;
-        sentinel pages land in the sink.  int8 pools quantize."""
-        pg = torch.as_tensor(np.asarray(pages, np.int32), device=self.device)
-        rw = torch.as_tensor(np.asarray(rows, np.int32), device=self.device)
+        """Scatter k[i], v[i] ([n, H, D] each, or under a mesh their lists
+        of head shards) into the pools of ``layers[i]`` at (pages, rows) —
+        host int arrays uploaded once per device; sentinel pages land in
+        the sink.  int8 pools quantize."""
+        pg = self._upload(np.asarray(pages, np.int32))
+        rw = self._upload(np.asarray(rows, np.int32))
         layers = list(layers)
         self._flush_scale_resets()
         for li, kl, vl in zip(layers, k, v):
-            if self.quantized:
-                quantized_pool_write(self._k[li], self._ks[li], pg, rw, kl,
-                                     self.pool_layout)
-                quantized_pool_write(self._v[li], self._vs[li], pg, rw, vl,
-                                     self.pool_layout)
-            else:
-                scatter_pool_update(self._k[li], pg, rw, kl,
-                                    self.pool_layout)
-                scatter_pool_update(self._v[li], pg, rw, vl,
-                                    self.pool_layout)
+            for i in range(self.tp_degree):
+                kp, vp = shard_list(self._k[li])[i], shard_list(self._v[li])[i]
+                ki, vi = self._head_part(kl, i), self._head_part(vl, i)
+                if self.quantized:
+                    quantized_pool_write(kp, shard_list(self._ks[li])[i], pg[i],
+                                         rw[i], ki, self.pool_layout)
+                    quantized_pool_write(vp, shard_list(self._vs[li])[i], pg[i],
+                                         rw[i], vi, self.pool_layout)
+                else:
+                    scatter_pool_update(kp, pg[i], rw[i], ki,
+                                        self.pool_layout)
+                    scatter_pool_update(vp, pg[i], rw[i], vi,
+                                        self.pool_layout)
         if self.quantized:
             self._count_scale_payload(self._pages_touched(pages),
                                       len(layers))
@@ -1119,10 +1215,11 @@ class DeviceKVPool(PagedKVCache):
                       rows.reshape(-1), lk, lv, int(np.sum(lengths)))
 
     def write_prefill_tokens(self, seq_id, start, layer, k, v):
-        """One layer's write of one prefill chunk: k, v [n, H, D] at the
-        reserved, privately owned positions ``[start, start + n)`` of
-        `seq_id` (the eager chunk path's attend callback)."""
-        n = int(k.shape[0])
+        """One layer's write of one prefill chunk: k, v [n, H, D] (under a
+        mesh, or their lists of head shards) at the reserved, privately
+        owned positions ``[start, start + n)`` of `seq_id` (the eager
+        chunk path's attend callback)."""
+        n = int(shard_list(k)[0].shape[0])
         self._check_span_writable(seq_id, int(start), n)
         pages, rows = self._span_pages_rows(seq_id, int(start), n)
         self._scatter([layer], pages, rows, [k], [v], n)
@@ -1138,6 +1235,7 @@ class DeviceKVPool(PagedKVCache):
     def _take_pages(self, pool, idx):
         """Pages `idx` of one pool in the canonical ``[n, page_size, H,
         D]`` layout."""
+        idx = idx.to(pool.device)
         if self.pool_layout == "kernel":
             return pool.index_select(1, idx).permute(1, 2, 0, 3)
         return pool.index_select(0, idx)
@@ -1145,96 +1243,122 @@ class DeviceKVPool(PagedKVCache):
     def gather_prefix(self, seq_id, layer, length):
         """One layer's K/V for positions ``[0, length)`` of `seq_id`, in
         position order: ``(k [length, H, D], v [length, H, D])`` on the
-        pools' device.  Exact copies of the stored rows for a float pool,
-        the DEQUANTIZED rows for an int8 pool (the factor the kernels'
-        in-kernel dequant applies)."""
+        pools' device (the heads of every shard gathered).  Exact copies
+        of the stored rows for a float pool, the DEQUANTIZED rows for an
+        int8 pool (the factor the kernels' in-kernel dequant applies)."""
         self._check_span(seq_id, 0, int(length))
         length = int(length)
         idx = self._seq_pages(seq_id, length)
-        shape = (-1, self.num_heads, self.head_dim)
-        k = self._take_pages(self._k[layer], idx).reshape(shape)[:length]
-        v = self._take_pages(self._v[layer], idx).reshape(shape)[:length]
-        if not self.quantized:
-            return k, v
         self._flush_scale_resets()
+        shape = (-1, self._heads, self.head_dim)
 
         def rows(scales):
             return torch.repeat_interleave(
-                scales.index_select(0, idx), self.page_size,
-                dim=0)[:length][:, :, None]
+                scales.index_select(0, idx.to(scales.device)),
+                self.page_size, dim=0)[:length][:, :, None]
 
-        return (dequantize_int8(k, rows(self._ks[layer])),
-                dequantize_int8(v, rows(self._vs[layer])))
+        out = []
+        for pools, scales in ((self._k, getattr(self, "_ks", None)),
+                              (self._v, getattr(self, "_vs", None))):
+            parts = []
+            for i, pool in enumerate(shard_list(pools[layer])):
+                x = self._take_pages(pool, idx).reshape(shape)[:length]
+                if self.quantized:
+                    x = dequantize_int8(x, rows(shard_list(scales[layer])[i]))
+                parts.append(x)
+            out.append(gather_heads(parts, 1, self.device))
+        return out[0], out[1]
 
     # ---------------------- prefix-cache storage ---------------------
     def _copy_page_storage(self, src, dst):
         """The copy-on-write: page `src` into page `dst` of every layer's
         K and V pools (and an int8 pool's scale rows), in place, on the
-        current stream.  Pending scale resets are applied FIRST: the
-        fresh page `dst` has one queued, and applied after the copy it
-        would zero the scales just copied."""
+        current stream, shard by shard.  Pending scale resets are applied
+        FIRST: the fresh page `dst` has one queued, and applied after the
+        copy it would zero the scales just copied."""
         self._flush_scale_resets()
-        for pool in self._k + self._v:
-            if self.pool_layout == "kernel":
-                pool[:, dst].copy_(pool[:, src])
-            else:
-                pool[dst].copy_(pool[src])
+        for entry in self._k + self._v:
+            for pool in shard_list(entry):
+                if self.pool_layout == "kernel":
+                    pool[:, dst].copy_(pool[:, src])
+                else:
+                    pool[dst].copy_(pool[src])
         if self.quantized:
-            for s in self._ks + self._vs:
-                s[dst].copy_(s[src])
+            for entry in self._ks + self._vs:
+                for s in shard_list(entry):
+                    s[dst].copy_(s[src])
 
     def export_pages(self, pages):
         """Copy the given physical pages out of the pools as the canonical
         payload: host (CPU) tensors ``k, v [L, n, page_size, H, D]`` in
-        the pool dtype, bitwise the stored rows, plus for an int8 pool
-        the ``(k_scale, v_scale) [L, n, H]`` rows (int8 bytes never
-        travel without their grid).  Counted into the bytes moved."""
+        the pool dtype, bitwise the stored rows (under a mesh, every
+        shard's heads gathered in order), plus for an int8 pool the
+        ``(k_scale, v_scale) [L, n, H]`` rows (int8 bytes never travel
+        without their grid).  Counted into the bytes moved."""
         self._flush_scale_resets()
         idx = torch.as_tensor(np.asarray(pages, np.int64).reshape(-1),
                               device=self.device)
-        k = torch.stack([self._take_pages(p, idx) for p in self._k]).cpu()
-        v = torch.stack([self._take_pages(p, idx) for p in self._v]).cpu()
+
+        def take(group, fn, axis):
+            # heads gathered and layers stacked on the device, then one
+            # copy to the host
+            return torch.stack([
+                gather_heads([fn(p) for p in shard_list(entry)], axis,
+                             self.device)
+                for entry in group]).cpu()
+
+        k = take(self._k, lambda p: self._take_pages(p, idx), 2)
+        v = take(self._v, lambda p: self._take_pages(p, idx), 2)
         self._bytes_moved += _nbytes(k) + _nbytes(v)
         if not self.quantized:
             return k, v
-        ks = torch.stack([s.index_select(0, idx) for s in self._ks]).cpu()
-        vs = torch.stack([s.index_select(0, idx) for s in self._vs]).cpu()
+
+        def rows(s):
+            return s.index_select(0, idx.to(s.device))
+
+        ks = take(self._ks, rows, 1)
+        vs = take(self._vs, rows, 1)
         self._count_scale_payload(int(idx.shape[0]), self.num_layers)
         return k, v, ks, vs
 
     def _install_pages(self, pages, k, v, k_scale=None, v_scale=None):
         """The import: a canonical payload into pages `pages` of every
         layer's pools in place (``index_copy_``, so the pools keep their
-        addresses and a captured loop graph stays valid), the payload
-        transposed for the kernel layout; an int8 payload's scale rows
-        overwrite the pages' scales, after the pending resets are
-        applied."""
+        addresses and a captured loop graph stays valid), split by heads
+        across a mesh's shards, the payload transposed for the kernel
+        layout; an int8 payload's scale rows overwrite the pages' scales,
+        after the pending resets are applied."""
         self._flush_scale_resets()
-        idx = torch.as_tensor(np.asarray(pages, np.int64),
-                              device=self.device)
+        idx = self._upload(np.asarray(pages, np.int64))
         dim = 1 if self.pool_layout == "kernel" else 0
         for pools, payload in ((self._k, k), (self._v, v)):
+            # one upload, then each shard's heads from the device copy
             payload = payload.to(self.device, self.dtype)
-            if dim:
-                payload = payload.permute(0, 3, 1, 2, 4)  # [L, H, n, ps, D]
-            for pool, rows in zip(pools, payload):
-                pool.index_copy_(dim, idx, rows)
+            for i in range(self.tp_degree):
+                part = self._head_part(payload, i, axis=3)
+                if dim:
+                    part = part.permute(0, 3, 1, 2, 4)  # [L, H, n, ps, D]
+                for entry, rows in zip(pools, part):
+                    shard_list(entry)[i].index_copy_(dim, idx[i], rows)
         if self.quantized:
             for scales, payload in ((self._ks, k_scale), (self._vs, v_scale)):
                 payload = payload.to(self.device, torch.float32)
-                for s, rows in zip(scales, payload):
-                    s.index_copy_(0, idx, rows)
+                for i in range(self.tp_degree):
+                    part = self._head_part(payload, i, axis=2)
+                    for entry, rows in zip(scales, part):
+                        shard_list(entry)[i].index_copy_(0, idx[i], rows)
 
     @property
     def n_state_groups(self):
-        """Length-L tensor groups in the pool state: the k and v pools,
-        then the k and v scales when quantized."""
+        """Length-L groups in the pool state: the k and v pools, then the
+        k and v scales when quantized."""
         return 4 if self.quantized else 2
 
     def take_pool_state(self):
         """The whole pool state as one flat list ``[*k_pools, *v_pools]``,
         plus ``[*k_scales, *v_scales]`` when quantized, for a step that
-        writes it.  Pending scale resets are applied first."""
+        writes it (under a mesh each entry is a layer's list of head
+        shards).  Pending scale resets are applied first."""
         self._flush_scale_resets()
         state = list(self._k) + list(self._v)
         if self.quantized:
@@ -1256,24 +1380,29 @@ class DeviceKVPool(PagedKVCache):
             self._vs = list(state[3 * ll:])
 
     def reset_pools(self):
-        """Fresh zeroed pool storage after a step died mid-write: the
-        pools may hold a partial write, and the engine fails every
-        in-flight sequence on a poisoned step, so zeroed storage is
-        exactly the state later requests expect.  The prefix index is
-        flushed with the storage: its nodes alias pages whose bytes were
-        just zeroed, and a later warm hit on them would generate from
-        zeros."""
+        """Fresh zeroed pool storage (every shard, under a mesh) after a
+        step died mid-write: the pools may hold a partial write, and the
+        engine fails every in-flight sequence on a poisoned step, so
+        zeroed storage is exactly the state later requests expect.  The
+        prefix index is flushed with the storage: its nodes alias pages
+        whose bytes were just zeroed, and a later warm hit on them would
+        generate from zeros."""
         self._materialize_pools()
         self.flush_prefix_cache()
 
-    def _canonical(self, pool):
-        pool = pool.detach().cpu()
-        if pool.dtype == torch.bfloat16:   # numpy has no bfloat16
-            pool = pool.float()
-        pool = pool.numpy()
-        if self.pool_layout == "kernel":
-            pool = pool.transpose(1, 2, 0, 3)
-        return pool[:self.num_pages]
+    def _canonical(self, entry):
+        """One layer's pool as a host array in the token layout, heads
+        gathered, sink page dropped."""
+        parts = []
+        for pool in shard_list(entry):
+            pool = pool.detach().cpu()
+            if pool.dtype == torch.bfloat16:   # numpy has no bfloat16
+                pool = pool.float()
+            pool = pool.numpy()
+            if self.pool_layout == "kernel":
+                pool = pool.transpose(1, 2, 0, 3)
+            parts.append(pool[:self.num_pages])
+        return np.concatenate(parts, axis=2)
 
     @property
     def k_pool(self):
@@ -1287,8 +1416,10 @@ class DeviceKVPool(PagedKVCache):
 
     def _host_scales(self, scales):
         self._flush_scale_resets()
-        return np.stack([s.detach().cpu().numpy()[:self.num_pages]
-                         for s in scales])
+        return np.stack([
+            np.concatenate([s.detach().cpu().numpy()[:self.num_pages]
+                            for s in shard_list(entry)], axis=1)
+            for entry in scales])
 
     @property
     def k_scale(self):

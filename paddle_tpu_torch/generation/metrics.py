@@ -102,9 +102,23 @@ same names):
                                       iteration N
 - ``generation.loop_wasted_steps``    row-iterations a finished row sat
                                       through while others ran on
+- ``generation.mesh_devices``         gauge: tensor-parallel degree of
+                                      the engine's mesh (1 unsharded)
+- ``generation.collective_bytes_per_step``  gauge: estimated all-reduce
+                                      bytes of the last sharded dispatch
+                                      (2 all-reduces per layer over the
+                                      [rows, d_model] fp32 activation x
+                                      the ring factor 2(N-1)/N, int8 and
+                                      the scale scalars with quantized
+                                      collectives; 0 unsharded)
+- ``generation.collective_quantized``  gauge: 1 when the quantized ring
+                                      carries the two per-layer
+                                      all-reduces, 0 otherwise (a flag
+                                      without a mesh, or at tp 1, reads
+                                      0)
 
-Every spec and loop stat is touched at engine build, so the schema is
-complete from the first snapshot.
+Every spec, loop and mesh stat is touched at engine build, so the schema
+is complete from the first snapshot.
 """
 import time
 
@@ -161,6 +175,9 @@ LOOP_STEPS = PREFIX + "loop_steps"
 DECODE_HOST_FETCHES_PER_TOKEN = PREFIX + "decode_host_fetches_per_token"
 LOOP_EARLY_EXITS = PREFIX + "loop_early_exits"
 LOOP_WASTED_STEPS = PREFIX + "loop_wasted_steps"
+MESH_DEVICES = PREFIX + "mesh_devices"
+COLLECTIVE_BYTES_PER_STEP = PREFIX + "collective_bytes_per_step"
+COLLECTIVE_QUANTIZED = PREFIX + "collective_quantized"
 
 
 class GenerationMetrics:
@@ -328,6 +345,26 @@ class GenerationMetrics:
         self._stat(LOOP_EARLY_EXITS)
         self._stat(LOOP_WASTED_STEPS)
         self._stat(DECODE_HOST_FETCHES_PER_TOKEN).set(0.0)
+
+    def set_mesh_devices(self, n):
+        """Gauge: the engine's tensor-parallel degree (1 when unsharded),
+        stamped at engine build so every snapshot carries the topology its
+        numbers were measured on; touches the collective-bytes gauge at
+        0, an unsharded engine's value."""
+        self._stat(MESH_DEVICES).set(int(n))
+        self._stat(COLLECTIVE_BYTES_PER_STEP).set(0)
+
+    def observe_collective_bytes(self, n):
+        """Gauge: estimated all-reduce bytes of the last sharded dispatch
+        (fused._collective_bytes_estimate gives the formula); 0 on every
+        unsharded path."""
+        self._stat(COLLECTIVE_BYTES_PER_STEP).set(int(n))
+
+    def set_collective_quantized(self, active):
+        """Gauge: whether the quantized ring ACTUALLY carries the sharded
+        step's all-reduces (the flag AND tp > 1), stamped at engine build
+        like kernel_path, so a float32 fallback is visible."""
+        self._stat(COLLECTIVE_QUANTIZED).set(1 if active else 0)
 
     def observe_loop(self, tokens, fetches, early_exit, wasted):
         """One decode loop retired: `tokens` emitted for `fetches` host

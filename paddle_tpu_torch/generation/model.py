@@ -25,6 +25,11 @@ Forward paths over the SAME weights:
   sequence through the same kind of callback (a warm one-shot prefill's
   suffix).
 
+Every path runs one layer stack (`_layers`) over per-shard lists: one
+shard without a mesh, and under a tensor-parallel mesh (``mesh=``) the
+column-split Q/K/V and w1, attention per head shard, and the row-split
+wo and w2 each ending in one all-reduce (`_row_matmul`).
+
 With ``kv_quant=True`` the three step functions serve int8 pools: the
 per-layer ``[P + 1, H]`` scale arrays ride the state chain right after the
 pools (``..., k_pools, v_pools, k_scales, v_scales, ...``) and come back
@@ -46,6 +51,9 @@ from torch import nn
 from ..device import resolve_device
 from . import decode_attention
 from .decode_attention import NEG_INF, dense_causal_reference
+from ..parallel.quantized_allreduce import (allreduce_sum,
+                                            quantized_matmul_allreduce)
+from ..parallel.sharding_annotations import shard_list
 from .kv_cache import scatter_pool_update
 from .quantized_kv import quantized_pool_write
 from .sampling import sample_tokens_device
@@ -55,20 +63,84 @@ _BLOCK_KEYS = ("ln1_s", "ln1_b", "wq", "wk", "wv", "wo", "ln2_s", "ln2_b",
                "w1", "b1", "w2", "b2")
 
 
-def _write_layer(li, k_pools, v_pools, scales, pages, rows, k, v, layout):
-    """Write layer `li`'s K/V rows into its pools in place: a plain
-    scatter, or with `scales` (the ``(k_scales, v_scales)`` lists of an
-    int8 pool) the quantized write.  Returns ``(k_pool, v_pool, k_scale,
-    v_scale)``, the scales None for a float pool."""
+def _per_device(mesh, fn):
+    """``[fn(i)]`` per shard, computed once per distinct device (one
+    shard without a mesh): how replicated values are made."""
+    return [fn(0)] if mesh is None else mesh.per_device(fn)
+
+
+def _replicate(mesh, t):
+    """`t` as a per-shard list, one copy per distinct device."""
+    return [t] if mesh is None else mesh.replicate(t)
+
+
+def _as_shards(params):
+    """Step params as per-shard lists of leaves: a ``decode_params()``
+    dict is one shard's, ``fused._shard_params``' output passes as it
+    is."""
+    if isinstance(params["head"], list):
+        return params
+    return {**{k: [v] for k, v in params.items() if k != "blocks"},
+            "blocks": [{k: [v] for k, v in b.items()}
+                       for b in params["blocks"]]}
+
+
+def _shard0(sp):
+    """The replicated leaves outside the layer stack (embeddings, final
+    norm, head) as shard 0 holds them: the logits are computed there."""
+    return {k: sp[k][0] for k in ("tok_emb", "pos_emb", "ln_f_s", "ln_f_b",
+                                  "head")}
+
+
+def _layer_state(k_pools, v_pools, scales, li, tp):
+    """Layer `li`'s per-shard (k pools, v pools, k scales, v scales); the
+    scales are Nones for a float pool."""
     if scales is None:
-        return (scatter_pool_update(k_pools[li], pages, rows, k, layout),
-                scatter_pool_update(v_pools[li], pages, rows, v, layout),
-                None, None)
-    kp, ks = quantized_pool_write(k_pools[li], scales[0][li], pages, rows,
-                                  k, layout)
-    vp, vs = quantized_pool_write(v_pools[li], scales[1][li], pages, rows,
-                                  v, layout)
-    return kp, vp, ks, vs
+        none = [None] * tp
+        return shard_list(k_pools[li]), shard_list(v_pools[li]), none, none
+    return (shard_list(k_pools[li]), shard_list(v_pools[li]),
+            shard_list(scales[0][li]), shard_list(scales[1][li]))
+
+
+def _write_shard(kp, vp, ks, vs, pages, rows, k, v, layout):
+    """Write one shard's K/V rows into its pools in place: a plain
+    scatter, or with `ks` / `vs` (an int8 pool's scales) the quantized
+    write."""
+    if ks is None:
+        scatter_pool_update(kp, pages, rows, k, layout)
+        scatter_pool_update(vp, pages, rows, v, layout)
+    else:
+        quantized_pool_write(kp, ks, pages, rows, k, layout)
+        quantized_pool_write(vp, vs, pages, rows, v, layout)
+
+
+def _attend(fn, mesh, q, kps, vps, kss, vss, args, layout):
+    """One paged attention call over per-shard lists: the one-device call
+    without a mesh, else the wrapper's per-shard form.  Returns the
+    per-shard outputs."""
+    if mesh is None:
+        return [fn(q[0], kps[0], vps[0], *args, layout=layout,
+                   k_scale=kss[0], v_scale=vss[0])]
+    quant = kss[0] is not None
+    return fn(q, kps, vps, *args, layout=layout, mesh=mesh,
+              k_scale=kss if quant else None, v_scale=vss if quant else None)
+
+
+def _paged_write_attend(fn, args, k_pools, v_pools, scales, pages, rows,
+                        mesh, layout):
+    """A step function's per-layer callback for `_layers`: each shard
+    writes its K/V rows at (`pages`, `rows`, per-shard lists) into its
+    pools, then the paged attention `fn` attends over them with the
+    replicated `args` (page tables, descriptors or lengths)."""
+    def write_attend(li, q, k, v):
+        kps, vps, kss, vss = _layer_state(k_pools, v_pools, scales, li,
+                                          len(q))
+        for i in range(len(q)):
+            _write_shard(kps[i], vps[i], kss[i], vss[i], pages[i], rows[i],
+                         k[i], v[i], layout)
+        return _attend(fn, mesh, q, kps, vps, kss, vss, args, layout)
+
+    return write_attend
 
 
 def _split_state(rest, kv_quant, n_tail):
@@ -239,6 +311,73 @@ class TinyCausalLM(nn.Module):
         return _layer_norm(x, params["ln_f_s"], params["ln_f_b"]) \
             @ params["head"]
 
+    # ----------------------- the layer stack --------------------------
+    @staticmethod
+    def _row_matmul(mesh, quant_collectives):
+        """``rowmm(a, w)``: the two row-split contractions (wo, w2) over
+        per-shard lists and the all-reduce that ends each, as a per-shard
+        list of sums.  The one product without a mesh; under a mesh the
+        float32 all-reduce (`allreduce_sum`), or with `quant_collectives`
+        the quantized ring placed exactly there (the JAX model's
+        ``_row_matmul``)."""
+        if mesh is None:
+            return lambda a, w: [a[0] @ w[0]]
+        if quant_collectives and mesh.size > 1:
+            return quantized_matmul_allreduce(mesh)
+        return lambda a, w: allreduce_sum([x @ y for x, y in zip(a, w)],
+                                          mesh)
+
+    def _layers(self, sp, x, mesh, rowmm, write_attend):
+        """The layer stack over per-shard lists (one shard without a mesh):
+        `x` is the replicated ``[N, d_model]`` activation, one copy per
+        device.  Per layer and shard the Q/K/V and w1 projections are the
+        shard's column slices; ``write_attend(layer, q, k, v)`` (per-shard
+        ``[N, H/tp, D]`` lists) writes each shard's K/V into its pools and
+        returns its attention; wo and w2 are row slices, and each of the
+        two partial sums ends in one all-reduce (`rowmm`), after which b2
+        and the residual are added once.  Returns the per-shard x."""
+        hd = self.head_dim
+        tp = len(x)
+        hs = self.num_heads // tp
+        for li, blk in enumerate(sp["blocks"]):
+            hn = _per_device(mesh, lambda i: _layer_norm(
+                x[i], blk["ln1_s"][i], blk["ln1_b"][i]))
+            q, k, v = [], [], []
+            for i in range(tp):
+                n = hn[i].shape[0]
+                q.append((hn[i] @ blk["wq"][i]).reshape(n, hs, hd))
+                k.append((hn[i] @ blk["wk"][i]).reshape(n, hs, hd))
+                v.append((hn[i] @ blk["wv"][i]).reshape(n, hs, hd))
+            attn = write_attend(li, q, k, v)
+            s = rowmm([a.reshape(a.shape[0], hs * hd) for a in attn],
+                      blk["wo"])
+            x = _per_device(mesh, lambda i: x[i] + s[i])
+            hn = _per_device(mesh, lambda i: _layer_norm(
+                x[i], blk["ln2_s"][i], blk["ln2_b"][i]))
+            s = rowmm([torch.relu(hn[i] @ blk["w1"][i] + blk["b1"][i])
+                       for i in range(tp)], blk["w2"])
+            x = _per_device(mesh, lambda i: x[i] + (s[i] + blk["b2"][i]))
+        return x
+
+    def decode_param_specs(self, tp_axis="model"):
+        """Where each ``decode_params()`` leaf splits under a
+        tensor-parallel mesh, as the JAX model's PartitionSpecs name it:
+        the tuple gives each axis's mesh axis, or None (``()``:
+        replicated).  wq/wk/wv ``[d, H*D]`` split by column (head-major,
+        so a shard's columns ARE its heads' projections) and w1/b1 by
+        column; wo ``[H*D, d]`` and w2 by row, so each contraction yields
+        partial sums that one all-reduce completes; embeddings, norms,
+        b2 and the head replicated, so the activations between layers and
+        the logits need no collective of their own."""
+        col, row, rep = (None, tp_axis), (tp_axis, None), ()
+        blk = {"ln1_s": rep, "ln1_b": rep,
+               "wq": col, "wk": col, "wv": col, "wo": row,
+               "ln2_s": rep, "ln2_b": rep,
+               "w1": col, "b1": (tp_axis,), "w2": row, "b2": rep}
+        return {"tok_emb": rep, "pos_emb": rep,
+                "blocks": [dict(blk) for _ in self.blocks],
+                "ln_f_s": rep, "ln_f_b": rep, "head": rep}
+
     # -------------------------- parameters ----------------------------
     def decode_params(self, device=None):
         """The weights as a plain dict of tensors on `device` (default:
@@ -339,20 +478,16 @@ class TinyCausalLM(nn.Module):
         tok = torch.as_tensor(np.asarray(tokens), dtype=torch.long,
                               device=dev)
         pos = torch.as_tensor(positions, dtype=torch.long, device=dev)
-        b = tok.shape[0]
         x = params["tok_emb"][tok] + params["pos_emb"][pos]
-        for li, blk in enumerate(params["blocks"]):
-            hn = _layer_norm(x, blk["ln1_s"], blk["ln1_b"])
-            q, k, v = self._qkv(blk, hn)
-            attn = attend(li, q, k, v)
-            x = x + attn.reshape(b, self.d_model) @ blk["wo"]
-            x = x + self._mlp(blk, _layer_norm(x, blk["ln2_s"],
-                                               blk["ln2_b"]))
-        return self._logits(params, x)
+        x = self._layers(_as_shards(params), [x], None,
+                         self._row_matmul(None, False),
+                         lambda li, q, k, v: [attend(li, q[0], k[0], v[0])])
+        return self._logits(params, x[0])
 
     # -------------------------- eager chunk -----------------------------
     @torch.no_grad()
-    def prefill_chunk(self, tokens, start, attend):
+    def prefill_chunk(self, tokens, start, attend, mesh=None,
+                      quant_collectives=False, params=None):
         """One prefill CHUNK on the eager path (mirrors `decode`): tokens
         [n] host ints are the prompt slice at positions ``start .. start +
         n - 1``.  Per layer, ``attend(layer, q, k, v)`` (each [n, H, D])
@@ -360,26 +495,33 @@ class TinyCausalLM(nn.Module):
         causal attention over prefix and chunk [n, H, D].  Returns the
         chunk's LAST position logits [V] on the weights' device: for the
         final chunk, the next-token logits, as `prefill` gives them.  The
-        engine's warm one-shot prefill resumes mid-prompt through it."""
-        params = self.decode_params()
-        dev = params["tok_emb"].device
+        engine's warm one-shot prefill resumes mid-prompt through it.
+
+        Under a tensor-parallel `mesh`, `params` is the engine's sharded
+        params (``fused._shard_params``) and q, k, v and attend's result
+        are per-shard lists of ``[n, H/tp, D]``; the row-split matmuls end
+        in the all-reduce (quantized with `quant_collectives`)."""
+        sp = _as_shards(self.decode_params() if params is None else params)
+        hp = _shard0(sp)
+        dev = hp["tok_emb"].device
         tok = torch.as_tensor(np.asarray(tokens), dtype=torch.long,
                               device=dev)
         n = tok.shape[0]
-        x = self._embed(params, tok,
-                        int(start) + torch.arange(n, device=dev))
-        for li, blk in enumerate(params["blocks"]):
-            hn = _layer_norm(x, blk["ln1_s"], blk["ln1_b"])
-            q, k, v = self._qkv(blk, hn)
-            attn = attend(li, q, k, v)
-            x = x + attn.reshape(n, self.d_model) @ blk["wo"]
-            x = x + self._mlp(blk, _layer_norm(x, blk["ln2_s"],
-                                               blk["ln2_b"]))
-        return self._logits(params, x[n - 1:n])[0]
+        x = self._embed(hp, tok, int(start) + torch.arange(n, device=dev))
+        if mesh is None:
+            def write_attend(li, q, k, v):
+                return [attend(li, q[0], k[0], v[0])]
+        else:
+            write_attend = attend
+        x = self._layers(sp, _replicate(mesh, x), mesh,
+                         self._row_matmul(mesh, quant_collectives),
+                         write_attend)
+        return self._logits(hp, x[0][n - 1:n])[0]
 
     # -------------------------- fused decode --------------------------
     def decode_step_fn(self, page_size, num_pages, pool_layout="token",
-                       greedy=False, kv_quant=False):
+                       greedy=False, kv_quant=False, mesh=None,
+                       quant_collectives=False):
         """The legacy fused decode step the engine's FusedDecodeStep
         calls once per decode step::
 
@@ -399,34 +541,38 @@ class TinyCausalLM(nn.Module):
         IN PLACE (the returned lists hold the same tensors), then attends
         through the page tables.  `out` is logits [B, V], or argmax ids
         [B] int32 with greedy=True; it stays on the device.  The device
-        of the tensors picks the attention implementation."""
+        of the tensors picks the attention implementation.
+
+        mesh / quant_collectives: tensor parallel over the mesh's head
+        shards (`_layers`): `params` is ``fused._shard_params``' per-shard
+        params, each pool and scale entry a layer's list of head shards,
+        the inputs on the mesh's first device; each shard writes and
+        attends over its own heads, and the row-split matmuls end in the
+        float32 all-reduce, or the quantized ring with
+        `quant_collectives`.  The output is shard 0's."""
         page_size = int(page_size)
         num_pages = int(num_pages)
+        rowmm = self._row_matmul(mesh, quant_collectives)
 
         @torch.no_grad()
         def step(params, tokens, positions, k_pools, v_pools, *rest):
             scales, (page_tables, lens) = _split_state(rest, kv_quant, 2)
+            sp = _as_shards(params)
+            hp = _shard0(sp)
             b = tokens.shape[0]
             pos = positions.long()
-            x = params["tok_emb"][tokens.long()] + params["pos_emb"][pos]
+            x = hp["tok_emb"][tokens.long()] + hp["pos_emb"][pos]
             rows_b = torch.arange(b, device=pos.device)
-            pages = torch.where(lens > 0,
-                                page_tables[rows_b, pos // page_size].long(),
-                                num_pages)
-            rows = pos % page_size
-            for li, blk in enumerate(params["blocks"]):
-                hn = _layer_norm(x, blk["ln1_s"], blk["ln1_b"])
-                q, k, v = self._qkv(blk, hn)
-                kp, vp, ks, vs = _write_layer(li, k_pools, v_pools, scales,
-                                              pages, rows, k, v,
-                                              pool_layout)
-                attn = decode_attention.paged_decode_attention(
-                    q, kp, vp, page_tables, lens, layout=pool_layout,
-                    k_scale=ks, v_scale=vs)
-                x = x + attn.reshape(b, self.d_model) @ blk["wo"]
-                x = x + self._mlp(blk, _layer_norm(x, blk["ln2_s"],
-                                                   blk["ln2_b"]))
-            logits = self._logits(params, x)
+            pages = _replicate(mesh, torch.where(
+                lens > 0, page_tables[rows_b, pos // page_size].long(),
+                num_pages))
+            rows = _replicate(mesh, pos % page_size)
+            x = self._layers(sp, _replicate(mesh, x), mesh, rowmm,
+                             _paged_write_attend(
+                                 decode_attention.paged_decode_attention,
+                                 (page_tables, lens), k_pools, v_pools,
+                                 scales, pages, rows, mesh, pool_layout))
+            logits = self._logits(hp, x[0])
             out = (torch.argmax(logits, dim=-1).to(torch.int32) if greedy
                    else logits)
             return (out, k_pools, v_pools, *(scales or ()))
@@ -435,7 +581,7 @@ class TinyCausalLM(nn.Module):
 
     # ------------------------- chunked prefill ------------------------
     def prefill_chunk_fn(self, page_size, num_pages, pool_layout="token",
-                         kv_quant=False):
+                         kv_quant=False, mesh=None, quant_collectives=False):
         """The legacy chunked-prefill step the engine's
         ChunkedPrefillStep calls once per chunk::
 
@@ -453,73 +599,70 @@ class TinyCausalLM(nn.Module):
         discarded.  page_table: [MP] int32 for this sequence, padded
         with page 0.  Each layer writes the chunk's K/V into the pools
         IN PLACE, then attends over prefix and chunk through the page
-        table.  The logits stay on the device."""
+        table.  The logits stay on the device.  mesh /
+        quant_collectives: `decode_step_fn`'s."""
         page_size = int(page_size)
         num_pages = int(num_pages)
+        rowmm = self._row_matmul(mesh, quant_collectives)
 
         @torch.no_grad()
         def step(params, tokens, start, length, k_pools, v_pools, *rest):
             scales, (page_table,) = _split_state(rest, kv_quant, 1)
+            sp = _as_shards(params)
+            hp = _shard0(sp)
             start, length = int(start), int(length)
             c = tokens.shape[0]
             idx = torch.arange(c, device=tokens.device)
             live = idx < length
             positions = torch.where(live, start + idx, 0)
-            x = (params["tok_emb"][tokens.long()]
-                 + params["pos_emb"][positions])
+            x = hp["tok_emb"][tokens.long()] + hp["pos_emb"][positions]
             slot = torch.clamp((start + idx) // page_size,
                                max=page_table.shape[0] - 1)
-            pages = torch.where(live, page_table[slot].long(), num_pages)
-            rows = (start + idx) % page_size
-            for li, blk in enumerate(params["blocks"]):
-                hn = _layer_norm(x, blk["ln1_s"], blk["ln1_b"])
-                q, k, v = self._qkv(blk, hn)
-                kp, vp, ks, vs = _write_layer(li, k_pools, v_pools, scales,
-                                              pages, rows, k, v,
-                                              pool_layout)
-                attn = decode_attention.chunk_prefill_attention(
-                    q, kp, vp, page_table, start, layout=pool_layout,
-                    k_scale=ks, v_scale=vs)
-                x = x + attn.reshape(c, self.d_model) @ blk["wo"]
-                x = x + self._mlp(blk, _layer_norm(x, blk["ln2_s"],
-                                                   blk["ln2_b"]))
-            logits = self._logits(params, x[length - 1:length])[0]
+            pages = _replicate(mesh, torch.where(
+                live, page_table[slot].long(), num_pages))
+            rows = _replicate(mesh, (start + idx) % page_size)
+            x = self._layers(sp, _replicate(mesh, x), mesh, rowmm,
+                             _paged_write_attend(
+                                 decode_attention.chunk_prefill_attention,
+                                 (page_table, start), k_pools, v_pools,
+                                 scales, pages, rows, mesh, pool_layout))
+            logits = self._logits(hp, x[0][length - 1:length])[0]
             return (logits, k_pools, v_pools, *(scales or ()))
 
         return step
 
     # -------------------------- ragged step ---------------------------
-    def _ragged_core_fn(self, pool_layout="token"):
+    def _ragged_core_fn(self, pool_layout="token", mesh=None,
+                        quant_collectives=False):
         """The ragged layer stack over one packed token axis::
 
-            core(params, tokens, positions, pages, rows, page_tables,
+            core(sp, tokens, positions, pages, rows, page_tables,
                  starts, lens, kv_lens, k_pools, v_pools, scales)
               -> x [T, d]
 
-        (`scales`: ``(k_scales, v_scales)`` of an int8 pool, else None.)
+        (`sp`: the per-shard params of `_as_shards`; `scales`: ``(k_scales,
+        v_scales)`` of an int8 pool, else None.)
 
         Each layer writes its K/V into the pools (and scales) IN PLACE,
-        then attends through the page tables.  Inert slots embed token 0 at position 0 (in bounds by
-        construction), write into the sink page, and belong to no
-        descriptor, so their attention rows are exactly 0."""
+        then attends through the page tables; under a mesh every shard on
+        its own heads (`decode_step_fn`), and x is shard 0's copy.  Inert
+        slots embed token 0 at position 0 (in bounds by construction),
+        write into the sink page, and belong to no descriptor, so their
+        attention rows are exactly 0."""
+        rowmm = self._row_matmul(mesh, quant_collectives)
 
-        def core(params, tokens, positions, pages, rows, page_tables,
+        def core(sp, tokens, positions, pages, rows, page_tables,
                  starts, lens, kv_lens, k_pools, v_pools, scales):
-            t = tokens.shape[0]
-            x = params["tok_emb"][tokens] + params["pos_emb"][positions]
-            for li, blk in enumerate(params["blocks"]):
-                hn = _layer_norm(x, blk["ln1_s"], blk["ln1_b"])
-                q, k, v = self._qkv(blk, hn)
-                kp, vp, ks, vs = _write_layer(li, k_pools, v_pools, scales,
-                                              pages, rows, k, v,
-                                              pool_layout)
-                attn = decode_attention.ragged_paged_attention(
-                    q, kp, vp, page_tables, starts, lens, kv_lens,
-                    layout=pool_layout, k_scale=ks, v_scale=vs)
-                x = x + attn.reshape(t, self.d_model) @ blk["wo"]
-                x = x + self._mlp(blk, _layer_norm(x, blk["ln2_s"],
-                                                   blk["ln2_b"]))
-            return x
+            hp = _shard0(sp)
+            x = hp["tok_emb"][tokens] + hp["pos_emb"][positions]
+            return self._layers(sp, _replicate(mesh, x), mesh, rowmm,
+                                _paged_write_attend(
+                                    decode_attention.ragged_paged_attention,
+                                    (page_tables, starts, lens, kv_lens),
+                                    k_pools, v_pools, scales,
+                                    _replicate(mesh, pages),
+                                    _replicate(mesh, rows), mesh,
+                                    pool_layout))[0]
 
         return core
 
@@ -542,7 +685,8 @@ class TinyCausalLM(nn.Module):
         return amax_rows, heads[s_n * (kk + 1):]
 
     def ragged_step_fn(self, page_size, num_pages, pool_layout="token",
-                       kv_quant=False, spec_tokens=0):
+                       kv_quant=False, spec_tokens=0, mesh=None,
+                       quant_collectives=False):
         """The mixed-batch RAGGED step function the engine's RaggedStep
         calls once per engine step::
 
@@ -578,20 +722,25 @@ class TinyCausalLM(nn.Module):
                                      (exact: ids and counts are far
                                      below 2**24): the mixed-batch fetch
 
-        so the engine still fetches ONE array per step."""
+        so the engine still fetches ONE array per step.
+
+        mesh / quant_collectives: `decode_step_fn`'s; the epilogue and
+        the outputs are shard 0's."""
         del page_size, num_pages   # pages/rows arrive host-computed
-        core = self._ragged_core_fn(pool_layout)
+        core = self._ragged_core_fn(pool_layout, mesh, quant_collectives)
         kk = int(spec_tokens)
 
         @torch.no_grad()
         def step(params, tokens, positions, pages, rows, page_tables,
                  starts, lens, kv_lens, k_pools, v_pools, *rest):
             scales, _ = _split_state(rest, kv_quant, 0)
+            sp = _as_shards(params)
+            hp = _shard0(sp)
             t = tokens.shape[0]
-            x = core(params, tokens, positions, pages, rows, page_tables,
+            x = core(sp, tokens, positions, pages, rows, page_tables,
                      starts, lens, kv_lens, k_pools, v_pools, scales)
             if kk:
-                amax_rows, logits = self._head_window(params, x, starts,
+                amax_rows, logits = self._head_window(hp, x, starts,
                                                       lens, kk)
                 ids = torch.argmax(logits, dim=-1).to(torch.int32)
                 accepted, bonus = verify_accept(amax_rows, tokens, starts,
@@ -601,7 +750,7 @@ class TinyCausalLM(nn.Module):
                 return ((ints, aug), k_pools, v_pools, *(scales or ()))
             sample_rows = torch.clamp(starts.long() + lens.long() - 1,
                                       0, t - 1)
-            logits = self._logits(params, x[sample_rows])
+            logits = self._logits(hp, x[sample_rows])
             ids = torch.argmax(logits, dim=-1).to(torch.int32)
             return ((ids, logits), k_pools, v_pools, *(scales or ()))
 
@@ -610,7 +759,8 @@ class TinyCausalLM(nn.Module):
     # ------------------------ host-free decode loop --------------------
     def ragged_loop_fn(self, page_size, num_pages, pool_layout="token",
                        kv_quant=False, spec_tokens=0, loop_steps=2,
-                       max_stop_ids=8, max_stop_seqs=4, max_stop_len=8):
+                       max_stop_ids=8, max_stop_seqs=4, max_stop_len=8,
+                       mesh=None, quant_collectives=False):
         """The HOST-FREE DECODE LOOP: N ragged decode steps in one call
         (the engine's LoopedRaggedStep), with on-device sampling, stop
         matching and per-row done masks, and ONE output for the loop::
@@ -650,7 +800,8 @@ class TinyCausalLM(nn.Module):
         sink page, no draws), so pools, counters and outputs equal the
         JAX loop's, which exits early instead; the `iters_run` column
         counts the iterations in which some row was still active (the
-        JAX loop's count).
+        JAX loop's count).  mesh / quant_collectives: `decode_step_fn`'s,
+        for the layer stack of every iteration.
 
         Output columns per row: N + K emitted tokens (pad -1), n_emit,
         finish code, finish_iter (-1 if unfinished), final_pos (the
@@ -664,7 +815,7 @@ class TinyCausalLM(nn.Module):
         if n_steps < 1:
             raise ValueError(f"loop_steps must be >= 1, got {loop_steps}")
         max_emit = n_steps + kk
-        core = self._ragged_core_fn(pool_layout)
+        core = self._ragged_core_fn(pool_layout, mesh, quant_collectives)
         max_pos = self.max_positions
         i32 = torch.int32
 
@@ -674,6 +825,8 @@ class TinyCausalLM(nn.Module):
                stop_seq_lens, tail, drafts, draft_lens, k_pools, v_pools,
                *rest):
             scales, _ = _split_state(rest, kv_quant, 0)
+            sp = _as_shards(params)
+            hp = _shard0(sp)
             dev = cur_tok.device
             s = cur_tok.shape[0]
             cur_tok = cur_tok.to(i32)
@@ -719,9 +872,9 @@ class TinyCausalLM(nn.Module):
                 rows_p = torch.where(valid, pos_grid % page_size,
                                      0).reshape(-1)
                 kv_lens = torch.where(act0, cur_pos + 1 + dlen, zero)
-                x = core(params, tokens_p, positions_p, pages_p, rows_p, pt,
+                x = core(sp, tokens_p, positions_p, pages_p, rows_p, pt,
                          starts, len_s, kv_lens, k_pools, v_pools, scales)
-                amax_rows, logits = self._head_window(params, x, starts,
+                amax_rows, logits = self._head_window(hp, x, starts,
                                                       len_s, kk)
                 accepted, bonus = verify_accept(amax_rows, tokens_p, starts,
                                                 len_s, kk)

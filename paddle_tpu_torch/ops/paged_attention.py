@@ -31,6 +31,12 @@ H100.
   dequantizes a pool.
 - The plain versions are the gather-and-mask constructions of the JAX
   references, on any device.
+- Under a tensor-parallel mesh (``mesh=``) each wrapper and plain
+  version runs once per head shard (`head_shard_map`): the same
+  one-device call on ``num_heads / tp`` heads over that shard's pool
+  slice, with page tables and descriptors replicated on the shard's
+  device, so a kernel launches once per shard.  A sharded pool handed
+  over without ``mesh=`` raises NotImplementedError.
 - The three kernels run one split walk (``csrc/paged_attention_common.cuh``):
   `ragged_work_items`, `chunk_work_items` and `decode_work_items` list
   on the host the (tile, split) items each runs per head, and the
@@ -47,6 +53,7 @@ import threading
 import torch
 
 from . import _build
+from ..parallel.sharding_annotations import kv_pool_spec, kv_scale_spec
 
 NEG_INF = -1e30
 
@@ -92,6 +99,59 @@ def _require_scales(pool, k_scale, v_scale):
             f"multiplied by scale/127)")
 
 
+def _reject_sharded_pool(pool):
+    """A pool handed over as its head shards (a mesh pool's list) without
+    ``mesh=``: the one-device call would attend over one shard as if it
+    were the whole pool, so it refuses."""
+    if isinstance(pool, (list, tuple)):
+        raise NotImplementedError(
+            "paged attention over a mesh-sharded KV pool (a list of head "
+            "shards) needs the mesh spelled out: pass mesh= to run one "
+            "call per shard on its num_heads/tp heads — a one-device call "
+            "would compute over one shard as if it were the whole pool")
+
+
+def head_shard_map(fn, mesh, q, k_pool, v_pool, replicated, scale=None,
+                   layout="token", k_scale=None, v_scale=None):
+    """Run `fn` (a paged attention wrapper or plain version) once per head
+    shard of `mesh`: shard i gets its q heads, its pool and scale shards,
+    and `replicated` (page tables, descriptors, lengths, a host start) on
+    its device; returns the list of output shards.  Heads are independent
+    in every paged attention, so each shard's call is the one-device call
+    on ``num_heads / tp`` heads over its slice of the pool, with no
+    collective (``paddle_tpu/ops/pallas/paged_attention.py::_head_shard_map``).
+    q, the pools and the scales may each be a per-shard list or a whole
+    tensor, which is split here.  ValueError when the heads do not
+    divide."""
+    n = mesh.size
+    h = (sum(x.shape[1] for x in q) if isinstance(q, (list, tuple))
+         else q.shape[1])
+    if h % n:
+        raise ValueError(
+            f"num_heads={h} is not divisible by tp_degree={n}: the "
+            f"per-shard call splits the head axis, so heads must divide "
+            f"evenly")
+    hs = h // n
+
+    def parts(x, axis):
+        if x is None or isinstance(x, (list, tuple)):
+            return x
+        return [x.narrow(axis, i * hs, hs).to(d).contiguous()
+                for i, d in enumerate(mesh.devices)]
+
+    pool_axis, scale_axis = kv_pool_spec(layout), kv_scale_spec()
+    qs = parts(q, 1)
+    kps, vps = parts(k_pool, pool_axis), parts(v_pool, pool_axis)
+    kss, vss = parts(k_scale, scale_axis), parts(v_scale, scale_axis)
+    args = mesh.per_device(lambda i: tuple(
+        a.to(mesh.devices[i]) if isinstance(a, torch.Tensor) else a
+        for a in replicated))
+    return [fn(qs[i], kps[i], vps[i], *args[i], scale=scale, layout=layout,
+               k_scale=None if kss is None else kss[i],
+               v_scale=None if vss is None else vss[i])
+            for i in range(n)]
+
+
 def _gather_pool(pool, pt, b, h, d, layout, dtype, scale=None):
     """A [B, Kmax, H, D] view of each row of page table `pt` ([B, MP]),
     gathered from either pool layout and cast to `dtype` (bf16 pools are
@@ -112,7 +172,7 @@ def _gather_pool(pool, pt, b, h, d, layout, dtype, scale=None):
 
 def ragged_paged_attention_torch(q, k_pool, v_pool, page_tables, starts,
                                  lens, kv_lens, scale=None, layout="token",
-                                 k_scale=None, v_scale=None):
+                                 k_scale=None, v_scale=None, mesh=None):
     """Plain PyTorch ragged paged attention.
 
     q: [T, H, D] packed query rows; descriptor s owns rows
@@ -127,7 +187,15 @@ def ragged_paged_attention_torch(q, k_pool, v_pool, page_tables, starts,
 
     Masked keys get NEG_INF, so ``exp(NEG_INF - m)`` is exactly 0, and
     weights are zeroed after the softmax where not visible (rows a
-    descriptor does not own softmax over an all-masked row)."""
+    descriptor does not own softmax over an all-masked row).
+
+    With `mesh`, q, the pools and the scales may be per-shard lists of
+    head shards (`head_shard_map`), and the result is one."""
+    if mesh is not None:
+        return head_shard_map(
+            ragged_paged_attention_torch, mesh, q, k_pool, v_pool,
+            (page_tables, starts, lens, kv_lens), scale=scale,
+            layout=layout, k_scale=k_scale, v_scale=v_scale)
     _require_scales(k_pool, k_scale, v_scale)
     t, h, d = q.shape
     if scale is None:
@@ -157,7 +225,7 @@ def ragged_paged_attention_torch(q, k_pool, v_pool, page_tables, starts,
 
 def paged_decode_attention_torch(q, k_pool, v_pool, page_tables, seq_lens,
                                  scale=None, layout="token", k_scale=None,
-                                 v_scale=None):
+                                 v_scale=None, mesh=None):
     """Plain PyTorch paged decode attention: one query row per sequence.
 
     q: [B, H, D]; k_pool, v_pool: one layer's pool in either layout (int8
@@ -165,7 +233,13 @@ def paged_decode_attention_torch(q, k_pool, v_pool, page_tables, seq_lens,
     (padding: page 0); seq_lens: [B] int.
     Sequence b attends to its first ``seq_lens[b]`` keys.  Returns
     [B, H, D]; a sequence of length 0 gets exact zeros (its softmax over
-    an all-masked row is zeroed after the fact)."""
+    an all-masked row is zeroed after the fact).  `mesh`: per shard, as
+    the ragged version's."""
+    if mesh is not None:
+        return head_shard_map(
+            paged_decode_attention_torch, mesh, q, k_pool, v_pool,
+            (page_tables, seq_lens), scale=scale, layout=layout,
+            k_scale=k_scale, v_scale=v_scale)
     _require_scales(k_pool, k_scale, v_scale)
     b, h, d = q.shape
     if scale is None:
@@ -209,12 +283,18 @@ def chunk_prefill_attention_dense(q, k, v, start, scale=None):
 
 def chunk_prefill_attention_torch(q, k_pool, v_pool, page_table, start,
                                   scale=None, layout="token", k_scale=None,
-                                  v_scale=None):
+                                  v_scale=None, mesh=None):
     """Plain PyTorch chunked-prefill attention for ONE sequence, whose
     chunk K/V were already scattered into the pools: q [n, H, D] (row i
     at position ``start + i``), page_table [max_pages] int (padding: page
     0), `start` an int; int8 pools with their [P, H] k_scale/v_scale.
-    Every key is read through the page table.  Returns [n, H, D]."""
+    Every key is read through the page table.  Returns [n, H, D].
+    `mesh`: per shard, as the ragged version's."""
+    if mesh is not None:
+        return head_shard_map(
+            chunk_prefill_attention_torch, mesh, q, k_pool, v_pool,
+            (page_table, start), scale=scale, layout=layout,
+            k_scale=k_scale, v_scale=v_scale)
     _require_scales(k_pool, k_scale, v_scale)
     n, h, d = q.shape
     pt = page_table.to(q.device, torch.long)[None]
@@ -370,13 +450,21 @@ def _counted(wrapper):
 def ragged_paged_attention_kernel(q, k_pool, v_pool, page_tables, starts,
                                   lens, kv_lens, scale=None,
                                   layout="token", k_scale=None,
-                                  v_scale=None):
+                                  v_scale=None, mesh=None):
     """The ragged kernel's wrapper: same contract as the plain version.
 
     CUDA tensors launch the CUDA kernel (building it on first use) on the
     current stream, with the output zero-filled here so rows no
     descriptor owns stay exactly 0; a refused launch raises.  CPU tensors
-    run the plain version.  Anything else raises."""
+    run the plain version.  Anything else raises.  With `mesh` each head
+    shard makes its own call (`head_shard_map`), one launch a shard; a
+    sharded pool without `mesh` raises NotImplementedError."""
+    if mesh is not None:
+        return head_shard_map(
+            ragged_paged_attention_kernel, mesh, q, k_pool, v_pool,
+            (page_tables, starts, lens, kv_lens), scale=scale,
+            layout=layout, k_scale=k_scale, v_scale=v_scale)
+    _reject_sharded_pool(k_pool)
     _check_descriptors(page_tables, starts, lens, kv_lens)
     _require_scales(k_pool, k_scale, v_scale)
     if scale is None:
@@ -422,12 +510,19 @@ def _split_scratch(q, max_pages, page_size):
 @_counted
 def paged_decode_attention_kernel(q, k_pool, v_pool, page_tables, seq_lens,
                                   scale=None, layout="token", k_scale=None,
-                                  v_scale=None):
+                                  v_scale=None, mesh=None):
     """The paged decode kernel's wrapper: same contract as
     `paged_decode_attention_torch`.  CUDA tensors launch the CUDA kernel
     (built on first use) on the current stream; every output row is
     written (length-0 sequences as exact zeros).  CPU tensors run the
-    plain version.  Anything else raises."""
+    plain version.  Anything else raises.  `mesh`: per shard, as the
+    ragged wrapper's."""
+    if mesh is not None:
+        return head_shard_map(
+            paged_decode_attention_kernel, mesh, q, k_pool, v_pool,
+            (page_tables, seq_lens), scale=scale, layout=layout,
+            k_scale=k_scale, v_scale=v_scale)
+    _reject_sharded_pool(k_pool)
     if page_tables.dim() != 2 or seq_lens.shape != (page_tables.shape[0],) \
             or q.shape[0] != page_tables.shape[0]:
         raise ValueError(
@@ -464,12 +559,18 @@ def paged_decode_attention_kernel(q, k_pool, v_pool, page_tables, seq_lens,
 @_counted
 def chunk_prefill_attention_kernel(q, k_pool, v_pool, page_table, start,
                                    scale=None, layout="token", k_scale=None,
-                                   v_scale=None):
+                                   v_scale=None, mesh=None):
     """The chunk-prefill kernel's wrapper: same contract as
     `chunk_prefill_attention_torch`; `start` is a host int, passed to the
     kernel by value.  CUDA tensors launch the CUDA kernel (built on first
     use) on the current stream; CPU tensors run the plain version.
-    Anything else raises."""
+    Anything else raises.  `mesh`: per shard, as the ragged wrapper's."""
+    if mesh is not None:
+        return head_shard_map(
+            chunk_prefill_attention_kernel, mesh, q, k_pool, v_pool,
+            (page_table, start), scale=scale, layout=layout,
+            k_scale=k_scale, v_scale=v_scale)
+    _reject_sharded_pool(k_pool)
     start = int(start)
     if page_table.dim() != 1 or page_table.shape[0] < 1 or start < 0:
         raise ValueError(

@@ -640,10 +640,12 @@ def test_heartbeat_metrics_and_transport_validation(models):
         ReplicaSpec("x", models[1], _cfg(), transport="carrier-pigeon")
     with pytest.raises(ValueError, match="transport"):
         FleetConfig(transport="bogus")
+    from paddle_tpu_torch.parallel import tp_mesh
     from paddle_tpu_torch.serving.disagg.transport import SubprocTransport
 
+    mesh = tp_mesh(2, devices=["cpu"] * 2)
     with pytest.raises(ValueError, match="process boundary"):
-        SubprocTransport(ReplicaSpec("m", models[1], _cfg(mesh=object())))
+        SubprocTransport(ReplicaSpec("m", models[1], _cfg(mesh=mesh)))
 
 
 # ---------------------------- subprocess fleet -----------------------------

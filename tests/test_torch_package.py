@@ -14,7 +14,7 @@ import torch
 from paddle_tpu_torch import generation as pgen
 from paddle_tpu_torch.models import GPTConfig, GPTForPretraining
 from paddle_tpu_torch.optimizer import AdamW
-from paddle_tpu_torch.parallel import TrainStep
+from paddle_tpu_torch.parallel import TPMesh, TrainStep
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -149,9 +149,14 @@ def test_training_entry_points_default_to_the_card(build):
         build()
 
 
-@pytest.mark.parametrize("setting", [dict(mesh=object())])
+@pytest.mark.parametrize("setting", [dict(
+    device="cuda:0", loop_steps=4,
+    mesh=TPMesh(["cuda:0", "cuda:1"]))])
 def test_unported_settings_raise_at_build(setting):
-    cfg = pgen.GenerationConfig(device="cpu", **setting)
+    """What the port still refuses raises NotImplementedError at build,
+    before any device is touched: the captured decode loop over a mesh
+    whose shards span several cards."""
+    cfg = pgen.GenerationConfig(**{"device": "cpu", **setting})
     with pytest.raises(NotImplementedError, match="not supported"):
         pgen.GenerationEngine(pgen.TinyCausalLM(device="cpu"), cfg,
                               start=False)
