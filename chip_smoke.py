@@ -271,13 +271,38 @@ carries on:
    float32 ragged run over ``tp_mesh(4)``, else a line saying it has
    one; printed, not gated: tokens/s of every run and the device idle
    share at tp 1, 2 and 4 over 24 steps of the traffic;
-16. the result line.
+16. data parallel, ZeRO and the pipeline at GPT-2-small width, every
+   shard on card 0 (``build_mesh(..., devices=["cuda:0"] * n)``): (c)
+   first, at dropout 0, 2 layers, B 2 a shard, 2 steps: the card's
+   ``{"data": 4}`` ``CompiledTrainStep`` at ZeRO 0, 1, 2 and 3 against the
+   card's one-device ``TrainStep`` on the global batch (losses within
+   1e-4 relative), ZeRO 1-3 against ZeRO 0 (losses within 1e-5 relative,
+   parameters by tests/test_torch_train_step.py's fp32 Adam rule), and
+   the ``{"pipe": 2, "data": 2}`` ``PipelinedTrainStep`` (2 micro-batches,
+   remat) on the card against the CPU (losses within 1e-4); (a)
+   ``bench_gpt_zero``'s configuration (phase 8's model at dropout 0.1, B
+   8 a shard, L 512, AdamW 1e-4, bf16 amp) over ``{"data": 4}`` at ZeRO
+   0-3, 2 warm-up and 3 timed steps each from one set of weights: the
+   loss finite and falling, each flash kernel launched dp x num_layers
+   times a step, no paged kernel launched, each shard's optimizer state
+   at ZeRO 1-3 and its parameters at ZeRO 3 1/dp of ZeRO 0's (to the
+   padding); (b) the pipeline over ``{"pipe": 2, "data": 2}``, 4
+   micro-batches of 2 rows, ZeRO 1, remat off and on, held likewise,
+   the flash forward launched dp x M x num_layers times a step (twice
+   that with remat) and dK/dV and dQ dp x M x num_layers; (d) where the
+   call sees 4 cards, (a) at ZeRO 3 over cuda:0..3 with the bytes moved
+   between cards, else a line saying it has fewer; printed, not gated:
+   ms per step, tokens/s, the device idle share over 2 profiled steps,
+   peak memory, each shard's persistent bytes and the collective bytes
+   per step;
+17. the result line.
 
 Each phase prints its wall seconds.
 
 It imports neither jax nor paddle_tpu.  It needs one CUDA card, and
 fails without one.
 """
+import copy
 import json
 import math
 import subprocess
@@ -391,6 +416,17 @@ TRAIN_MODEL = dict(vocab_size=50257, hidden_size=768, num_layers=12,
 TRAIN = dict(lr=1e-4, batch=8, seq=512, warmup=3, iters=10, profiled=3,
              dropout=0.1, held_batch=2, held_steps=2)
 TRAIN_LOSS_TOL = 1e-4   # card vs CPU losses, relative (bf16 amp on both)
+# phase 16: bench_gpt_zero's step over {"data": 4} at ZeRO 0-3 (B 8 a
+# shard) and the pipeline over {"pipe": 2, "data": 2} (4 micro-batches of
+# 2 rows), every shard on card 0; 2 warm-up, 3 timed and 1 profiled step
+# a run; the held check at HELD_LAYERS, B 2 a shard (the pipeline's 2
+# micro-batches of 1 row)
+DP = dict(dp=4, stages=(0, 1, 2, 3), warmup=2, iters=3, profiled=1, pipe=2,
+          pipe_dp=2, micro=4, held_batch=2, held_micro=2)
+# ZeRO 1-3 against ZeRO 0 after the held steps: tests/
+# test_torch_train_step.py's fp32 Adam rule (all but 1 in 10^4 entries
+# within 1e-5, every entry within 2 x steps x lr)
+DP_PARAM_TOL, DP_PARAM_SHARE = 1e-5, 1e-4
 TRAIN_GNORM_TOL = 1e-3  # card vs CPU step-1 gradient norm, relative
 # encoder pretraining: bench.py's bench_bert configuration (BERT-base,
 # AdamW lr 1e-4 constant, bf16 amp, dropout 0.1, B 64, L 128, 3 warm-up
@@ -1220,14 +1256,15 @@ def device_kernels(prof):
 
 
 def profile_engine(pgen, model, prompts, settings=None):
-    """The card's run again under torch.profiler: wall seconds, the sum
-    of kernel time on the device, and the kernels that took the most."""
+    """The card's run again under torch.profiler (CUDA activity only: the
+    host's events of a whole run took minutes to read back): wall
+    seconds, the sum of kernel time on the device, and the kernels that
+    took the most."""
     from torch.profiler import ProfilerActivity, profile
 
     eng, handles, _, _ = serve(pgen, model, prompts, "cuda", settings)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         eng.run_until_idle()
         torch.cuda.synchronize()
@@ -3861,12 +3898,12 @@ def make_trainer(model, device, lr, seed=0):
 
 
 def profile_steps(step, n):
-    """`n` calls of `step` under torch.profiler: wall seconds, kernel
-    seconds on the device, and the 15 kernels that took the most."""
+    """`n` calls of `step` under torch.profiler (CUDA activity only, as
+    `profile_engine`): wall seconds, kernel seconds on the device, and
+    the 15 kernels that took the most."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(n):
@@ -5048,6 +5085,275 @@ def check_tensor_cores(build, lib):
         fail(f"want 18 flash instantiations, each with HMMA: {flash}")
 
 
+# ---- phase 16: data parallel, ZeRO and the pipeline -----------------------
+
+def dp_loss(m, ids, lbl, generator):
+    return m.loss(ids, lbl, generator=generator)
+
+
+def flash_launch_counts():
+    launches = read_launches()
+    return {k["name"]: launches[k["name"]] for k in FLASH_KERNELS}
+
+
+def dp_trainer(model, zero_stage, devices, lr=TRAIN["lr"]):
+    """`bench_gpt_zero`'s step over ``{"data": len(devices)}``: AdamW at
+    `lr`, bf16 amp, at `zero_stage`."""
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel import CompiledTrainStep, build_mesh
+
+    return CompiledTrainStep(
+        model, dp_loss, AdamW(learning_rate=lr), build_mesh(
+            {"data": len(devices)}, devices=devices),
+        amp_dtype=torch.bfloat16, zero_stage=zero_stage)
+
+
+def pipe_trainer(model, devices, remat, num_micro=DP["micro"]):
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel import (GPTPipeAdapter,
+                                           PipelinedTrainStep, build_mesh)
+
+    return PipelinedTrainStep(
+        GPTPipeAdapter(model), AdamW(learning_rate=TRAIN["lr"]),
+        build_mesh({"pipe": DP["pipe"], "data": DP["pipe_dp"]},
+                   devices=devices), num_micro=num_micro,
+        amp_dtype=torch.bfloat16, remat=remat, zero_stage=1)
+
+
+def timed_training(label, tr, ids, lbl, want, tokens):
+    """DP["warmup"] warm-up and DP["iters"] timed steps, every count set
+    to 0 just before and read just after; the flash launches against
+    `want` per step, the losses finite and falling; then the device idle
+    share over DP["profiled"] profiled steps."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    losses = [tr.step(ids, lbl) for _ in range(DP["warmup"])]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses += [tr.step(ids, lbl) for _ in range(DP["iters"])]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = flash_launch_counts()
+    others = {k: v for k, v in read_launches().items()
+              if k not in launches and v}
+    steps = DP["warmup"] + DP["iters"]
+    losses = [float(x) for x in losses]
+    peak = torch.cuda.max_memory_allocated()
+    if not all(math.isfinite(x) for x in losses) or losses[-1] >= losses[0]:
+        fail(f"{label}: loss not finite and falling: {losses}")
+    for name, n in launches.items():
+        if n != want[name] * steps:
+            fail(f"{label}: {name} launched {n} times over {steps} steps, "
+                 f"want {want[name]} a step")
+    if others:
+        fail(f"{label}: the train step launched a paged kernel: {others}")
+    p_wall, busy, _ = profile_steps(lambda: tr.step(ids, lbl),
+                                    DP["profiled"])
+    ms = wall / DP["iters"] * 1e3
+    return dict(ms=ms, tokens_s=tokens / ms * 1e3, peak=peak,
+                losses=losses, idle=(1 - busy / p_wall) if busy > 0 else None,
+                launches={k: v // steps for k, v in launches.items()},
+                moved=tr.moved_bytes)
+
+
+def dp_base():
+    """The bench's model at full width on card 0 (seed 0, dropout 0.1):
+    each run of phase 16 (a), (b) and (d) starts from a copy of it."""
+    from paddle_tpu_torch.models import GPTConfig, GPTForPretraining
+
+    return GPTForPretraining(GPTConfig(dropout=TRAIN["dropout"],
+                                       **TRAIN_MODEL), seed=0, device="cuda")
+
+
+def phase_dp_run(base):
+    """Phase 16 (a): the bench at full width over ``{"data": 4}`` on card
+    0, at ZeRO stages 0-3, each from a copy of `base`."""
+    cfg = base.config
+    dp = DP["dp"]
+    ids, lbl = (x.cuda() for x in train_batch(dp * TRAIN["batch"],
+                                               TRAIN["seq"], cfg.vocab_size))
+    want = {k["name"]: dp * cfg.num_layers for k in FLASH_KERNELS}
+    out = {}
+    for stage in DP["stages"]:
+        model = copy.deepcopy(base)
+        tr = dp_trainer(model, stage, ["cuda:0"] * dp)
+        own = tr.persistent_bytes()[0]
+        run = timed_training(f"data 4, stage {stage}", tr, ids, lbl, want,
+                             dp * TRAIN["batch"] * TRAIN["seq"])
+        run.update(own=own, collective=tr.collective_bytes(),
+                   pad=tr.layout.pad, numel=tr.layout.numel)
+        log(f"  data 4, ZeRO {stage}: {run['ms']:.2f} ms per step, "
+            f"{run['tokens_s']:.1f} tokens/s, losses {run['losses'][0]:.4f}"
+            f" -> {run['losses'][-1]:.4f}, peak {run['peak'] / 2**30:.2f} "
+            f"GiB; per shard: parameters {own['params'] / 2**20:.1f} MiB, "
+            f"gradients {own['grads'] / 2**20:.1f} MiB, optimizer state "
+            f"{own['optimizer'] / 2**20:.1f} MiB; flash launches per step "
+            f"{run['launches']}")
+        out[stage] = run
+        del tr, model
+        torch.cuda.empty_cache()
+    full, opt0 = out[0]["own"]["params"], out[0]["own"]["optimizer"]
+    slack = 2 * 4 * out[0]["pad"] + 8 * len(list(base.parameters()))
+    for stage in DP["stages"]:
+        own = out[stage]["own"]
+        if stage >= 1 and abs(own["optimizer"] * dp - opt0) > dp * slack:
+            fail(f"ZeRO {stage}: optimizer state {own['optimizer']} bytes a "
+                 f"shard, want 1/{dp} of stage 0's {opt0}")
+        if stage >= 3 and abs(own["params"] * dp - full) > 4 * out[0]["pad"]:
+            fail(f"ZeRO 3: parameters {own['params']} bytes a shard, want "
+                 f"1/{dp} of {full}")
+    return out
+
+
+def phase_pipe_run(base):
+    """Phase 16 (b): ``{"pipe": 2, "data": 2}``, 4 micro-batches, ZeRO 1,
+    remat off and on, each from a copy of `base`."""
+    cfg = base.config
+    dp, M = DP["pipe_dp"], DP["micro"]
+    ids, lbl = (x.cuda() for x in train_batch(dp * TRAIN["batch"],
+                                               TRAIN["seq"], cfg.vocab_size))
+    out = {}
+    for remat in (False, True):
+        model = copy.deepcopy(base)
+        tr = pipe_trainer(model, ["cuda:0"] * (DP["pipe"] * dp), remat)
+        per = dp * M * cfg.num_layers
+        want = {"flash_attention_fwd": per * (2 if remat else 1),
+                "flash_attention_bwd_dkdv": per,
+                "flash_attention_bwd_dq": per}
+        run = timed_training(f"pipe 2 x data 2, remat {remat}", tr, ids, lbl,
+                             want, dp * TRAIN["batch"] * TRAIN["seq"])
+        log(f"  pipe 2 x data 2, M {M}, remat {'on' if remat else 'off'}: "
+            f"{run['ms']:.2f} ms per step, {run['tokens_s']:.1f} tokens/s, "
+            f"losses {run['losses'][0]:.4f} -> {run['losses'][-1]:.4f}, peak "
+            f"{run['peak'] / 2**30:.2f} GiB; flash launches per step "
+            f"{run['launches']}")
+        out[remat] = run
+        del tr, model
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_dp_held():
+    """Phase 16 (c) at dropout 0, full width and HELD_LAYERS layers, B
+    DP["held_batch"] a shard, TRAIN["held_steps"] steps: ``{"data": 4}``
+    on the card at each stage against the card's one-device step on the
+    global batch; stages 1-3 against stage 0; the pipeline on the card
+    against the same pipeline on the CPU."""
+    from paddle_tpu_torch.models import GPTConfig, GPTForPretraining
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel import TrainStep
+
+    cfg = GPTConfig(dropout=0.0, **dict(TRAIN_MODEL,
+                                        num_layers=HELD_LAYERS))
+    dp = DP["dp"]
+    ids, lbl = train_batch(dp * DP["held_batch"], TRAIN["seq"],
+                           cfg.vocab_size)
+    base = GPTForPretraining(cfg, seed=0, device="cpu").numpy_params()
+    steps = TRAIN["held_steps"]
+
+    def model_on(device):
+        return GPTForPretraining.from_numpy_params(base, cfg, device=device)
+
+    def losses_of(tr):
+        return [float(tr.step(ids, lbl)) for _ in range(steps)]
+
+    t0 = time.perf_counter()
+    one = losses_of(TrainStep(model_on("cuda"), dp_loss, AdamW(
+        learning_rate=TRAIN["lr"]), amp_dtype=torch.bfloat16))
+    runs = {}
+    for stage in DP["stages"]:
+        m = model_on("cuda")
+        tr = dp_trainer(m, stage, ["cuda:0"] * dp)
+        runs[stage] = (losses_of(tr), {n: p.float().cpu().numpy()
+                                       for n, p in tr.full_params().items()})
+        log(f"  data 4, ZeRO {stage}: losses {runs[stage][0]} (one device "
+            f"{one})")
+        for a, b in zip(runs[stage][0], one):
+            if not math.isfinite(a) or abs(a - b) > TRAIN_LOSS_TOL * abs(b):
+                fail(f"data 4, ZeRO {stage}: loss {a} against the one-device"
+                     f" step's {b}, past {TRAIN_LOSS_TOL} relative")
+        del tr, m
+    l0, p0 = runs[0]
+    for stage in DP["stages"][1:]:
+        ls, ps = runs[stage]
+        for a, b in zip(ls, l0):
+            if abs(a - b) > 1e-5 * abs(b):
+                fail(f"ZeRO {stage}: loss {a} against stage 0's {b}, past "
+                     f"1e-5 relative")
+        far, total, worst = 0, 0, 0.0
+        for n, w in p0.items():
+            diff = np.abs(ps[n] - w)
+            worst = max(worst, float(diff.max()))
+            far += int((diff > DP_PARAM_TOL).sum())
+            total += diff.size
+        log(f"  ZeRO {stage} against ZeRO 0 after {steps} steps: max |diff| "
+            f"{worst:.3e}, {far} of {total} entries past {DP_PARAM_TOL}")
+        if worst > 2 * steps * TRAIN["lr"] or far > total * DP_PARAM_SHARE:
+            fail(f"ZeRO {stage}: parameters past the Adam rule against "
+                 f"ZeRO 0 ({far} of {total} past {DP_PARAM_TOL}, max "
+                 f"{worst})")
+    log(f"  ({time.perf_counter() - t0:.1f} s on the card)")
+    pipe = {}
+    for device in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        m = model_on(device)
+        tr = pipe_trainer(m, [device] * (DP["pipe"] * DP["pipe_dp"]),
+                          remat=True, num_micro=DP["held_micro"])
+        b = DP["pipe_dp"] * DP["held_batch"]
+        pipe[device] = [float(tr.step(ids[:b], lbl[:b]))
+                        for _ in range(steps)]
+        log(f"  pipe 2 x data 2 on the {device}: "
+            f"{time.perf_counter() - t0:.1f} s")
+        del tr, m
+    log(f"  pipe 2 x data 2: card {pipe['cuda']}, CPU {pipe['cpu']}")
+    for a, b in zip(pipe["cuda"], pipe["cpu"]):
+        if not math.isfinite(a) or abs(a - b) > TRAIN_LOSS_TOL * abs(b):
+            fail(f"pipeline card vs CPU: loss {a} against {b}, past "
+                 f"{TRAIN_LOSS_TOL} relative")
+    torch.cuda.empty_cache()
+
+
+def phase_dp_cross_card(base):
+    """Phase 16 (d): (a) at ZeRO 3 over ``cuda:0..3`` where the call sees
+    4 cards; a line saying so otherwise."""
+    n = torch.cuda.device_count()
+    if n < DP["dp"]:
+        log(f"  across cards: this call sees {n} card(s); the run over "
+            f"cuda:0..{DP['dp'] - 1} needs {DP['dp']} and was not made")
+        return None
+    cfg = base.config
+    model = copy.deepcopy(base)
+    tr = dp_trainer(model, 3, [f"cuda:{i}" for i in range(DP["dp"])])
+    ids, lbl = (x.cuda() for x in train_batch(
+        DP["dp"] * TRAIN["batch"], TRAIN["seq"], cfg.vocab_size))
+    want = {k["name"]: DP["dp"] * cfg.num_layers for k in FLASH_KERNELS}
+    run = timed_training("data 4 across cards, stage 3", tr, ids, lbl, want,
+                         DP["dp"] * TRAIN["batch"] * TRAIN["seq"])
+    log(f"  across cards (cuda:0..3), ZeRO 3: {run['ms']:.2f} ms per step, "
+        f"{run['tokens_s']:.1f} tokens/s, {run['moved'] / 2**20:.1f} MiB "
+        f"moved between cards per step")
+    return run
+
+
+def dp_numbers(card, dp_out, pipe_out):
+    for stage, run in dp_out.items():
+        idle = ("not measured" if run["idle"] is None
+                else f"{run['idle']:.1%}")
+        log(f"  [{card}] data 4 (one card), ZeRO {stage}: {run['ms']:.2f} ms "
+            f"per step, {run['tokens_s']:.1f} tokens/s, idle share {idle}, "
+            f"peak {run['peak'] / 2**30:.2f} GiB, collective bytes per step "
+            f"{run['collective'] / 2**20:.1f} MiB (a ring's, per rank; "
+            f"{run['moved']} bytes left the card)")
+    for remat, run in pipe_out.items():
+        idle = ("not measured" if run["idle"] is None
+                else f"{run['idle']:.1%}")
+        log(f"  [{card}] pipe 2 x data 2 (one card), M {DP['micro']}, remat "
+            f"{'on' if remat else 'off'}: {run['ms']:.2f} ms per step, "
+            f"{run['tokens_s']:.1f} tokens/s, idle share {idle}, peak "
+            f"{run['peak'] / 2**30:.2f} GiB")
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this run needs a card")
@@ -5284,6 +5590,23 @@ def main():
     tp_numbers(pgen, model, prompts, card, tp_out)
     for name, err in tp_out["kernel_err"].items():
         max_err[name] = max(max_err[name], err)
+
+    phase("phase 16: data parallel, ZeRO and the pipeline at GPT-2-small "
+          "width (bench_gpt_zero's step over {\"data\": 4} at ZeRO 0-3; "
+          "{\"pipe\": 2, \"data\": 2}, 4 micro-batches), every shard on "
+          "card 0")
+    log("  held checks at dropout 0, 2 layers")
+    phase_dp_held()
+    base = dp_base()
+    log("  (a) the bench over {\"data\": 4}")
+    dp_out = phase_dp_run(base)
+    log("  (b) the pipeline")
+    pipe_out = phase_pipe_run(base)
+    log("  (d) across cards")
+    phase_dp_cross_card(base)
+    del base
+    torch.cuda.empty_cache()
+    dp_numbers(card, dp_out, pipe_out)
     phase(None)
     log(f"  whole run {time.perf_counter() - t_start:.1f} s wall")
     launches = {"ragged_paged_attention": gpu["launches"],
@@ -5307,6 +5630,18 @@ def main():
     mesh_keys = {name: {"mesh": {"tp": TP_MAIN,
                                  "launches_per_shard": n // TP_MAIN}}
                  for name, n in per_shard.items()}
+    # each flash kernel's launches per step on phase 16's main paths: the
+    # bench over {"data": 4} at ZeRO 3, the pipeline with remat (the
+    # JAX pipeline's default)
+    for k in FLASH_KERNELS:
+        mesh_keys[k["name"]] = {
+            "data_parallel": {"dp": DP["dp"], "stage": 3,
+                              "launches_per_step":
+                                  dp_out[3]["launches"][k["name"]]},
+            "pipeline": {"S": DP["pipe"], "dp": DP["pipe_dp"],
+                         "M": DP["micro"], "remat": True,
+                         "launches_per_step":
+                             pipe_out[True]["launches"][k["name"]]}}
     print(json.dumps({"kernels": [{
         "name": k["name"], "route": "cuda",
         "source": f"paddle_tpu_torch/csrc/{k['lib']}.cu",

@@ -12,6 +12,7 @@ no kernel of the port launched (attention takes the composite path).
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401
 
 from paddle_tpu_torch.models import (BertForPretraining, ErnieForPretraining,
                                      apply_knowledge_mask, bert_tiny,

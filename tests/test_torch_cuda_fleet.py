@@ -6,6 +6,7 @@ import).  On a machine with one (JAX not needed):
 """
 import pytest
 import torch
+import torch_threads  # noqa: F401
 
 from paddle_tpu_torch import generation as pgen
 from paddle_tpu_torch.ops import paged_attention as pa

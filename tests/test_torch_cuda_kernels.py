@@ -10,6 +10,7 @@ import math
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401
 
 from paddle_tpu_torch import generation as pgen
 from paddle_tpu_torch.ops import paged_attention as pa

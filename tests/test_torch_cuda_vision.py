@@ -14,6 +14,7 @@ the port launched.
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401
 
 from paddle_tpu_torch import nn as pnn
 from paddle_tpu_torch import optimizer as popt

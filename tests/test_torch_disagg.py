@@ -23,6 +23,7 @@ import ml_dtypes
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401
 
 from paddle_tpu import generation as jgen
 from paddle_tpu.serving.disagg import page_service as jps

@@ -15,6 +15,7 @@ of its largest magnitude, and every optimizer state tensor within 2e-5
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401
 
 import paddle_tpu as paddle
 import paddle_tpu.nn.functional as JF

@@ -12,6 +12,7 @@ import math
 
 import numpy as np
 import pytest
+import torch_threads  # noqa: F401
 
 from paddle_tpu import generation as jgen
 from paddle_tpu_torch import generation as pgen

@@ -10,6 +10,7 @@ import threading
 import time
 
 import pytest
+import torch_threads  # noqa: F401
 
 from paddle_tpu_torch.generation.engine import _FifoLock
 

@@ -18,6 +18,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401
 
 import paddle_tpu.ops.pallas.flash_attention  # noqa: F401
 from paddle_tpu.ops.attention import (

@@ -14,6 +14,7 @@ import threading
 
 import numpy as np
 import pytest
+import torch_threads  # noqa: F401
 
 from paddle_tpu import generation as jgen
 from paddle_tpu.profiler.monitor import StatRegistry as JStatRegistry

@@ -14,6 +14,7 @@ is the quality gate of the JAX package (generation/quality.py).
 """
 import pytest
 import torch
+import torch_threads  # noqa: F401
 
 from paddle_tpu import generation as jgen
 from paddle_tpu.generation import quality as jquality

@@ -11,6 +11,7 @@ the port: legacy against ragged, and the legacy step's counters.
 """
 import numpy as np
 import pytest
+import torch_threads  # noqa: F401
 
 from paddle_tpu import generation as jgen
 from paddle_tpu_torch import generation as pgen

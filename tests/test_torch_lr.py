@@ -10,6 +10,7 @@ arithmetic in one order, so in practice bitwise).
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401
 
 import paddle_tpu.optimizer.lr as jlr
 from paddle_tpu_torch.optimizer import SGD, AdamW

@@ -14,6 +14,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401
 
 import paddle_tpu as paddle
 from paddle_tpu_torch import optimizer as popt

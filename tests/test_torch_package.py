@@ -10,6 +10,7 @@ from pathlib import Path
 
 import pytest
 import torch
+import torch_threads  # noqa: F401
 
 from paddle_tpu_torch import generation as pgen
 from paddle_tpu_torch.models import GPTConfig, GPTForPretraining
@@ -52,7 +53,9 @@ def test_import_pulls_in_neither_jax_nor_paddle_tpu():
         "serving.disagg.page_service", "serving.disagg.faults",
         "serving.disagg.data_plane", "serving.disagg.transport",
         "serving.disagg.worker", "serving.disagg.tcp",
-        "serving.disagg.chaos")} <= walked
+        "serving.disagg.chaos", "parallel.env", "parallel.collective",
+        "parallel.topology", "parallel.data_parallel", "parallel.hybrid",
+        "parallel.pipeline_compile")} <= walked
 
 
 def test_replica_worker_imports_neither_jax_nor_paddle_tpu():
@@ -160,6 +163,44 @@ def test_unported_settings_raise_at_build(setting):
     with pytest.raises(NotImplementedError, match="not supported"):
         pgen.GenerationEngine(pgen.TinyCausalLM(device="cpu"), cfg,
                               start=False)
+
+
+def _mesh_refusals():
+    from paddle_tpu_torch.parallel import (CompiledTrainStep, GPTPipeAdapter,
+                                           PipelinedTrainStep, build_mesh)
+
+    def model():
+        return GPTForPretraining(_gpt_config(), device="cpu")
+
+    def step(shape):
+        return CompiledTrainStep(model(), lambda m, i, l, generator: m.loss(
+            i, l), AdamW(), build_mesh(shape, devices=["cpu"] * 4))
+
+    def pipe():
+        cfg = _gpt_config()
+        cfg.num_layers = 2
+        return PipelinedTrainStep(
+            GPTPipeAdapter(GPTForPretraining(cfg, device="cpu")), AdamW(),
+            build_mesh({"pipe": 2, "model": 2}, devices=["cpu"] * 4), 2)
+
+    return [lambda: step({"data": 2, "model": 2}),
+            lambda: step({"data": 2, "seq": 2}),
+            lambda: step({"data": 2, "expert": 2}),
+            lambda: build_mesh({"data": 2}, devices=["cpu"] * 2,
+                               dcn_shape_dict={"data": 2}),
+            pipe]
+
+
+@pytest.mark.parametrize("index", range(5), ids=[
+    "model_axis", "seq_axis", "expert_axis", "dcn_shape_dict",
+    "pipeline_model_axis"])
+def test_unported_mesh_axes_raise(index):
+    """Tensor-parallel training, context parallelism and experts (a
+    ``model``, ``seq`` or ``expert`` axis of size > 1, in the data-parallel
+    step and the pipeline) and a TPU multi-slice layout raise
+    NotImplementedError at build."""
+    with pytest.raises(NotImplementedError, match="not ported"):
+        _mesh_refusals()[index]()
 
 
 @pytest.mark.parametrize("setting", [

@@ -17,6 +17,7 @@ import time
 
 import numpy as np
 import pytest
+import torch_threads  # noqa: F401
 
 from paddle_tpu import generation as jgen
 from paddle_tpu_torch import generation as pgen

@@ -22,6 +22,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401
 
 from paddle_tpu.generation import kv_cache as jkv
 from paddle_tpu_torch import generation as pgen

@@ -16,6 +16,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401
 
 from paddle_tpu.generation import DeviceKVPool as JaxDeviceKVPool
 from paddle_tpu.generation import quantized_kv as jq

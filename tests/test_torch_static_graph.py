@@ -16,6 +16,7 @@ way).
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401
 
 import paddle_tpu.static as jstatic
 from paddle_tpu.static import executor as jexecutor

@@ -58,6 +58,7 @@ import sys
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401
 
 import bench
 import chip_smoke

@@ -14,6 +14,7 @@ module scope, and the cases share its streams.
 """
 import numpy as np
 import pytest
+import torch_threads  # noqa: F401
 
 from paddle_tpu import generation as jgen
 from paddle_tpu.parallel import tp_mesh as jax_tp_mesh

@@ -13,6 +13,7 @@ pool exports.  Each JAX engine runs once, memoized at module scope.
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401
 
 from paddle_tpu import generation as jgen
 from paddle_tpu.parallel import tp_mesh as jax_tp_mesh

@@ -14,6 +14,7 @@ kernels (``chip_smoke.py`` phase 15).
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401
 
 from paddle_tpu import generation as jgen
 from paddle_tpu.generation import decode_attention as jattn

@@ -12,6 +12,7 @@ unsharded one holds, split by heads.
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401
 
 import jax
 import jax.numpy as jnp

@@ -25,6 +25,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401
 
 import paddle_tpu as paddle
 import paddle_tpu.ops.pallas.flash_attention  # noqa: F401

@@ -14,6 +14,7 @@ import jax.numpy as jnp  # noqa: F401  (JAX on the CPU, as conftest sets)
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401
 
 import paddle_tpu as paddle
 import paddle_tpu.nn as jnn

@@ -15,6 +15,7 @@ import math
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401
 
 import paddle_tpu as paddle
 import paddle_tpu.nn.functional as JF
@@ -399,8 +400,9 @@ def hold_model(name):
     return op_err, end_err
 
 
-@pytest.mark.parametrize("name", ["lenet", "vgg11"])
+@pytest.mark.parametrize("name", ["lenet"])
 def test_model_matches_jax(name):
+    """VGG-11 is held the same way in ``test_torch_vision_vgg.py``."""
     hold_model(name)
 
 
