@@ -302,6 +302,7 @@ Each phase prints its wall seconds.
 It imports neither jax nor paddle_tpu.  It needs one CUDA card, and
 fails without one.
 """
+import contextlib
 import copy
 import json
 import math
@@ -427,6 +428,17 @@ DP = dict(dp=4, stages=(0, 1, 2, 3), warmup=2, iters=3, profiled=1, pipe=2,
 # test_torch_train_step.py's fp32 Adam rule (all but 1 in 10^4 entries
 # within 1e-5, every entry within 2 x steps x lr)
 DP_PARAM_TOL, DP_PARAM_SHARE = 1e-5, 1e-4
+# phase 17: the model, seq and expert axes, every shard on card 0.  Held
+# at dropout 0, full width, HELD_LAYERS layers, fp32, B 2 a data shard of
+# L 128, 2 steps, card vs CPU (the MoE with 4 experts); timed at
+# bench_gpt_zero's step (12 layers, B 8 over data 2, L 512, bf16 amp,
+# dropout 0.1; the MoE with 8 experts), 2 warm-up, 3 timed and 1
+# profiled step a run
+HYBRID = dict(held_batch=2, held_seq=128, held_experts=4, experts=8,
+              micro=2)
+HYBRID_DMS = {"data": 2, "model": 2, "seq": 2}
+HYBRID_DME = {"data": 2, "model": 2, "expert": 2}
+HYBRID_PM = {"pipe": 2, "model": 2}
 TRAIN_GNORM_TOL = 1e-3  # card vs CPU step-1 gradient norm, relative
 # encoder pretraining: bench.py's bench_bert configuration (BERT-base,
 # AdamW lr 1e-4 constant, bf16 amp, dropout 0.1, B 64, L 128, 3 warm-up
@@ -3667,54 +3679,61 @@ def flash_opts(case):
     return dict(km=case["km"], causal=case["causal"], heads=case["heads"])
 
 
+def hold_flash(fa, rng, case_name, spec, worst):
+    """The three flash kernels against their plain versions on one case
+    (`make_flash_case`'s `spec`); the backward kernels take the plain
+    forward's lse and delta.  Raises `worst`, by kernel, to each max
+    |diff|."""
+    case = make_flash_case(rng, **spec)
+    f32 = case["qs"].dtype == torch.float32
+    opts = flash_opts(case)
+    out, lse = fa.flash_attention_fwd_kernel(*flash_args(case), **opts)
+    out_p, lse_p = fa.flash_attention_fwd_torch(*flash_args(case),
+                                                **opts)
+    delta = (case["do"].float() * out_p.float()).sum(-1)
+    bwd = flash_bwd_args(case, lse_p, delta)
+    dk, dv = fa.flash_attention_bwd_dkdv_kernel(*bwd, **opts)
+    dk_p, dv_p = fa.flash_attention_bwd_dkdv_torch(*bwd, **opts)
+    dq = fa.flash_attention_bwd_dq_kernel(*bwd, **opts)
+    dq_p = fa.flash_attention_bwd_dq_torch(*bwd, **opts)
+    torch.cuda.synchronize()
+    checks = [
+        ("flash_attention_fwd", "out", out, out_p,
+         FLASH_TOL if f32 else FLASH_BF16_TOL),
+        ("flash_attention_fwd", "lse", lse, lse_p, FLASH_TOL),
+        ("flash_attention_bwd_dkdv", "dk", dk, dk_p,
+         FLASH_GRAD_TOL if f32 else FLASH_BF16_TOL),
+        ("flash_attention_bwd_dkdv", "dv", dv, dv_p,
+         FLASH_GRAD_TOL if f32 else FLASH_BF16_TOL),
+        ("flash_attention_bwd_dq", "dq", dq, dq_p,
+         FLASH_GRAD_TOL if f32 else FLASH_BF16_TOL)]
+    notes = []
+    for kname, what, got, want, tol in checks:
+        got, want = got.float(), want.float()
+        err = float((got - want).abs().max())
+        # atol + rtol * |want|, the tests' assert_close rule
+        bad = (got - want).abs() > tol + tol * want.abs()
+        if not math.isfinite(err) or bool(bad.any()):
+            fail(f"{kname} disagrees with its plain version on "
+                 f"{case_name}: {what} max|diff| {err:.3e} past "
+                 f"atol = rtol = {tol}")
+        worst[kname] = max(worst[kname], err)
+        notes.append(f"{what} {err:.2e}")
+    if case["km"] is not None and not (
+            bool((out[:case["heads"]] == 0).all())
+            and bool((lse[:case["heads"]] == -1e30).all())):
+        fail(f"flash forward: fully masked rows of {case_name} are not "
+             f"out 0, lse NEG_INF")
+    log(f"  flash vs plain  {case_name:34s} max|diff| "
+        f"{', '.join(notes)}")
+
+
 def phase_flash(fa, rng):
-    """The three flash kernels against their plain versions over
-    `flash_cases`; the backward kernels take the plain forward's lse and
-    delta.  Returns the worst max |diff| of each kernel."""
+    """`hold_flash` over `flash_cases`.  Returns the worst max |diff| of
+    each kernel."""
     worst = dict.fromkeys([k["name"] for k in FLASH_KERNELS], 0.0)
     for case_name, spec in flash_cases():
-        case = make_flash_case(rng, **spec)
-        f32 = case["qs"].dtype == torch.float32
-        opts = flash_opts(case)
-        out, lse = fa.flash_attention_fwd_kernel(*flash_args(case), **opts)
-        out_p, lse_p = fa.flash_attention_fwd_torch(*flash_args(case),
-                                                    **opts)
-        delta = (case["do"].float() * out_p.float()).sum(-1)
-        bwd = flash_bwd_args(case, lse_p, delta)
-        dk, dv = fa.flash_attention_bwd_dkdv_kernel(*bwd, **opts)
-        dk_p, dv_p = fa.flash_attention_bwd_dkdv_torch(*bwd, **opts)
-        dq = fa.flash_attention_bwd_dq_kernel(*bwd, **opts)
-        dq_p = fa.flash_attention_bwd_dq_torch(*bwd, **opts)
-        torch.cuda.synchronize()
-        checks = [
-            ("flash_attention_fwd", "out", out, out_p,
-             FLASH_TOL if f32 else FLASH_BF16_TOL),
-            ("flash_attention_fwd", "lse", lse, lse_p, FLASH_TOL),
-            ("flash_attention_bwd_dkdv", "dk", dk, dk_p,
-             FLASH_GRAD_TOL if f32 else FLASH_BF16_TOL),
-            ("flash_attention_bwd_dkdv", "dv", dv, dv_p,
-             FLASH_GRAD_TOL if f32 else FLASH_BF16_TOL),
-            ("flash_attention_bwd_dq", "dq", dq, dq_p,
-             FLASH_GRAD_TOL if f32 else FLASH_BF16_TOL)]
-        notes = []
-        for kname, what, got, want, tol in checks:
-            got, want = got.float(), want.float()
-            err = float((got - want).abs().max())
-            # atol + rtol * |want|, the tests' assert_close rule
-            bad = (got - want).abs() > tol + tol * want.abs()
-            if not math.isfinite(err) or bool(bad.any()):
-                fail(f"{kname} disagrees with its plain version on "
-                     f"{case_name}: {what} max|diff| {err:.3e} past "
-                     f"atol = rtol = {tol}")
-            worst[kname] = max(worst[kname], err)
-            notes.append(f"{what} {err:.2e}")
-        if case["km"] is not None and not (
-                bool((out[:case["heads"]] == 0).all())
-                and bool((lse[:case["heads"]] == -1e30).all())):
-            fail(f"flash forward: fully masked rows of {case_name} are not "
-                 f"out 0, lse NEG_INF")
-        log(f"  flash vs plain  {case_name:34s} max|diff| "
-            f"{', '.join(notes)}")
+        hold_flash(fa, rng, case_name, spec, worst)
     return worst
 
 
@@ -5353,6 +5372,204 @@ def dp_numbers(card, dp_out, pipe_out):
             f"{run['tokens_s']:.1f} tokens/s, idle share {idle}, peak "
             f"{run['peak'] / 2**30:.2f} GiB")
 
+# ---- phase 17: the model, seq and expert axes --------------------------
+
+
+def hybrid_trainer(model, shape, device, zero_stage=None, amp=None):
+    """AdamW at TRAIN["lr"] over the mesh `shape`, every shard on
+    `device`."""
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel import CompiledTrainStep, build_mesh
+
+    n = math.prod(shape.values())
+    return CompiledTrainStep(
+        model, dp_loss, AdamW(learning_rate=TRAIN["lr"]),
+        build_mesh(shape, devices=[device] * n), amp_dtype=amp,
+        zero_stage=zero_stage)
+
+
+@contextlib.contextmanager
+def recorded_routing():
+    """Each MoE routing's top-2 choices ([tokens, experts] bool, on the
+    CPU) while the context is open, in call order."""
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import moe_layer
+
+    seen, real = [], moe_layer.top2_dispatch
+
+    def record(logits, capacity):
+        out = real(logits, capacity)
+        seen.append(out[1].any(-1).cpu())
+        return out
+
+    moe_layer.top2_dispatch = record
+    try:
+        yield seen
+    finally:
+        moe_layer.top2_dispatch = real
+
+
+def phase_hybrid_held(fa, rng):
+    """Phase 17 (a) at dropout 0, fp32, full width and HELD_LAYERS layers:
+    {"data": 2, "model": 2, "seq": 2} at ZeRO 3 (ring and Ulysses), the
+    MoE over {"data": 2, "model": 2, "expert": 2} and the pipeline over
+    {"pipe": 2, "model": 2}, each card vs CPU; the seq mesh also against
+    the card's one-device step on the global batch; the MoE's expert
+    choices card vs CPU; and the flash kernels at each rank's shapes of
+    the timed runs against their plain versions.  Returns the kernels'
+    worst max |diff|."""
+    from paddle_tpu_torch.models import GPTConfig, GPTForPretraining
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel import (GPTPipeAdapter,
+                                           PipelinedTrainStep, TrainStep,
+                                           build_mesh)
+
+    steps = TRAIN["held_steps"]
+    ids, lbl = train_batch(2 * HYBRID["held_batch"], HYBRID["held_seq"],
+                           TRAIN_MODEL["vocab_size"])
+
+    def config(**kw):
+        return GPTConfig(dropout=0.0, **dict(TRAIN_MODEL,
+                                             num_layers=HELD_LAYERS, **kw))
+
+    weights = {}
+
+    def model_on(device, **kw):
+        key = tuple(sorted(kw.items()))
+        if key not in weights:
+            weights[key] = GPTForPretraining(config(**kw), seed=0,
+                                             device="cpu").numpy_params()
+        return GPTForPretraining.from_numpy_params(weights[key],
+                                                   config(**kw),
+                                                   device=device)
+
+    def hold(label, runs):
+        card, cpu = runs["cuda"], runs["cpu"]
+        log(f"  {label}: card {card}, CPU {cpu}")
+        for a, b in zip(card, cpu):
+            if not math.isfinite(a) or abs(a - b) > TRAIN_LOSS_TOL * abs(b):
+                fail(f"{label} card vs CPU: loss {a} against {b}, past "
+                     f"{TRAIN_LOSS_TOL} relative")
+
+    t0 = time.perf_counter()
+    one = TrainStep(model_on("cuda"), dp_loss,
+                    AdamW(learning_rate=TRAIN["lr"]))
+    one = [float(one.step(ids, lbl)) for _ in range(steps)]
+    for cp_mode in ("ring", "ulysses"):
+        runs = {}
+        for device in ("cuda", "cpu"):
+            tr = hybrid_trainer(model_on(device, cp_mode=cp_mode),
+                                HYBRID_DMS, device, zero_stage=3)
+            runs[device] = [float(tr.step(ids, lbl)) for _ in range(steps)]
+            del tr
+        label = f"data 2 x model 2 x seq 2, ZeRO 3, {cp_mode}"
+        hold(label, runs)
+        for a, b in zip(runs["cuda"], one):
+            if abs(a - b) > TRAIN_LOSS_TOL * abs(b):
+                fail(f"{label}: loss {a} against the one-device step's {b}"
+                     f", past {TRAIN_LOSS_TOL} relative")
+        log(f"    (one device on the global batch: {one})")
+    runs, routes = {}, {}
+    for device in ("cuda", "cpu"):
+        tr = hybrid_trainer(model_on(device,
+                                     num_experts=HYBRID["held_experts"]),
+                            HYBRID_DME, device)
+        with recorded_routing() as seen:
+            runs[device] = [float(tr.step(ids, lbl)) for _ in range(steps)]
+        routes[device] = seen
+        del tr
+    hold(f"data 2 x model 2 x expert 2, {HYBRID['held_experts']} experts",
+         runs)
+    per_step = len(routes["cuda"]) // steps
+    flips = [int((a != b).any(-1).sum()) for a, b in zip(routes["cuda"],
+                                                         routes["cpu"])]
+    by_step = [sum(flips[i:i + per_step])
+               for i in range(0, len(flips), per_step)]
+    log(f"    expert choices card vs CPU: {len(flips)} routings "
+        f"({per_step} a step: ranks x blocks), tokens routed otherwise "
+        f"per step {by_step}")
+    if len(routes["cuda"]) != len(routes["cpu"]) or any(flips[:per_step]):
+        fail(f"MoE: the card's step-1 expert choices differ from the "
+             f"CPU's: {flips[:per_step]} tokens per routing")
+    runs = {}
+    for device in ("cuda", "cpu"):
+        tr = PipelinedTrainStep(
+            GPTPipeAdapter(model_on(device)),
+            AdamW(learning_rate=TRAIN["lr"]),
+            build_mesh(HYBRID_PM, devices=[device] * 4),
+            num_micro=HYBRID["micro"])
+        runs[device] = [float(tr.step(ids, lbl)) for _ in range(steps)]
+        del tr
+    hold("pipe 2 x model 2, remat", runs)
+    log(f"  ({time.perf_counter() - t0:.1f} s, card and CPU)")
+    worst = dict.fromkeys([k["name"] for k in FLASH_KERNELS], 0.0)
+    heads, b = TRAIN_MODEL["num_heads"], TRAIN["batch"] // 2
+    for name, h in (("ulysses_rank", heads // 4), ("tp_rank", heads // 2)):
+        hold_flash(fa, rng, f"{name}_b{b}_h{h}_l{TRAIN['seq']}", dict(
+            bh=b * h, heads=h, lq=TRAIN["seq"], lk=TRAIN["seq"], d=64,
+            causal=True), worst)
+    torch.cuda.empty_cache()
+    return worst
+
+
+def phase_hybrid_run():
+    """Phase 17 (b): bench_gpt_zero's step at 12 layers over {"data": 2,
+    "model": 2, "seq": 2} at ZeRO 3 (Ulysses, then ring) and the MoE with
+    HYBRID["experts"] experts over {"data": 2, "model": 2, "expert": 2},
+    every shard on card 0; each from seed 0."""
+    from paddle_tpu_torch.models import GPTConfig, GPTForPretraining
+
+    cfg = GPTConfig(dropout=TRAIN["dropout"], **TRAIN_MODEL)
+    ids, lbl = (x.cuda() for x in train_batch(
+        TRAIN["batch"], TRAIN["seq"], cfg.vocab_size))
+    tokens = TRAIN["batch"] * TRAIN["seq"]
+    out = {}
+    for label, shape, extra, zero in (
+            ("ulysses", HYBRID_DMS, dict(cp_mode="ulysses"), 3),
+            ("ring", HYBRID_DMS, dict(cp_mode="ring"), 3),
+            ("moe", HYBRID_DME, dict(num_experts=HYBRID["experts"]), None)):
+        model = GPTForPretraining(GPTConfig(dropout=TRAIN["dropout"],
+                                            **TRAIN_MODEL, **extra),
+                                  seed=0, device="cuda")
+        tr = hybrid_trainer(model, shape, "cuda", zero_stage=zero,
+                            amp=torch.bfloat16)
+        ranks = math.prod(shape.values()) // shape["data"]
+        per = 0 if label == "ring" else shape["data"] * ranks \
+            * cfg.num_layers
+        want = {k["name"]: per for k in FLASH_KERNELS}
+        name = f"{shape} {label}"
+        run = timed_training(name, tr, ids, lbl, want, tokens)
+        run.update(own=tr.persistent_bytes()[0],
+                   collective=tr.collective_bytes_by_axis(),
+                   stage=tr.zero_stage, shape=shape, cp_mode=extra.get(
+                       "cp_mode"), experts=extra.get("num_experts"))
+        own = run["own"]
+        log(f"  {name}, ZeRO {tr.zero_stage}: {run['ms']:.2f} ms per step, "
+            f"{run['tokens_s']:.1f} tokens/s, losses "
+            f"{run['losses'][0]:.4f} -> {run['losses'][-1]:.4f}, peak "
+            f"{run['peak'] / 2**30:.2f} GiB; a rank holds parameters "
+            f"{own['params'] / 2**20:.1f} MiB, gradients "
+            f"{own['grads'] / 2**20:.1f} MiB, optimizer state "
+            f"{own['optimizer'] / 2**20:.1f} MiB; collective bytes per "
+            f"step by axis {run['collective']}; flash launches per step "
+            f"{run['launches']}")
+        out[label] = run
+        del tr, model
+        torch.cuda.empty_cache()
+    return out
+
+
+def hybrid_numbers(card, out):
+    for label, run in out.items():
+        idle = ("not measured" if run["idle"] is None
+                else f"{run['idle']:.1%}")
+        sent = {a: round(b / 2**20, 1) for a, b in run["collective"].items()}
+        log(f"  [{card}] {run['shape']} {label} (one card), ZeRO "
+            f"{run['stage']}: {run['ms']:.2f} ms per step, "
+            f"{run['tokens_s']:.1f} tokens/s, idle share {idle}, peak "
+            f"{run['peak'] / 2**30:.2f} GiB, collective MiB per step by "
+            f"axis (all ranks) {sent}")
+
+
 
 def main():
     if not torch.cuda.is_available():
@@ -5607,6 +5824,19 @@ def main():
     del base
     torch.cuda.empty_cache()
     dp_numbers(card, dp_out, pipe_out)
+
+    phase("phase 17: tensor-, context- and expert-parallel training at "
+          "GPT-2-small width ({\"data\": 2, \"model\": 2, \"seq\": 2} "
+          "ring and Ulysses, {\"data\": 2, \"model\": 2, \"expert\": "
+          "2} MoE, {\"pipe\": 2, \"model\": 2}), every shard on card 0")
+    log(f"  (c) this call sees {torch.cuda.device_count()} card(s); no run "
+        f"across cards")
+    log(f"  (a) held checks at dropout 0, {HELD_LAYERS} layers, fp32")
+    for name, err in phase_hybrid_held(fa, rng).items():
+        max_err[name] = max(max_err[name], err)
+    log("  (b) timed at 12 layers, every shard on card 0")
+    hybrid_out = phase_hybrid_run()
+    hybrid_numbers(card, hybrid_out)
     phase(None)
     log(f"  whole run {time.perf_counter() - t_start:.1f} s wall")
     launches = {"ragged_paged_attention": gpu["launches"],
@@ -5642,6 +5872,15 @@ def main():
                          "M": DP["micro"], "remat": True,
                          "launches_per_step":
                              pipe_out[True]["launches"][k["name"]]}}
+    # and on phase 17's: the seq mesh under Ulysses (ring: 0, composite
+    # attention as in JAX) and the MoE mesh
+    for k in FLASH_KERNELS:
+        mesh_keys[k["name"]]["hybrid"] = {
+            label: {"mesh": run["shape"], "stage": run["stage"],
+                    **({"cp_mode": run["cp_mode"]} if run["cp_mode"]
+                       else {"experts": run["experts"]}),
+                    "launches_per_step": run["launches"][k["name"]]}
+            for label, run in hybrid_out.items()}
     print(json.dumps({"kernels": [{
         "name": k["name"], "route": "cuda",
         "source": f"paddle_tpu_torch/csrc/{k['lib']}.cu",

@@ -14,7 +14,12 @@ trains the vision models in dygraph (``vision.models``: LeNet, ResNet,
 VGG, MobileNet) through autograd and the optimizers' eager `step`; and
 serves a fleet of generation replicas (``serving.FleetRouter``: in
 process, in a subprocess or over TCP, with live migration, the page
-service, prefill/decode handoff and ``serving.FleetSupervisor``).
+service, prefill/decode handoff and ``serving.FleetSupervisor``); and
+trains GPT over a mesh of ``data`` (ZeRO 0-3), ``pipe``, ``model``
+(tensor parallel, ``distributed.fleet.meta_parallel``), ``seq``
+(context parallel, ring and Ulysses) and ``expert`` (mixture of
+experts) axes, one process running each data shard's ranks in lockstep
+(``distributed.spmd``).
 It imports torch and numpy, never jax and never paddle_tpu.  Entry
 points run on the card unless the caller asks for the CPU
 (``device="cpu"``), where every kernel call takes the kernel's plain
@@ -23,12 +28,12 @@ PyTorch version.
 # serving first: its fleet tier imports the generation engine, which
 # imports serving.admission back
 from . import serving  # noqa: I001
-from . import generation, models, nn, ops, optimizer, parallel, profiler, \
-    regularizer, static, vision
+from . import distributed, generation, models, nn, ops, optimizer, \
+    parallel, profiler, regularizer, static, vision
 from .generation import (GenerationConfig, GenerationEngine,
                          SamplingParams, TinyCausalLM)
 
 __all__ = ["GenerationConfig", "GenerationEngine", "SamplingParams",
-           "TinyCausalLM", "generation", "models", "nn", "ops", "optimizer",
+           "TinyCausalLM", "distributed", "generation", "models", "nn", "ops", "optimizer",
            "parallel", "profiler", "regularizer", "serving", "static",
            "vision"]

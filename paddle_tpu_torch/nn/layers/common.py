@@ -1,6 +1,8 @@
-"""Common layers (``paddle_tpu/nn/layers/common.py`` and the single-card
-forms of ``distributed/fleet/meta_parallel/mp_layers.py``): Linear and
-its model-parallel names, Embedding, Dropout and Flatten.
+"""Common layers (``paddle_tpu/nn/layers/common.py``): Linear, Embedding,
+Dropout and Flatten, and the tensor-parallel layers of
+``distributed/fleet/meta_parallel/mp_layers.py`` (ColumnParallelLinear,
+RowParallelLinear, VocabParallelEmbedding, ParallelCrossEntropy),
+re-exported here.
 
 Weights come from `create_parameter` with the JAX package's defaults
 (XavierNormal for linears, Normal(0, 0.02) for the vocab embedding,
@@ -33,16 +35,6 @@ class Linear(nn.Module):
         return F.linear(x, self.weight, self.bias)
 
 
-class ColumnParallelLinear(Linear):
-    """Weight sharded on its columns over a model-parallel axis; at
-    model-parallel degree 1, the only one ported, a plain linear."""
-
-
-class RowParallelLinear(Linear):
-    """Weight sharded on its rows, outputs summed over a model-parallel
-    axis; at degree 1 a plain linear."""
-
-
 class Embedding(nn.Module):
     """A [num_embeddings, embedding_dim] table, Normal(0, std).  Sparse
     gradients (``sparse=True``) and ``padding_idx`` raise."""
@@ -64,23 +56,6 @@ class Embedding(nn.Module):
 
     def forward(self, ids):
         return F.embedding(ids, self.weight)
-
-
-class VocabParallelEmbedding(Embedding):
-    """Table sharded on the vocabulary over a model-parallel axis; at
-    degree 1 an embedding, Normal(0, 0.02)."""
-
-    def __init__(self, num_embeddings, embedding_dim, *, generator):
-        super().__init__(num_embeddings, embedding_dim, generator=generator,
-                         std=0.02)
-
-
-class ParallelCrossEntropy(nn.Module):
-    """Vocabulary-sharded softmax cross entropy; at degree 1
-    `softmax_with_cross_entropy`."""
-
-    def forward(self, logits, label):
-        return F.softmax_with_cross_entropy(logits, label)
 
 
 class Dropout(nn.Module):
@@ -113,3 +88,9 @@ class Flatten(nn.Module):
 
     def forward(self, x):
         return F.flatten(x, self.start_axis, self.stop_axis)
+
+
+# the tensor-parallel layers subclass Linear and Embedding above
+from ...distributed.fleet.meta_parallel.mp_layers import (  # noqa: E402
+    ColumnParallelLinear, ParallelCrossEntropy, RowParallelLinear,
+    VocabParallelEmbedding)

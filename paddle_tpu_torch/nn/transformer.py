@@ -11,7 +11,8 @@ reference, `TransformerEncoder` and `TransformerDecoder` fill layers 1..N-1
 with deep copies of the layer they are given, so every layer starts with
 the same weights.  Weights are drawn from the `generator` each layer is
 built with (``layers.py``); ParamAttr arguments (``weight_attr``,
-``bias_attr``) are not ported, and ``scan_layers=True`` raises."""
+``bias_attr``) are not ported.  ``scan_layers=True`` runs the encoder's
+layers through ``scan_stack.scan_layer_stack``."""
 import collections
 import copy
 
@@ -21,6 +22,7 @@ from torch import nn
 from ..ops.attention import scaled_dot_product_attention
 from . import functional as F
 from .layers import Dropout, LayerNorm, Linear
+from .scan_stack import scan_layer_stack
 
 
 def _convert_attention_mask(attn_mask, dtype):
@@ -165,16 +167,20 @@ class TransformerEncoder(nn.Module):
     def __init__(self, encoder_layer, num_layers, norm=None,
                  scan_layers=False):
         super().__init__()
-        if scan_layers:
-            raise NotImplementedError(
-                "TransformerEncoder: scan_layers=True is not ported yet")
         self.layers = _stack(encoder_layer, num_layers)
         self.num_layers = num_layers
         self.norm = norm
+        # the JAX encoder's lax.scan over the layers: here a loop with the
+        # scan's arithmetic (nn/scan_stack.py)
+        self.scan_layers = scan_layers
 
     def forward(self, src, src_mask=None, cache=None, generator=None):
         output = src
         new_caches = []
+        if self.scan_layers and cache is None and self.num_layers > 1:
+            output = scan_layer_stack(self.layers, output, mask=src_mask,
+                                      generator=generator)
+            return output if self.norm is None else self.norm(output)
         for i, layer in enumerate(self.layers):
             if cache is None:
                 output = layer(output, src_mask, generator=generator)

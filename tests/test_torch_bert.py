@@ -181,9 +181,20 @@ def test_encoder_layers_start_equal():
         np.testing.assert_array_equal(_np(p), _np(j0[n]))
 
 
-def test_scan_layers_is_refused():
-    with pytest.raises(NotImplementedError, match="not ported"):
-        BertForPretraining(bert_tiny(scan_layers=True), device="cpu")
+def test_scan_layers_matches_jax(pair):
+    """``scan_layers=True`` builds and runs the encoder's layers through
+    the scan's loop: the loss and every gradient hold to the JAX model
+    (which runs the loop) as the plain port does."""
+    jm, named, _, loss, grads = pair
+    pm = BertForPretraining.from_numpy_params(
+        named, bert_tiny(scan_layers=True), device="cpu")
+    ids, mlm, nsp, types = _batch()
+    got = pm.loss(*_t(ids, mlm, nsp, types))
+    got.backward()
+    np.testing.assert_allclose(float(got.detach()), loss, rtol=1e-5)
+    for n, p in pm.named_parameters():
+        np.testing.assert_allclose(p.grad.numpy(), grads[n], err_msg=n,
+                                   **GRAD_TOL)
 
 
 @pytest.mark.parametrize("build", [

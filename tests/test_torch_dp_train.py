@@ -1,7 +1,8 @@
 """Port parity: the mesh, the collectives and data-parallel training
 (``paddle_tpu_torch.parallel``: `build_mesh`, ``collective``,
 ``topology``, `DataParallel` and `CompiledTrainStep` at ZeRO stages
-0-3) against the JAX package on its forced 8-device CPU mesh.
+0-3, and beside ``data`` each of the ``model``, ``seq`` and ``expert``
+axes) against the JAX package on its forced 8-device CPU mesh.
 
 Every port mesh here puts its shards on the CPU (``devices=["cpu"] *
 n``).  The model is GPT at vocab 512, hidden 64, 2 layers, 2 heads,
@@ -393,7 +394,7 @@ def test_shared_storage_equals_separate_copies_bitwise():
     give the same SGD step bitwise."""
     ids, lbl = (torch.from_numpy(x) for x in _batch())
     _, got, tr = _port_run({"data": 4}, 0, "sgd", steps=1)
-    leaves = tr._leaves[torch.device("cpu")]
+    leaves = tr._leaves[0][torch.device("cpu")]
     assert all(leaves[n] is p for n, p in tr.params.items())
     grads = []
     for i, (ci, cl) in enumerate(zip(ids.chunk(4), lbl.chunk(4))):
@@ -433,14 +434,46 @@ def test_scheduler_steps_after_the_update():
         assert sched.last_epoch == k + 1
 
 
-@pytest.mark.parametrize("mesh,err", [
-    ({"data": 2, "model": 2}, NotImplementedError),
-    ({"data": 2, "seq": 2}, NotImplementedError),
-    ({"data": 2, "expert": 2}, NotImplementedError)])
-def test_unported_axes_raise_at_build(mesh, err):
-    model = GPTForPretraining(GPTConfig(**CFG), device="cpu")
-    with pytest.raises(err, match="not ported"):
-        CompiledTrainStep(model, _loss_fn, AdamW(), _cpu_mesh(mesh))
+@functools.lru_cache(maxsize=None)
+def _jax_axis_run(mesh, stage, experts):
+    """Two JAX AdamW steps of the global batch on `mesh` (a tuple of
+    items), GPT with `experts` experts."""
+    paddle.seed(7)
+    cfg = JaxConfig(**CFG)
+    cfg.num_experts = experts
+    model = JaxGPT(cfg)
+    named = {n: np.array(p._data) for n, p in model.named_parameters()}
+    tr = JaxStep(model, lambda m, i, l: m.loss(i, l),
+                 _jax_opt("adamw", model.parameters()),
+                 jenv.build_mesh(dict(mesh)), zero_stage=stage)
+    ids, lbl = _batch()
+    losses = [float(np.asarray(tr.step(ids, lbl)._data)) for _ in range(2)]
+    tr.sync_to_model()
+    return named, losses, {n: np.array(p._data)
+                           for n, p in model.named_parameters()}
+
+
+@pytest.mark.parametrize("mesh,stage,experts", [
+    ((("data", 2), ("model", 2)), 1, 0),
+    ((("data", 2), ("seq", 2)), 2, 0),
+    ((("data", 2), ("expert", 2)), 3, 2)],
+    ids=["model", "seq", "expert"])
+def test_model_seq_and_expert_axes_match_jax(mesh, stage, experts):
+    """Each axis beside ``data`` trains and holds to the JAX step: the
+    heads split over ``model``, the positions over ``seq`` (ring), 2
+    experts over ``expert``; the full parameters rebuilt from the
+    shards."""
+    named, want_l, want_p = _jax_axis_run(mesh, stage, experts)
+    model = GPTForPretraining.from_numpy_params(
+        named, GPTConfig(**CFG, num_experts=experts), device="cpu")
+    tr = CompiledTrainStep(model, _loss_fn, _port_opt("adamw"),
+                           _cpu_mesh(dict(mesh)), zero_stage=stage)
+    ids, lbl = (torch.from_numpy(x) for x in _batch())
+    got_l = [float(tr.step(ids, lbl)) for _ in range(2)]
+    tr.sync_to_model()
+    np.testing.assert_allclose(got_l, want_l, rtol=TOLS[None]["loss"],
+                               atol=0)
+    _hold(model.numpy_params(), want_p, TOLS[None], 2 * 2 * LR)
 
 
 def test_remat_equals_plain_bitwise_at_dropout():

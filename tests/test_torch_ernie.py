@@ -234,10 +234,20 @@ def test_encoder_layers_start_equal():
             assert torch.equal(p, first[n]), n
 
 
-def test_scan_layers_is_refused():
-    with pytest.raises(NotImplementedError, match="not ported"):
-        pernie.ErnieForPretraining(pernie.ernie_tiny(scan_layers=True),
-                                   device="cpu")
+def test_scan_layers_matches_jax(pair):
+    """``scan_layers=True`` builds and runs the encoder's layers through
+    the scan's loop: the loss and every gradient hold to the JAX model
+    as the plain port does."""
+    jm, named, _, loss, grads = pair
+    pm = pernie.ErnieForPretraining.from_numpy_params(
+        named, pernie.ErnieConfig(**TINY, scan_layers=True), device="cpu")
+    ids, mlm, sop, sent, _ = _batch()
+    got = pm.loss(*_t(ids, mlm, sop, sent))
+    np.testing.assert_allclose(float(got.detach()), loss, **TOL)
+    got.backward()
+    for n, p in pm.named_parameters():
+        np.testing.assert_allclose(p.grad.numpy(), grads[n], err_msg=n,
+                                   **GRAD_TOL)
 
 
 @pytest.mark.parametrize("build", [

@@ -2,6 +2,7 @@
 its entry points default to the card and refuse to fall back to the
 CPU, and it refuses what it does not implement instead of taking
 another path."""
+import math
 import os
 import subprocess
 import sys
@@ -165,42 +166,61 @@ def test_unported_settings_raise_at_build(setting):
                               start=False)
 
 
-def _mesh_refusals():
+def _meshes():
+    """Builders of each train step over a mesh: the ``model``, ``seq`` and
+    ``expert`` axes of the data-parallel step and the pipeline's
+    ``model`` axis (ported), then what stays refused: the pipeline's
+    ``seq`` and ``expert`` axes and a TPU multi-slice layout."""
     from paddle_tpu_torch.parallel import (CompiledTrainStep, GPTPipeAdapter,
                                            PipelinedTrainStep, build_mesh)
 
-    def model():
-        return GPTForPretraining(_gpt_config(), device="cpu")
-
-    def step(shape):
-        return CompiledTrainStep(model(), lambda m, i, l, generator: m.loss(
-            i, l), AdamW(), build_mesh(shape, devices=["cpu"] * 4))
-
-    def pipe():
+    def model(**kw):
         cfg = _gpt_config()
-        cfg.num_layers = 2
+        for k, v in kw.items():
+            setattr(cfg, k, v)
+        return GPTForPretraining(cfg, device="cpu")
+
+    def step(shape, **kw):
+        return CompiledTrainStep(model(**kw), lambda m, i, l, generator:
+                                 m.loss(i, l, generator=generator), AdamW(),
+                                 build_mesh(shape, devices=["cpu"] * 4))
+
+    def pipe(axis):
         return PipelinedTrainStep(
-            GPTPipeAdapter(GPTForPretraining(cfg, device="cpu")), AdamW(),
-            build_mesh({"pipe": 2, "model": 2}, devices=["cpu"] * 4), 2)
+            GPTPipeAdapter(model(num_layers=2)), AdamW(),
+            build_mesh({"pipe": 2, axis: 2}, devices=["cpu"] * 4), 2)
 
-    return [lambda: step({"data": 2, "model": 2}),
-            lambda: step({"data": 2, "seq": 2}),
-            lambda: step({"data": 2, "expert": 2}),
-            lambda: build_mesh({"data": 2}, devices=["cpu"] * 2,
-                               dcn_shape_dict={"data": 2}),
-            pipe]
+    return {"model_axis": lambda: step({"data": 2, "model": 2}),
+            "seq_axis": lambda: step({"data": 2, "seq": 2}),
+            "expert_axis": lambda: step({"data": 2, "expert": 2},
+                                        num_experts=2),
+            "pipeline_model_axis": lambda: pipe("model"),
+            "pipeline_seq_axis": lambda: pipe("seq"),
+            "pipeline_expert_axis": lambda: pipe("expert"),
+            "dcn_shape_dict": lambda: build_mesh(
+                {"data": 2}, devices=["cpu"] * 2,
+                dcn_shape_dict={"data": 2})}
 
 
-@pytest.mark.parametrize("index", range(5), ids=[
-    "model_axis", "seq_axis", "expert_axis", "dcn_shape_dict",
-    "pipeline_model_axis"])
-def test_unported_mesh_axes_raise(index):
+@pytest.mark.parametrize("name", ["model_axis", "seq_axis", "expert_axis",
+                                  "pipeline_model_axis"])
+def test_ported_mesh_axes_build_and_step(name):
     """Tensor-parallel training, context parallelism and experts (a
-    ``model``, ``seq`` or ``expert`` axis of size > 1, in the data-parallel
-    step and the pipeline) and a TPU multi-slice layout raise
-    NotImplementedError at build."""
+    ``model``, ``seq`` or ``expert`` axis of size > 1 in the data-parallel
+    step, a ``model`` axis in the pipeline) build and take a step with a
+    finite loss."""
+    tr = _meshes()[name]()
+    ids = torch.randint(0, 32, (4, 8))
+    assert math.isfinite(float(tr.step(ids, ids)))
+
+
+@pytest.mark.parametrize("name", ["pipeline_seq_axis",
+                                  "pipeline_expert_axis", "dcn_shape_dict"])
+def test_unported_mesh_axes_raise(name):
+    """The pipeline's ``seq`` and ``expert`` axes and a TPU multi-slice
+    layout raise NotImplementedError at build."""
     with pytest.raises(NotImplementedError, match="not ported"):
-        _mesh_refusals()[index]()
+        _meshes()[name]()
 
 
 @pytest.mark.parametrize("setting", [

@@ -182,7 +182,7 @@ def test_remat_equals_plain_bitwise_at_dropout():
 
 
 @pytest.mark.parametrize("mesh,err,match", [
-    ({"pipe": 2, "model": 2}, NotImplementedError, "not ported"),
+    ({"pipe": 2, "seq": 2}, NotImplementedError, "not ported"),
     ({"data": 2}, ValueError, "'pipe' axis"),
     ({"pipe": 3}, ValueError, "not divisible")])
 def test_pipeline_refusals(mesh, err, match):
