@@ -295,7 +295,31 @@ carries on:
    ms per step, tokens/s, the device idle share over 2 profiled steps,
    peak memory, each shard's persistent bytes and the collective bytes
    per step;
-17. the result line.
+17. tensor-, context- and expert-parallel training at GPT-2-small width,
+   every shard on card 0 (held card vs CPU at 2 layers, then timed);
+18. dygraph AMP and the high-level surface: (a) GPT at full width, 2
+   layers, B 2, L 128, dropout 0, ``use_flash=True``: two eager O1
+   ``amp.auto_cast`` + ``amp.GradScaler`` + AdamW steps on the card
+   against the CPU from the same weights and batch (losses within 1e-2
+   relative, the scales equal, each bf16 flash kernel launched 2 x 2
+   times on the card), and the three flash kernels' bf16 instantiations
+   at this path's shapes ([2 x 12, 128, 64] and [8 x 12, 512, 64],
+   causal) against their plain versions within 2e-2; ``hapi.Model(
+   LeNet).fit`` over a synthetic MNIST-shaped ``io.TensorDataset``
+   through an ``io.DataLoader`` with 2 worker processes, fp32, card
+   against CPU (every step's loss within 1e-5 relative, the accuracies
+   equal), ``ModelCheckpoint``'s files loaded back bitwise; (b)
+   ``bench_gpt_zero``'s GPT-2 small (12 layers, B 8, L 512, dropout
+   0.1, attention dropout 0) in eager O1 AMP and in fp32, fed by an
+   ``io.DataLoader``, 2 warm-up, 5 timed and 1 profiled step each: the
+   loss finite and falling, each flash kernel launched num_layers times
+   a step in bfloat16 under AMP and in float32 without; BERT-base eager
+   O1 AMP at ``bench_bert``'s B 64, L 128, no kernel of the port
+   launched; printed: ms per step, tokens/s (samples/s), the device idle
+   share, peak memory, and each flash kernel's bf16 time at the AMP
+   path's shape beside its plain version, its bound at the bf16
+   tensor-core rate and sdpa's bf16 forward and backward;
+then the result line.
 
 Each phase prints its wall seconds.
 
@@ -520,10 +544,9 @@ def wrappers():
 
 
 def reset_launches():
-    for w, dtypes in wrappers().values():
+    for w, _ in wrappers().values():
         w.launches = 0
-        if dtypes is not None:
-            w.launches_by_dtype = dict.fromkeys(w.launches_by_dtype, 0)
+        w.launches_by_dtype = dict.fromkeys(w.launches_by_dtype, 0)
 
 
 def read_launches():
@@ -3797,16 +3820,19 @@ def in_turns(ours, lib):
     return (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2, turns
 
 
-def flash_numbers(fa, card):
+def flash_numbers(fa, card, dtype=torch.float32):
     """Each flash kernel, its plain version and PyTorch's sdpa at the
-    trainer's attention shape: the forward kernel against sdpa's forward
-    in turns (ours, sdpa, sdpa, ours); then the whole backward as the
-    trainer runs it (torch.autograd.grad through FlashAttention: the
-    delta op and both kernels) beside sdpa's backward on the same inputs,
-    in turns; and the names of the kernels sdpa's forward and backward
-    ran (torch.profiler).  Returns name -> (ms, plain_ms, bound_ms,
-    bound_by, library_ms)."""
-    case = make_flash_case(np.random.default_rng(5), **FLASH_MAIN)
+    trainer's attention shape in `dtype`: the forward kernel against
+    sdpa's forward in turns (ours, sdpa, sdpa, ours); then the whole
+    backward as the trainer runs it (torch.autograd.grad through
+    FlashAttention: the delta op and both kernels) beside sdpa's backward
+    on the same inputs, in turns; and (fp32) the names of the kernels
+    sdpa's forward and backward ran (torch.profiler).  Bounds at the
+    3xTF32 rate for fp32, the bf16 tensor-core rate for bf16.  Returns
+    name -> (ms, plain_ms, bound_ms, bound_by, library_ms)."""
+    f32 = dtype == torch.float32
+    case = make_flash_case(np.random.default_rng(5 if f32 else 6),
+                           **dict(FLASH_MAIN, dtype=dtype))
     opts = flash_opts(case)
     out, lse = fa.flash_attention_fwd_kernel(*flash_args(case), **opts)
     delta = (case["do"].float() * out.float()).sum(-1)
@@ -3846,6 +3872,7 @@ def flash_numbers(fa, card):
                 lambda: fa.flash_attention_bwd_dq_kernel(*bwd, **opts),
                 lambda: fa.flash_attention_bwd_dq_torch(*bwd, **opts),
                 lib_bwd)}
+    tag, rate = ("f32", "3xTF32") if f32 else ("bf16", "bf16 tensor-core")
     numbers = {}
     for name, (kernel, plain, lib_ms) in runs.items():
         ms = fwd_ms if kernel is forward else time_ms(kernel, 100)
@@ -3853,21 +3880,22 @@ def flash_numbers(fa, card):
         plain_ms = time_ms(plain, 20)
         bound_ms, bound_by, nbytes, flops, fma_ms = flash_bound(case, name)
         numbers[name] = (ms, plain_ms, bound_ms, bound_by, lib_ms)
+        fma = (f"; against the fp32 FMA bound ({fma_ms * 1e3:.2f} us) "
+               f"{fma_ms / ms:.1%}" if f32 else "")
         log(f"  [{card}] {name} at the trainer's shape (BH=96: B=8 x H=12, "
-            f"L=512, D=64, f32, causal): {ms * 1e3:.1f} us (launch-paced "
+            f"L=512, D=64, {tag}, causal): {ms * 1e3:.1f} us (launch-paced "
             f"{paced * 1e3:.1f} us); plain version {plain_ms * 1e3:.1f} us; "
-            f"bound {bound_ms * 1e3:.2f} us by {bound_by} at the 3xTF32 "
+            f"bound {bound_ms * 1e3:.2f} us by {bound_by} at the {rate} "
             f"rate ({nbytes} B, {flops} flop) = {bound_ms / ms:.1%} of "
-            f"bound; against the fp32 FMA bound ({fma_ms * 1e3:.2f} us) "
-            f"{fma_ms / ms:.1%}")
+            f"bound{fma}")
     log(f"  [{card}] forward at that shape against sdpa's forward "
-        f"(is_causal, f32, inputs that need grads), in turns: "
+        f"(is_causal, {tag}, inputs that need grads), in turns: "
         f"{fwd_ms * 1e3:.1f} us against {lib_fwd * 1e3:.1f} us, "
         f"{fwd_ms / lib_fwd:.2f}x (turns: "
         f"{', '.join(f'{x * 1e3:.1f}' for x in fwd_turns)} us)")
     log(f"  [{card}] library call, torch scaled_dot_product_attention at "
-        f"that shape: backward (torch.autograd.grad: dq, dk, dv in one "
-        f"call) {lib_bwd * 1e3:.1f} us")
+        f"that shape ({tag}): backward (torch.autograd.grad: dq, dk, dv in "
+        f"one call) {lib_bwd * 1e3:.1f} us")
     qg, kg, vg = (case[n].detach().clone().requires_grad_()
                   for n in ("qs", "k", "v"))
     ours_out = fa.FlashAttention.apply(qg, kg, vg, case["km"],
@@ -3878,13 +3906,14 @@ def flash_numbers(fa, card):
                                    retain_graph=True)
 
     whole, lib_whole, turns = in_turns(ours, lib_backward)
-    log(f"  [{card}] whole backward at that shape (torch.autograd.grad "
-        f"through FlashAttention: delta = rowsum(dO*out), dK/dV, dQ) "
-        f"{whole * 1e3:.1f} us against sdpa's backward "
-        f"{lib_whole * 1e3:.1f} us, {whole / lib_whole:.2f}x (in turns: "
-        f"{', '.join(f'{x * 1e3:.1f}' for x in turns)} us)")
-    lib_kernels(lib_forward, card, "sdpa forward")
-    lib_kernels(lib_backward, card, "sdpa backward")
+    log(f"  [{card}] whole backward at that shape ({tag}; "
+        f"torch.autograd.grad through FlashAttention: delta = "
+        f"rowsum(dO*out), dK/dV, dQ) {whole * 1e3:.1f} us against sdpa's "
+        f"backward {lib_whole * 1e3:.1f} us, {whole / lib_whole:.2f}x (in "
+        f"turns: {', '.join(f'{x * 1e3:.1f}' for x in turns)} us)")
+    if f32:
+        lib_kernels(lib_forward, card, "sdpa forward")
+        lib_kernels(lib_backward, card, "sdpa backward")
     return numbers
 
 
@@ -5570,6 +5599,302 @@ def hybrid_numbers(card, out):
             f"axis (all ranks) {sent}")
 
 
+# ---- phase 18: dygraph AMP and the high-level surface ---------------------
+
+# held at full GPT width, HELD_LAYERS layers; timed at bench_gpt_zero's
+# model (phase 8's), BERT at bench_bert's batch; LeNet through hapi
+DYGRAPH = dict(lr=1e-4, held_batch=2, held_seq=128, held_steps=2,
+               warmup=2, iters=5, profiled=1, lenet_n=256, lenet_batch=64,
+               lenet_epochs=2, workers=2)
+DYGRAPH_LOSS_TOL = 1e-2     # O1 AMP card vs CPU: a bf16 loss, 1-2 ulps
+HAPI_LOSS_TOL = 1e-5        # hapi LeNet, fp32 with TF32 off
+DYGRAPH_FLASH_SHAPES = {
+    "held_b2_h12_l128_d64_causal_bf16": dict(
+        bh=DYGRAPH["held_batch"] * 12, heads=12, lq=DYGRAPH["held_seq"],
+        lk=DYGRAPH["held_seq"], d=64, causal=True, dtype=torch.bfloat16),
+    "amp_b8_h12_l512_d64_causal_bf16": dict(FLASH_MAIN,
+                                            dtype=torch.bfloat16)}
+
+
+def flash_launches_by_dtype(dtype):
+    """Each flash kernel's launches in `dtype` since the counts were
+    last set to 0."""
+    return {k["name"]: wrappers()[k["name"]][0].launches_by_dtype[dtype]
+            for k in FLASH_KERNELS}
+
+
+class EagerStep:
+    """One eager step of ``model.loss(*batch, generator=)`` with AdamW at
+    `lr`: under O1 ``amp.auto_cast`` with a ``GradScaler`` (`amp_on`),
+    in fp32 otherwise (the scaler then disabled), the idiom
+    ``scaler.scale(loss).backward(); scaler.step(opt); scaler.update()``.
+    Returns the loss, detached."""
+
+    def __init__(self, model, lr, amp_on, generator=None):
+        from paddle_tpu_torch import amp, optimizer
+
+        self.model, self.amp_on, self.generator = model, amp_on, generator
+        self.opt = optimizer.AdamW(learning_rate=lr,
+                                   parameters=model.parameters())
+        self.scaler = amp.GradScaler(enable=amp_on)
+
+    def __call__(self, *batch):
+        from paddle_tpu_torch import amp
+
+        with amp.auto_cast(enable=self.amp_on):
+            loss = self.model.loss(*batch, generator=self.generator)
+        self.scaler.scale(loss).backward()
+        self.scaler.step(self.opt)
+        self.scaler.update()
+        self.opt.clear_grad()
+        return loss.detach()
+
+
+def phase_dygraph_held(fa, rng):
+    """(a): GPT's eager O1 AMP steps card vs CPU at HELD_LAYERS, then the
+    bf16 flash kernels at this phase's shapes against their plain
+    versions.  Returns each kernel's worst max |diff|."""
+    from paddle_tpu_torch.models import GPTConfig, GPTForPretraining
+
+    d = DYGRAPH
+    cfg = GPTConfig(dropout=0.0, **dict(TRAIN_MODEL, num_layers=HELD_LAYERS))
+    ids, lbl = train_batch(d["held_batch"], d["held_seq"], cfg.vocab_size)
+    cpu_model = GPTForPretraining(cfg, seed=0, device="cpu")
+    card_model = GPTForPretraining.from_numpy_params(
+        cpu_model.numpy_params(), cfg, device="cuda")
+    runs = {}
+    for device, model in (("cuda", card_model), ("cpu", cpu_model)):
+        step = EagerStep(model, d["lr"], True)
+        batch = (ids.to(device), lbl.to(device))
+        t0 = time.perf_counter()
+        reset_launches()
+        losses, dtypes = [], set()
+        for _ in range(d["held_steps"]):
+            loss = step(*batch)
+            dtypes.add(str(loss.dtype))
+            losses.append(float(loss))
+        launches = flash_launches_by_dtype("bfloat16")
+        runs[device] = (losses, step.scaler._scale)
+        log(f"  {device}: GPT O1 AMP at {HELD_LAYERS} layers, "
+            f"B={d['held_batch']}, L={d['held_seq']}: losses {losses} "
+            f"({', '.join(sorted(dtypes))}), scale {step.scaler._scale}; "
+            f"bf16 flash launches {launches} "
+            f"({time.perf_counter() - t0:.1f} s)")
+        want = HELD_LAYERS * d["held_steps"] if device == "cuda" else 0
+        if set(launches.values()) != {want}:
+            fail(f"GPT O1 AMP on {device}: bf16 flash launches {launches}, "
+                 f"want {want} each")
+    (card_l, card_s), (cpu_l, cpu_s) = runs["cuda"], runs["cpu"]
+    for i, (a, b) in enumerate(zip(card_l, cpu_l)):
+        if not math.isfinite(a) or abs(a - b) > DYGRAPH_LOSS_TOL * abs(b):
+            fail(f"GPT O1 AMP step {i + 1}: card loss {a} vs CPU {b}, past "
+                 f"{DYGRAPH_LOSS_TOL} relative")
+    if card_s != cpu_s:
+        fail(f"GradScaler scale: card {card_s} vs CPU {cpu_s}")
+    worst = dict.fromkeys([k["name"] for k in FLASH_KERNELS], 0.0)
+    for case_name, spec in DYGRAPH_FLASH_SHAPES.items():
+        hold_flash(fa, rng, case_name, spec, worst)
+    return worst
+
+
+def lenet_data():
+    """A synthetic MNIST-shaped set (RandomState(0)): images [N, 1, 28,
+    28] in [0, 1) and labels [N, 1]."""
+    rs = np.random.RandomState(0)
+    n = DYGRAPH["lenet_n"]
+    return (rs.rand(n, 1, 28, 28).astype(np.float32),
+            rs.randint(0, 10, (n, 1)).astype(np.int64))
+
+
+def phase_hapi_held():
+    """(a): ``hapi.Model(LeNet).fit`` over a 2-worker DataLoader, card vs
+    CPU, with ``ModelCheckpoint``; its files loaded back bitwise."""
+    import os
+    import tempfile
+
+    from paddle_tpu_torch import callbacks, framework, hapi, io, metric, \
+        nn, optimizer
+    from paddle_tpu_torch.vision.models import LeNet
+
+    class StepLogs(callbacks.Callback):
+        def __init__(self):
+            super().__init__()
+            self.logs = []
+
+        def on_train_batch_end(self, step, logs=None):
+            self.logs.append((logs["loss"], logs["acc"]))
+
+    d = DYGRAPH
+    x, y = lenet_data()
+    runs = {}
+    for device in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        net = LeNet(generator=torch.Generator().manual_seed(0),
+                    device=device)
+        opt = optimizer.Adam(learning_rate=1e-3,
+                             parameters=net.parameters())
+        model = hapi.Model(net)
+        model.prepare(opt, nn.CrossEntropyLoss(), metric.Accuracy())
+        loader = io.DataLoader(io.TensorDataset([x, y]),
+                               batch_size=d["lenet_batch"], shuffle=True,
+                               num_workers=d["workers"], places=device,
+                               timeout=300)
+        rec = StepLogs()
+        with tempfile.TemporaryDirectory() as ckpt:
+            np.random.seed(0)
+            model.fit(loader, epochs=d["lenet_epochs"], verbose=0,
+                      callbacks=[rec, callbacks.ModelCheckpoint(
+                          save_dir=ckpt)])
+            for suffix, state in ((".pdparams", net.state_dict()),
+                                  (".pdopt", opt.state_dict())):
+                back = framework.load(os.path.join(ckpt, "final" + suffix),
+                                      device=device)
+                if set(back) != set(state):
+                    fail(f"ModelCheckpoint {suffix} on {device}: keys "
+                         f"differ")
+                for k, v in state.items():
+                    same = (torch.equal(back[k], v) if torch.is_tensor(v)
+                            else back[k] == v)
+                    if not same:
+                        fail(f"ModelCheckpoint {suffix} on {device}: {k} "
+                             f"did not load back bitwise")
+        logs = model.evaluate(io.DataLoader(
+            io.TensorDataset([x, y]), batch_size=d["lenet_batch"],
+            places=device), verbose=0)
+        runs[device] = (rec.logs, logs)
+        log(f"  {device}: hapi LeNet fit, {len(rec.logs)} steps over a "
+            f"{d['workers']}-worker DataLoader: losses "
+            f"{rec.logs[0][0]:.6f} -> {rec.logs[-1][0]:.6f}, evaluate "
+            f"{logs}; checkpoint loaded back bitwise "
+            f"({time.perf_counter() - t0:.1f} s)")
+    (card, card_eval), (cpu, cpu_eval) = runs["cuda"], runs["cpu"]
+    if len(card) != len(cpu) or not card:
+        fail(f"hapi LeNet: {len(card)} card steps vs {len(cpu)} CPU")
+    for i, ((la, aa), (lb, ab)) in enumerate(zip(card, cpu)):
+        if not math.isfinite(la) or abs(la - lb) > HAPI_LOSS_TOL * abs(lb):
+            fail(f"hapi LeNet step {i + 1}: card loss {la} vs CPU {lb}, "
+                 f"past {HAPI_LOSS_TOL} relative")
+        if aa != ab:
+            fail(f"hapi LeNet step {i + 1}: card accuracy {aa} vs CPU {ab}")
+    if card_eval["acc"] != cpu_eval["acc"] or abs(
+            card_eval["loss"] - cpu_eval["loss"]) > HAPI_LOSS_TOL * abs(
+            cpu_eval["loss"]):
+        fail(f"hapi LeNet evaluate: card {card_eval} vs CPU {cpu_eval}")
+
+
+def token_loader(n_steps, batch, seq, vocab, device):
+    """An ``io.DataLoader`` of `n_steps` batches of ``train_batch``'s one
+    batch, repeated (bench.py's runs step on one batch)."""
+    from paddle_tpu_torch import io
+
+    ids, lbl = (t.numpy() for t in train_batch(batch, seq, vocab))
+    return io.DataLoader(io.TensorDataset([np.tile(ids, (n_steps, 1)),
+                                           np.tile(lbl, (n_steps, 1))]),
+                         batch_size=batch, places=device)
+
+
+def dygraph_timed(label, model, lr, amp_on, batches, want, dtype,
+                  generator=None):
+    """2 warm-up, 5 timed (every count set to 0 just before, read just
+    after) and 1 profiled eager step of `model` on `batches`; `want`
+    launches of each flash kernel a timed step, in `dtype`."""
+    d = DYGRAPH
+    step = EagerStep(model, lr, amp_on, generator)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses = [step(*next(batches)) for _ in range(d["warmup"])]
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    losses += [step(*next(batches)) for _ in range(d["iters"])]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    typed = flash_launches_by_dtype(dtype)
+    peak = torch.cuda.max_memory_allocated()
+    p_wall, busy, top = profile_steps(lambda: step(*next(batches)),
+                                      d["profiled"])
+    losses = [float(x) for x in losses]
+    log(f"  {label}: losses {losses[0]:.4f} -> {losses[-1]:.4f}; launches "
+        f"over {d['iters']} steps {launches}")
+    if not all(math.isfinite(x) for x in losses) or losses[-1] >= losses[0]:
+        fail(f"{label}: loss not finite and falling: {losses}")
+    for k in FLASH_KERNELS:
+        if launches[k["name"]] != want * d["iters"] \
+                or typed[k["name"]] != launches[k["name"]]:
+            fail(f"{label}: {k['name']} launched {launches[k['name']]} "
+                 f"times ({typed[k['name']]} in {dtype}), want {want} x "
+                 f"{d['iters']} in {dtype}")
+    if any(launches[k["name"]] for k in KERNELS):
+        fail(f"{label} launched a paged-attention kernel")
+    return dict(wall=wall, iters=d["iters"], peak=peak, p_wall=p_wall,
+                busy=busy, top=top, losses=losses,
+                per_step={k: n // d["iters"] for k, n in launches.items()})
+
+
+def phase_dygraph_run():
+    """(b): GPT-2 small eager in O1 AMP and in fp32, fed by a DataLoader;
+    BERT-base eager O1 AMP with no kernel of the port."""
+    from paddle_tpu_torch.models import (BertForPretraining, GPTConfig,
+                                         GPTForPretraining, bert_base)
+
+    d = DYGRAPH
+    cfg = GPTConfig(dropout=TRAIN["dropout"], **TRAIN_MODEL)
+    n = d["warmup"] + d["iters"] + d["profiled"]
+    out = {}
+    for label, amp_on, dtype in (("amp", True, "bfloat16"),
+                                 ("fp32", False, "float32")):
+        model = GPTForPretraining(cfg, seed=0, device="cuda")
+        batches = iter(token_loader(n, TRAIN["batch"], TRAIN["seq"],
+                                    cfg.vocab_size, "cuda"))
+        out[label] = dygraph_timed(
+            f"GPT-2 small eager {'O1 AMP' if amp_on else 'fp32'}", model,
+            d["lr"], amp_on, batches, cfg.num_layers, dtype,
+            torch.Generator(device="cuda").manual_seed(0))
+        out[label]["tokens"] = TRAIN["batch"] * TRAIN["seq"]
+        del model, batches
+        torch.cuda.empty_cache()
+    bcfg = bert_base(dropout=ENCODER["dropout"])
+    model = BertForPretraining(bcfg, seed=0, device="cuda")
+    ids, lbl = (t.cuda() for t in train_batch(ENCODER["batch"],
+                                               ENCODER["seq"],
+                                               bcfg.vocab_size))
+    out["bert"] = dygraph_timed(
+        "BERT-base eager O1 AMP", model, ENCODER["lr"], True,
+        iter(lambda: (ids, lbl), None), 0, "bfloat16",
+        torch.Generator(device="cuda").manual_seed(0))
+    out["bert"]["samples"] = ENCODER["batch"]
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def dygraph_numbers(card, run):
+    """(b)'s numbers: ms per step, tokens/s or samples/s, peak memory,
+    the device idle share over the profiled step and its top kernels,
+    each flash kernel's launches per step."""
+    for label, what in (("amp", "GPT-2 small eager O1 AMP"),
+                        ("fp32", "GPT-2 small eager fp32"),
+                        ("bert", "BERT-base eager O1 AMP")):
+        r = run[label]
+        ms = r["wall"] / r["iters"] * 1e3
+        rate = (f"{r['tokens'] / ms * 1e3:.1f} tokens/s" if "tokens" in r
+                else f"{r['samples'] / ms * 1e3:.1f} samples/s")
+        flash = {k["name"]: r["per_step"][k["name"]] for k in FLASH_KERNELS}
+        log(f"  [{card}] {what}: {ms:.2f} ms per step over {r['iters']} "
+            f"steps, {rate}; peak memory {r['peak'] / 2**30:.2f} GiB; "
+            f"flash launches per step {flash}")
+        if r["busy"] > 0:
+            log(f"  [{card}] {what} under torch.profiler ("
+                f"{DYGRAPH['profiled']} step): wall {r['p_wall']:.3f} s, "
+                f"kernels busy {r['busy']:.3f} s, idle share "
+                f"{1 - r['busy'] / r['p_wall']:.1%}")
+            for key, (us, count) in r["top"][:8]:
+                log(f"    {us / 1e3:9.2f} ms  {count:6d} calls  {key[:90]}")
+        else:
+            log(f"  [{card}] {what}: torch.profiler recorded no device "
+                f"time: device idle share not measured")
+
 
 def main():
     if not torch.cuda.is_available():
@@ -5837,6 +6162,19 @@ def main():
     log("  (b) timed at 12 layers, every shard on card 0")
     hybrid_out = phase_hybrid_run()
     hybrid_numbers(card, hybrid_out)
+
+    phase("phase 18: dygraph AMP and the high-level surface (GPT eager "
+          "O1 auto_cast + GradScaler on the bf16 flash kernels, hapi "
+          "Model.fit over a 2-worker DataLoader, BERT-base eager AMP)")
+    log(f"  (a) held checks: GPT at full width, {HELD_LAYERS} layers, card "
+        f"vs CPU; the bf16 flash kernels at this path's shapes; hapi LeNet")
+    for name, err in phase_dygraph_held(fa, rng).items():
+        max_err[name] = max(max_err[name], err)
+    phase_hapi_held()
+    log("  (b) timed at 12 layers on the card")
+    dygraph_out = phase_dygraph_run()
+    dygraph_numbers(card, dygraph_out)
+    bf16_numbers = flash_numbers(fa, card, torch.bfloat16)
     phase(None)
     log(f"  whole run {time.perf_counter() - t_start:.1f} s wall")
     launches = {"ragged_paged_attention": gpu["launches"],
@@ -5881,6 +6219,13 @@ def main():
                        else {"experts": run["experts"]}),
                     "launches_per_step": run["launches"][k["name"]]}
             for label, run in hybrid_out.items()}
+    # and on phase 18's eager O1 AMP step: the bf16 instantiations
+    for k in FLASH_KERNELS:
+        mesh_keys[k["name"]]["dygraph_amp"] = {
+            "dtype": "bfloat16",
+            "launches_per_step": dygraph_out["amp"]["per_step"][k["name"]],
+            **dict(zip(("ms", "plain_ms", "bound_ms", "bound_by",
+                        "library_ms"), bf16_numbers[k["name"]]))}
     print(json.dumps({"kernels": [{
         "name": k["name"], "route": "cuda",
         "source": f"paddle_tpu_torch/csrc/{k['lib']}.cu",

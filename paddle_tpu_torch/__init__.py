@@ -19,7 +19,12 @@ trains GPT over a mesh of ``data`` (ZeRO 0-3), ``pipe``, ``model``
 (tensor parallel, ``distributed.fleet.meta_parallel``), ``seq``
 (context parallel, ring and Ulysses) and ``expert`` (mixture of
 experts) axes, one process running each data shard's ranks in lockstep
-(``distributed.spmd``).
+(``distributed.spmd``); and trains in dygraph under AMP
+(``amp.auto_cast``, ``amp.GradScaler``: the bf16 flash kernels on GPT's
+eager step) and through the high-level surface: ``io.DataLoader`` over
+datasets and samplers, ``hapi.Model`` with ``metric`` and
+``callbacks``, ``summary``, ``flops``, and ``save``/``load`` in the
+JAX package's checkpoint format.
 It imports torch and numpy, never jax and never paddle_tpu.  Entry
 points run on the card unless the caller asks for the CPU
 (``device="cpu"``), where every kernel call takes the kernel's plain
@@ -28,12 +33,17 @@ PyTorch version.
 # serving first: its fleet tier imports the generation engine, which
 # imports serving.admission back
 from . import serving  # noqa: I001
-from . import distributed, generation, models, nn, ops, optimizer, \
-    parallel, profiler, regularizer, static, vision
+from . import amp, callbacks, distributed, generation, hapi, io, metric, \
+    models, nn, ops, optimizer, parallel, profiler, regularizer, static, \
+    vision
+from .framework import load, save
 from .generation import (GenerationConfig, GenerationEngine,
                          SamplingParams, TinyCausalLM)
+from .hapi import Model, flops, summary
 
-__all__ = ["GenerationConfig", "GenerationEngine", "SamplingParams",
-           "TinyCausalLM", "distributed", "generation", "models", "nn", "ops", "optimizer",
-           "parallel", "profiler", "regularizer", "serving", "static",
-           "vision"]
+__all__ = ["GenerationConfig", "GenerationEngine", "Model",
+           "SamplingParams", "TinyCausalLM", "amp", "callbacks",
+           "distributed", "flops", "generation", "hapi", "io", "load",
+           "metric", "models", "nn", "ops", "optimizer", "parallel",
+           "profiler", "regularizer", "save", "serving", "static",
+           "summary", "vision"]

@@ -131,7 +131,7 @@ class MoELayer(torch.nn.Module):
             tokens = xi.reshape(b * s, h)
             cap = capacity_of(b * s, e, self.capacity_factor)
             combine, dispatch, aux = top2_dispatch(
-                F.linear(tokens, m.gate_weight).float(), cap)
+                F.matmul_promoted(tokens, m.gate_weight).float(), cap)
             m.aux_loss = aux.float()
             routed.append((combine.to(xi.dtype), cap, xi.shape))
             expert_in.append(torch.einsum("nec,nh->ech",

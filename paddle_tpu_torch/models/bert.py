@@ -134,8 +134,9 @@ class BertForPretraining(NumpyWeights, nn.Module):
         seq, pooled = self.bert(input_ids, token_type_ids, attention_mask,
                                 generator)
         mlm_h = self.mlm_norm(F.gelu(self.mlm_transform(seq)))
-        mlm_logits = F.linear(mlm_h,
-                              self.bert.embeddings.word_embeddings.weight.t())
+        mlm_logits = F.matmul(mlm_h,
+                              self.bert.embeddings.word_embeddings.weight,
+                              transpose_y=True)
         return mlm_logits, self.nsp_head(pooled)
 
     def loss(self, input_ids, mlm_labels, nsp_labels=None,

@@ -121,8 +121,9 @@ class ErnieForPretraining(NumpyWeights, nn.Module):
         seq, pooled = self.ernie(input_ids, sent_ids, task_ids,
                                  attention_mask, generator)
         mlm_h = self.mlm_norm(F.gelu(self.mlm_transform(seq)))
-        mlm_logits = F.linear(
-            mlm_h, self.ernie.embeddings.word_embeddings.weight.t())
+        mlm_logits = F.matmul(
+            mlm_h, self.ernie.embeddings.word_embeddings.weight,
+            transpose_y=True)
         return mlm_logits, self.sop_head(pooled)
 
     def loss(self, input_ids, mlm_labels, sop_labels=None, sent_ids=None,

@@ -262,7 +262,7 @@ class GPTForPretraining(NumpyWeights, nn.Module):
         hs = [m.gpt.ln_f(t) for m, t in zip(mods, hs)]
         if self._vocab_sharded(mods):
             hs = copy_to_model_parallel(hs)
-        return spmd.unlisted([F.linear(t, m.gpt.wte.weight.t())
+        return spmd.unlisted([F.matmul(t, m.gpt.wte.weight, transpose_y=True)
                               for m, t in zip(mods, hs)], h)
 
     def _hidden(self, input_ids, generator=None):

@@ -1,15 +1,16 @@
-"""The dygraph layers (conv nets and the transformer), their functional
-ops, parameters and initializers, and gradient clipping."""
+"""The dygraph layers (conv nets, the transformer and the loss layers),
+their functional ops, parameters and initializers, and gradient
+clipping."""
 from . import functional, initializer
 from .clip import (ClipGradByGlobalNorm, ClipGradByNorm, ClipGradByValue,
                    utils_clip_grad_norm_)
 from .layer import ParamAttr, create_parameter
 from .layers import (AdaptiveAvgPool2D, AvgPool2D, BatchNorm, BatchNorm1D,
                      BatchNorm2D, BatchNorm3D, ColumnParallelLinear, Conv2D,
-                     Dropout, Embedding, Flatten, LayerList, LayerNorm,
-                     Linear, MaxPool2D, ParallelCrossEntropy, ReLU, ReLU6,
-                     RowParallelLinear, Sequential, Tanh,
-                     VocabParallelEmbedding)
+                     CrossEntropyLoss, Dropout, Embedding, Flatten,
+                     LayerList, LayerNorm, Linear, MaxPool2D, MSELoss,
+                     ParallelCrossEntropy, ReLU, ReLU6, RowParallelLinear,
+                     Sequential, Tanh, VocabParallelEmbedding)
 from .transformer import (MultiHeadAttention, Transformer,
                           TransformerDecoder, TransformerDecoderLayer,
                           TransformerEncoder, TransformerEncoderLayer)
@@ -17,8 +18,9 @@ from .transformer import (MultiHeadAttention, Transformer,
 __all__ = ["AdaptiveAvgPool2D", "AvgPool2D", "BatchNorm", "BatchNorm1D",
            "BatchNorm2D", "BatchNorm3D", "ClipGradByGlobalNorm",
            "ClipGradByNorm", "ClipGradByValue", "ColumnParallelLinear",
-           "Conv2D", "Dropout", "Embedding", "Flatten", "LayerList",
-           "LayerNorm", "Linear", "MaxPool2D", "MultiHeadAttention",
+           "Conv2D", "CrossEntropyLoss", "Dropout", "Embedding", "Flatten",
+           "LayerList", "LayerNorm", "Linear", "MSELoss", "MaxPool2D",
+           "MultiHeadAttention",
            "ParallelCrossEntropy", "ParamAttr", "ReLU", "ReLU6",
            "RowParallelLinear", "Sequential", "Tanh", "Transformer",
            "TransformerDecoder", "TransformerDecoderLayer",

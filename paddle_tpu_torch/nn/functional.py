@@ -1,16 +1,42 @@
 """The functional ops GPT, BERT and ERNIE need, with the JAX package's
 semantics (``paddle_tpu/ops/nn_ops.py``, ``ops/loss.py``).  Mixed dtypes
 promote as JAX promotes them: a bfloat16 operand meeting a float32 one
-computes in float32."""
+computes in float32.  Under dygraph AMP (``amp.auto_cast``) `linear`,
+`matmul` and `conv2d` first cast their float32 tensors as the JAX ops
+``linear``/``linear_nobias``, ``matmul_v2`` and ``conv2d`` are cast."""
 import torch
+
+from ..amp.auto_cast import amp_enabled, cast_inputs
 
 
 def linear(x, weight, bias=None):
     """``x @ weight + bias`` with weight [in, out], in the promoted dtype
-    of x and weight (float32 x and bfloat16 weight: float32)."""
-    dt = torch.promote_types(x.dtype, weight.dtype)
-    out = torch.matmul(x.to(dt), weight.to(dt))
+    of x and weight (float32 x and bfloat16 weight: float32).  Under AMP
+    x, weight and bias are cast (the JAX ``linear`` op, or
+    ``linear_nobias`` without a bias)."""
+    if bias is None:
+        x, weight = cast_inputs("linear_nobias", x, weight)
+    else:
+        x, weight, bias = cast_inputs("linear", x, weight, bias)
+    out = matmul_promoted(x, weight)
     return out if bias is None else out + bias
+
+
+def matmul_promoted(x, y):
+    """``x @ y`` in the promoted dtype of x and y, with no AMP cast."""
+    dt = torch.promote_types(x.dtype, y.dtype)
+    return torch.matmul(x.to(dt), y.to(dt))
+
+
+def matmul(x, y, transpose_x=False, transpose_y=False):
+    """``x @ y`` with either operand's last two axes swapped first, in
+    their promoted dtype (the JAX ``matmul_v2`` op, cast under AMP)."""
+    x, y = cast_inputs("matmul_v2", x, y)
+    if transpose_x and x.dim() > 1:
+        x = x.transpose(-1, -2)
+    if transpose_y and y.dim() > 1:
+        y = y.transpose(-1, -2)
+    return matmul_promoted(x, y)
 
 
 def layer_norm(x, weight, bias, epsilon=1e-5):
@@ -74,6 +100,54 @@ def softmax_with_cross_entropy(logits, label):
                        torch.zeros_like(picked), -picked)
 
 
+def _reduce_loss(out, reduction):
+    if reduction == "mean":
+        return out.mean()
+    if reduction == "sum":
+        return out.sum()
+    return out
+
+
+def cross_entropy(input, label, weight=None, ignore_index=IGNORE_INDEX,
+                  reduction="mean", soft_label=False, axis=-1,
+                  use_softmax=True):
+    """``ops/loss.py::cross_entropy``: ``-log_softmax(input)`` at the
+    label along `axis` (``log(max(input, 1e-30))`` without
+    `use_softmax`), times the label's class `weight`, 0 at
+    `ignore_index`; a `soft_label` is a distribution, ``-sum(label *
+    logp)``.  The hard-label mean divides the sum by the summed weights
+    of the labels not ignored (their count without `weight`), at least
+    1e-12; otherwise `reduction` is "mean", "sum" or "none"."""
+    logp = (torch.log_softmax(input, dim=axis) if use_softmax
+            else torch.log(torch.clamp(input, min=1e-30)))
+    if soft_label:
+        return _reduce_loss(-(label * logp).sum(dim=axis), reduction)
+    li = label
+    if li.dim() == input.dim() and li.shape[axis] == 1:
+        li = li.squeeze(axis)
+    safe = li.long().clamp(0, input.shape[axis] - 1)
+    loss = -logp.gather(axis, safe.unsqueeze(axis)).squeeze(axis)
+    if weight is not None:
+        loss = loss * weight[safe]
+    loss = torch.where(li == ignore_index, torch.zeros_like(loss), loss)
+    if reduction != "mean":
+        return _reduce_loss(loss, reduction)
+    if weight is not None:
+        w_safe = label.long().clamp(0, weight.shape[0] - 1)
+        denom = torch.where(label == ignore_index,
+                            torch.zeros((), dtype=weight.dtype,
+                                        device=weight.device),
+                            weight[w_safe]).sum()
+    else:
+        denom = (label != ignore_index).sum().to(loss.dtype)
+    return loss.sum() / torch.clamp(denom, min=1e-12)
+
+
+def mse_loss(input, label, reduction="mean"):
+    """``(input - label)²``, reduced by `reduction`."""
+    return _reduce_loss((input - label).square(), reduction)
+
+
 def relu6(x):
     """``clip(x, 0, 6)``."""
     return torch.clamp(x, 0.0, 6.0)
@@ -117,8 +191,17 @@ def _nchw(data_format):
 def conv2d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
            data_format="NCHW"):
     """2-D convolution, NCHW input and OIHW weight (``ops/nn_ops.py::
-    conv2d``); an asymmetric padding is zero-padded first."""
+    conv2d``); an asymmetric padding is zero-padded first.  Under AMP x
+    and weight are cast (the JAX ``conv2d`` op) and the bias is added
+    after, uncast (its ``conv2d_bias`` op): a float32 bias makes the sum
+    float32, as in JAX."""
     _nchw(data_format)
+    if amp_enabled():
+        x, weight = cast_inputs("conv2d", x, weight)
+        if bias is not None:
+            out = conv2d(x, weight, None, stride, padding, dilation, groups)
+            bias, = cast_inputs("conv2d_bias", bias)
+            return out + bias.reshape(1, -1, 1, 1)
     t, b, left, r = _pads(padding)
     if t != b or left != r:
         x = torch.nn.functional.pad(x, (left, r, t, b))

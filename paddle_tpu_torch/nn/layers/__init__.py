@@ -6,13 +6,14 @@ from .common import (ColumnParallelLinear, Dropout, Embedding, Flatten,
                      VocabParallelEmbedding)
 from .container import LayerList, Sequential
 from .conv import Conv2D
+from .loss import CrossEntropyLoss, MSELoss
 from .norm import (BatchNorm, BatchNorm1D, BatchNorm2D, BatchNorm3D,
                    LayerNorm)
 from .pooling import AdaptiveAvgPool2D, AvgPool2D, MaxPool2D
 
 __all__ = ["AdaptiveAvgPool2D", "AvgPool2D", "BatchNorm", "BatchNorm1D",
            "BatchNorm2D", "BatchNorm3D", "ColumnParallelLinear", "Conv2D",
-           "Dropout", "Embedding", "Flatten", "LayerList", "LayerNorm",
-           "Linear", "MaxPool2D", "ParallelCrossEntropy", "ReLU", "ReLU6",
-           "RowParallelLinear", "Sequential", "Tanh",
-           "VocabParallelEmbedding"]
+           "CrossEntropyLoss", "Dropout", "Embedding", "Flatten",
+           "LayerList", "LayerNorm", "Linear", "MSELoss", "MaxPool2D",
+           "ParallelCrossEntropy", "ReLU", "ReLU6", "RowParallelLinear",
+           "Sequential", "Tanh", "VocabParallelEmbedding"]

@@ -5,6 +5,7 @@ import math
 
 import torch
 
+from ..amp.auto_cast import cast_inputs
 from .flash_attention import (flash_attention, mask_is_flash_compatible,
                               shapes_fit_kernels)
 
@@ -18,7 +19,9 @@ def scaled_dot_product_attention(q, k, v, attn_mask=None, dropout_p=0.0,
     ``use_flash`` (None means off: the port has no global flag) takes
     the flash kernels when there is no weight dropout, no weights are
     asked for, the mask varies only by batch and key, and the shapes fit
-    the kernels.  Lq == 1 (one decode row) always takes the composite:
+    the kernels.  Under AMP the composite casts q, k, v and the mask (the
+    JAX ``sdp_attention`` op), the flash path as `flash_attention`
+    does.  Lq == 1 (one decode row) always takes the composite:
     its causal mask is all visible.  Causal masks align bottom-right
     (row i sees keys up to i + Lk - Lq); masked logits are -1e9.  Weight
     dropout draws from `generator`, which it then requires."""
@@ -31,6 +34,7 @@ def scaled_dot_product_attention(q, k, v, attn_mask=None, dropout_p=0.0,
             and shapes_fit_kernels(q.shape[-2], k.shape[-2], q.shape[-1]):
         return flash_attention(q, k, v, attn_mask=attn_mask,
                                causal=is_causal), None
+    q, k, v, attn_mask = cast_inputs("sdp_attention", q, k, v, attn_mask)
     logits = torch.einsum("bhqd,bhkd->bhqk", q, k) * scale
     if attn_mask is not None:
         logits = logits + attn_mask

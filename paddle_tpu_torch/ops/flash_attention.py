@@ -27,15 +27,17 @@ bfloat16 before their products, as the Pallas bodies do
 
 Each wrapper is the one place its device is chosen: for CUDA tensors it
 launches its kernel, counting each launch in its ``launches``
-attribute, and raises on anything the kernel does not take or on a
-refused launch; for CPU tensors, and only for those, it runs the plain
-version.
+attribute (and by dtype in ``launches_by_dtype``), and raises on
+anything the kernel does not take or on a refused launch; for CPU
+tensors, and only for those, it runs the plain version.  The entry
+`flash_attention` casts its inputs under dygraph AMP first.
 """
 import ctypes
 import math
 
 import torch
 
+from ..amp.auto_cast import cast_inputs
 from . import _build
 
 NEG_INF = -1e30
@@ -227,6 +229,16 @@ def _device_route(qs):
     return True
 
 
+def _dtype_counts():
+    return {"float32": 0, "bfloat16": 0}
+
+
+def _count_dtype(wrapper, qs):
+    """One more launch of `wrapper`'s kernel in `qs`'s dtype
+    (``launches_by_dtype``, beside ``launches``)."""
+    wrapper.launches_by_dtype[str(qs.dtype).replace("torch.", "")] += 1
+
+
 def flash_attention_fwd_kernel(qs, k, v, km=None, causal=False, heads=1):
     """The forward kernel's wrapper: same contract as
     `flash_attention_fwd_torch`."""
@@ -240,10 +252,12 @@ def flash_attention_fwd_kernel(qs, k, v, km=None, causal=False, heads=1):
         return out, lse
     _launch("fa_flash_fwd", qs, k, v, km, causal, heads, out, lse)
     flash_attention_fwd_kernel.launches += 1
+    _count_dtype(flash_attention_fwd_kernel, qs)
     return out, lse
 
 
 flash_attention_fwd_kernel.launches = 0
+flash_attention_fwd_kernel.launches_by_dtype = _dtype_counts()
 
 
 def flash_attention_bwd_dkdv_kernel(qs, k, v, do, lse, delta, km=None,
@@ -261,10 +275,12 @@ def flash_attention_bwd_dkdv_kernel(qs, k, v, do, lse, delta, km=None,
     _launch("fa_flash_bwd_dkdv", qs, k, v, km, causal, heads, do, lse, delta,
             dk, dv)
     flash_attention_bwd_dkdv_kernel.launches += 1
+    _count_dtype(flash_attention_bwd_dkdv_kernel, qs)
     return dk, dv
 
 
 flash_attention_bwd_dkdv_kernel.launches = 0
+flash_attention_bwd_dkdv_kernel.launches_by_dtype = _dtype_counts()
 
 
 def flash_attention_bwd_dq_kernel(qs, k, v, do, lse, delta, km=None,
@@ -282,10 +298,12 @@ def flash_attention_bwd_dq_kernel(qs, k, v, do, lse, delta, km=None,
     _launch("fa_flash_bwd_dq", qs, k, v, km, causal, heads, do, lse, delta,
             dq)
     flash_attention_bwd_dq_kernel.launches += 1
+    _count_dtype(flash_attention_bwd_dq_kernel, qs)
     return dq
 
 
 flash_attention_bwd_dq_kernel.launches = 0
+flash_attention_bwd_dq_kernel.launches_by_dtype = _dtype_counts()
 
 # each entry point's pointer arguments between the common (qs, k, v, km,
 # heads, causal, bf16) head and the (BH, Lq, Lk, D, stream) tail
@@ -339,7 +357,10 @@ def flash_attention(q, k, v, attn_mask=None, causal=False):
     non-trivial axes are batch and key ([B, 1, 1, Lk] / [1, 1, 1, Lk];
     richer masks take the composite path, see `mask_is_flash_compatible`).
     The scale is folded into q before the kernels, so autograd gives dq
-    its scale through the fold."""
+    its scale through the fold.  Under AMP q, k, v and the mask are cast
+    first (the JAX ``flash_attention`` op): the kernels run in bfloat16
+    and the mask, rounded through bfloat16, is read as float32."""
+    q, k, v, attn_mask = cast_inputs("flash_attention", q, k, v, attn_mask)
     b, h, lq, d = q.shape
     lk = k.shape[2]
     qs = (q * (1.0 / math.sqrt(d))).reshape(b * h, lq, d).contiguous()

@@ -82,6 +82,11 @@ class Optimizer:
             return float(self.learning_rate())
         return self.learning_rate
 
+    def set_lr(self, value):
+        """Replace the learning rate (a scheduler too) by the number
+        `value`."""
+        self.learning_rate = float(value)
+
     def init_state(self, param):
         return {}
 

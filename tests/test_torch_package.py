@@ -56,7 +56,11 @@ def test_import_pulls_in_neither_jax_nor_paddle_tpu():
         "serving.disagg.worker", "serving.disagg.tcp",
         "serving.disagg.chaos", "parallel.env", "parallel.collective",
         "parallel.topology", "parallel.data_parallel", "parallel.hybrid",
-        "parallel.pipeline_compile")} <= walked
+        "parallel.pipeline_compile", "amp.auto_cast", "amp.grad_scaler",
+        "io.dataset", "io.sampler", "io.dataloader", "metric",
+        "hapi.model", "hapi.callbacks", "hapi.model_summary",
+        "hapi.dynamic_flops", "callbacks", "framework",
+        "nn.layers.loss")} <= walked
 
 
 def test_replica_worker_imports_neither_jax_nor_paddle_tpu():
