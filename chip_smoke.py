@@ -319,6 +319,28 @@ carries on:
    share, peak memory, and each flash kernel's bf16 time at the AMP
    path's shape beside its plain version, its bound at the bf16
    tensor-core rate and sdpa's bf16 forward and backward;
+19. recurrent nets and beam-search decoding: the PaddlePaddle book's
+   chapter 06 sentiment LSTM (``stacked_lstm_net``: embedding 128 over a
+   dictionary of 5147, 3 stacked LSTMs of 512 over each review's
+   length, 2 classes) and chapter 08 translation model (dictionaries of
+   30,000, word and hidden 512, a bidirectional GRU encoder, a GRU cell
+   decoder over a dot-product context, beam 4), eager Adam, fp32, TF32
+   off; no kernel of the port is on this path and the phase checks
+   that none of the six launched: (a) both at full width, batch and
+   length cut (the LSTM at B 16, T 32, lengths 8-32; the GRU at B 8,
+   sentences of 12), card against CPU from one set of weights: 2 Adam
+   steps, losses within 1e-5 relative and every parameter within 1e-4
+   of its tensor's largest magnitude, an entry past that only within 2
+   x the summed Adam step sizes (phase 11's rule: a sign step on a
+   near-zero gradient), counted; then a 12-step beam search card
+   against CPU, the ids identical except from a step where the CPU's
+   gap between the beam-th and the next candidate is under 1e-4 (that
+   step printed); (b) on the card at the chapters' sizes (the LSTM at B
+   128, T 256, lengths from 64; the GRU at B 64, T 50), 1 warm-up, 5
+   timed and 1 profiled step each, and the beam decode over 16
+   sentences of 50 (50 steps at most): ms a step, samples/s or target
+   tokens/s, sentences/s, the idle share from a CUDA-activity-only
+   profile, kernels a step and peak memory;
 then the result line.
 
 Each phase prints its wall seconds.
@@ -3947,8 +3969,8 @@ def make_trainer(model, device, lr, seed=0):
 
 def profile_steps(step, n):
     """`n` calls of `step` under torch.profiler (CUDA activity only, as
-    `profile_engine`): wall seconds, kernel seconds on the device, and
-    the 15 kernels that took the most."""
+    `profile_engine`): wall seconds, kernel seconds on the device, the 15
+    kernels that took the most, and the count of kernels run."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -3961,7 +3983,7 @@ def profile_steps(step, n):
     per_kernel = device_kernels(prof)
     busy = sum(us for us, _ in per_kernel.values()) / 1e6
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:15]
-    return wall, busy, top
+    return wall, busy, top, sum(c for _, c in per_kernel.values())
 
 
 def phase_training_held():
@@ -4043,7 +4065,7 @@ def phase_training_run():
                  f"num_layers x steps = {want}")
     if any(launches[k["name"]] for k in KERNELS):
         fail("the train step launched a paged-attention kernel")
-    p_wall, busy, top = profile_steps(lambda: tr.step(ids, lbl),
+    p_wall, busy, top, _ = profile_steps(lambda: tr.step(ids, lbl),
                                       TRAIN["profiled"])
     return dict(wall=wall, iters=TRAIN["iters"], launches=launches,
                 peak=peak, losses=losses, p_wall=p_wall, busy=busy, top=top,
@@ -4383,7 +4405,7 @@ def phase_resnet_run():
              f"{launches}")
     cost = exe.cost_analysis(main, feed={"image": img, "label": lab},
                              fetch_list=[loss], scope=scope)
-    p_wall, busy, top = profile_steps(run_chain, 1)
+    p_wall, busy, top, _ = profile_steps(run_chain, 1)
     n_params = sum(scope.get(v.name).numel()
                    for v in main.global_block().all_parameters()
                    if not v.stop_gradient)
@@ -4677,7 +4699,7 @@ def phase_vision_run():
         host.append(time.perf_counter() - t0)
         torch.cuda.synchronize()
         opt.clear_grad()
-    p_wall, busy, top = profile_steps(step, LENET["profiled"])
+    p_wall, busy, top, _ = profile_steps(step, LENET["profiled"])
     launches = 0
     if busy > 0:
         from torch.profiler import ProfilerActivity, profile
@@ -4877,7 +4899,7 @@ def phase_encoder_run():
     if any(launches.values()):
         fail(f"the BERT train step launched a kernel of the port: "
              f"{launches}")
-    p_wall, busy, top = profile_steps(lambda: tr.step(ids, lbl),
+    p_wall, busy, top, _ = profile_steps(lambda: tr.step(ids, lbl),
                                       ENCODER["profiled"])
     return dict(wall=wall, peak=peak, p_wall=p_wall, busy=busy, top=top,
                 n_params=n_params, cfg=cfg)
@@ -5196,7 +5218,7 @@ def timed_training(label, tr, ids, lbl, want, tokens):
                  f"want {want[name]} a step")
     if others:
         fail(f"{label}: the train step launched a paged kernel: {others}")
-    p_wall, busy, _ = profile_steps(lambda: tr.step(ids, lbl),
+    p_wall, busy, _, _ = profile_steps(lambda: tr.step(ids, lbl),
                                     DP["profiled"])
     ms = wall / DP["iters"] * 1e3
     return dict(ms=ms, tokens_s=tokens / ms * 1e3, peak=peak,
@@ -5812,7 +5834,7 @@ def dygraph_timed(label, model, lr, amp_on, batches, want, dtype,
     launches = read_launches()
     typed = flash_launches_by_dtype(dtype)
     peak = torch.cuda.max_memory_allocated()
-    p_wall, busy, top = profile_steps(lambda: step(*next(batches)),
+    p_wall, busy, top, _ = profile_steps(lambda: step(*next(batches)),
                                       d["profiled"])
     losses = [float(x) for x in losses]
     log(f"  {label}: losses {losses[0]:.4f} -> {losses[-1]:.4f}; launches "
@@ -5894,6 +5916,467 @@ def dygraph_numbers(card, run):
         else:
             log(f"  [{card}] {what}: torch.profiler recorded no device "
                 f"time: device idle share not measured")
+
+
+# ---- phase 19: recurrent nets and beam-search decoding ---------------------
+
+# the PaddlePaddle book's chapter 06 (understand_sentiment, its
+# stacked_lstm_net: IMDB's dictionary of 5147 words, embedding 128, hidden
+# 512, 3 stacked LSTMs, 2 classes, batch 128, Adam 2e-3; the reviews
+# padded to 256 with lengths from 64) and chapter 08 (machine_translation:
+# dictionaries of 30,000, word 512, hidden 512, a bidirectional GRU
+# encoder, beam 4, batch 64, sentences of 50); data synthetic from a seed.
+# The held check (a) runs both at full width with batch and length cut
+SENTIMENT = dict(vocab=5147, emb=128, hidden=512, layers=3, classes=2,
+                 batch=128, seq=256, min_len=64, lr=2e-3, held_batch=16,
+                 held_seq=32, held_min=8)
+TRANSLATION = dict(vocab=30000, word=512, hidden=512, beam=4, batch=64,
+                   seq=50, lr=1e-3, decode_batch=16, decode_steps=50,
+                   held_batch=8, held_seq=12, held_min=3, held_steps=12)
+BOOK = dict(warmup=1, iters=5, profiled=1, held_steps=2)
+BOS, EOS = 0, 1          # the target dictionary's reserved ids
+BOOK_LOSS_TOL = 1e-5     # card vs CPU losses, relative (fp32, TF32 off)
+BOOK_PARAM_TOL = 1e-4    # each gradient and parameter, of its largest
+BOOK_GRAD_FLOOR = 1e-6   # the CPU gradient under which an entry may pass it
+BOOK_NEAR_TIE = 1e-4     # the CPU's gap under which a beam may differ
+
+
+def book_models(P, nn, F, base, **gen):
+    """The book's two recurrent models over a package: `P` its top level,
+    `nn` its layers, `F` its functional namespace, `base` its layer class
+    and `gen` the keyword arguments its layers draw their weights with
+    (``generator=`` for the port, none for the JAX package, whose layers
+    draw from its global key).  The same code builds and runs either."""
+
+    class SentimentLSTM(base):
+        """Chapter 06's stacked_lstm_net: embedding, stacked LSTMs over
+        each review's length, the last layer's final h to the classes."""
+
+        def __init__(self, vocab, emb, hidden, layers, classes):
+            super().__init__()
+            self.embedding = nn.Embedding(vocab, emb, **gen)
+            self.lstm = nn.LSTM(emb, hidden, num_layers=layers, **gen)
+            self.fc = nn.Linear(hidden, classes, **gen)
+
+        def forward(self, ids, lens):
+            _, (h, _) = self.lstm(self.embedding(ids), sequence_length=lens)
+            return self.fc(h[-1])
+
+        def loss(self, ids, lens, label):
+            return P.mean(F.softmax_with_cross_entropy(self(ids, lens),
+                                                       label))
+
+    class Seq2Seq(base):
+        """Chapter 08's encoder-decoder: a bidirectional GRU over the
+        source, a linear of its states to the decoder's width (the memory
+        and, over both directions' final states, the first state), and a
+        GRU cell fed the target word and a dot-product context."""
+
+        def __init__(self, vocab, word, hidden):
+            super().__init__()
+            self.src_emb = nn.Embedding(vocab, word, **gen)
+            self.trg_emb = nn.Embedding(vocab, word, **gen)
+            self.encoder = nn.GRU(word, hidden, direction="bidirect", **gen)
+            self.enc_proj = nn.Linear(2 * hidden, hidden, **gen)
+            self.decoder = nn.GRUCell(word + hidden, hidden, **gen)
+            self.out = nn.Linear(hidden, vocab, **gen)
+
+        def encode(self, src, src_len):
+            enc, h = self.encoder(self.src_emb(src), sequence_length=src_len)
+            return self.enc_proj(enc), self.enc_proj(P.concat(
+                [h[0], h[1]], axis=-1))
+
+        def step(self, ids, h, memory):
+            scores = P.matmul(memory, h.unsqueeze(-1)).squeeze(-1)
+            ctx = P.matmul(F.softmax(scores, axis=-1).unsqueeze(1),
+                           memory).squeeze(1)
+            h, _ = self.decoder(P.concat([self.trg_emb(ids), ctx], axis=-1),
+                                h)
+            return self.out(h), h
+
+        def loss(self, src, src_len, trg):
+            memory, h = self.encode(src, src_len)
+            prev = P.full_like(trg[:, 0], BOS)
+            total = 0
+            for t in range(trg.shape[1]):
+                logits, h = self.step(prev, h, memory)
+                total = total + P.mean(F.softmax_with_cross_entropy(
+                    logits, trg[:, t:t + 1]))
+                prev = trg[:, t]                     # teacher forcing
+            return total / trg.shape[1]
+
+        def beam_decode(self, src, src_len, beam, max_steps, decoder=None):
+            """`dynamic_decode` over a `BeamSearchDecoder` (or the
+            subclass `decoder`) of `beam`: (ids [B, T, beam], final
+            scores, lengths)."""
+            memory, h0 = self.encode(src, src_len)
+            tiled = nn.BeamSearchDecoder.tile_beam_merge_with_batch(memory,
+                                                                     beam)
+            model = self
+
+            class Cell:
+                def __call__(self, ids, states):
+                    logits, h = model.step(ids, states[0], tiled)
+                    return logits, (h,)
+
+            return nn.dynamic_decode((decoder or nn.BeamSearchDecoder)(
+                Cell(), BOS, EOS, beam), inits=(h0,), max_step_num=max_steps,
+                return_length=True)
+
+    return SentimentLSTM, Seq2Seq
+
+
+def sentiment_batch(rng, batch, seq, vocab, min_len):
+    """Reviews of lengths in [min_len, seq] (the first the longest), ids
+    in [1, vocab) padded with 0 past each length, labels [batch, 1]."""
+    lens = rng.integers(min_len, seq + 1, batch)
+    lens[0] = seq
+    ids = rng.integers(1, vocab, (batch, seq))
+    ids[np.arange(seq)[None, :] >= lens[:, None]] = 0
+    return ids, lens, rng.integers(0, 2, (batch, 1))
+
+
+def translation_batch(rng, batch, seq, vocab):
+    """Source and target sentences of `seq` ids in [2, vocab), every
+    source of full length."""
+    return (rng.integers(2, vocab, (batch, seq)),
+            np.full(batch, seq, np.int64),
+            rng.integers(2, vocab, (batch, seq)))
+
+
+def port_book_models(seed=0):
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.nn import functional as F
+    import paddle_tpu_torch as P
+
+    return book_models(P, nn, F, torch.nn.Module,
+                       generator=torch.Generator().manual_seed(seed))
+
+
+def book_build(which, seed=0):
+    """Phase 19's model `which` ("sentiment" or "translation") at the
+    chapter's widths, on the CPU from a generator of `seed`."""
+    sent, trans = port_book_models(seed)
+    if which == "sentiment":
+        c = SENTIMENT
+        return sent(c["vocab"], c["emb"], c["hidden"], c["layers"],
+                    c["classes"])
+    c = TRANSLATION
+    return trans(c["vocab"], c["word"], c["hidden"])
+
+
+def book_adam(model, lr):
+    from paddle_tpu_torch import optimizer
+
+    return optimizer.Adam(learning_rate=lr, parameters=model.parameters())
+
+
+def book_steps(model, batch, lr, n, grads=None):
+    """`n` eager Adam steps of ``model.loss(*batch)``: the losses; each
+    step's gradients appended to `grads` where given."""
+    opt = book_adam(model, lr)
+    losses = []
+    for _ in range(n):
+        loss = model.loss(*batch)
+        loss.backward()
+        if grads is not None:
+            grads.append({k: p.grad.detach().cpu().clone()
+                          for k, p in model.named_parameters()})
+        opt.step()
+        opt.clear_grad()
+        losses.append(loss.item())
+    return losses
+
+
+def recording_decoder():
+    """A maker of `BeamSearchDecoder`s that keep each step's inputs,
+    logits and choices (for the near-tie rule of the held check), and the
+    list of those it made."""
+    from paddle_tpu_torch import nn
+
+    class Recording(nn.BeamSearchDecoder):
+        def __init__(self, cell, *args, **kwargs):
+            self.log = []
+
+            def record(ids, states):
+                logits, new = cell(ids, states)
+                self.log[-1]["logits"] = logits.detach()
+                return logits, new
+
+            super().__init__(record, *args, **kwargs)
+
+        def step(self, ids, scores, states):
+            self.log.append({"ids": ids, "scores": scores})
+            out = super().step(ids, scores, states)
+            self.log[-1].update(sel=out[0], parent=out[2])
+            return out
+
+    made = []
+
+    def make(*args, **kwargs):
+        made.append(Recording(*args, **kwargs))
+        return made[-1]
+
+    return make, made
+
+
+def beam_gaps(log, beam):
+    """Per step and batch row, on the CPU's log: the gap between the
+    beam-th and the next best candidate score."""
+    from paddle_tpu_torch.ops.sequence_ops import beam_candidates
+
+    gaps = []
+    for rec in log:
+        logp = torch.log_softmax(rec["logits"].float(), dim=-1)
+        cand = torch.arange(logp.shape[-1]).expand(logp.shape[0], -1)
+        acc, _ = beam_candidates(rec["ids"], rec["scores"], cand,
+                                 rec["scores"] + logp, EOS)
+        top = acc.reshape(-1, beam * logp.shape[-1]).topk(beam + 1).values
+        gaps.append((top[:, beam - 1] - top[:, beam]).tolist())
+    return gaps
+
+
+def hold_book_params(label, card, cpu, grads):
+    """Phase 11's rule: each step-1 gradient within BOOK_PARAM_TOL of its
+    tensor's largest magnitude, then each parameter after the held steps
+    within the same.  An entry past that is allowed only where the CPU's
+    least gradient over the steps is under BOOK_GRAD_FLOOR: near Adam's
+    epsilon (1e-8) a step's size follows the gradient's value, and the
+    devices' sums differ there in the last bits.  `grads` holds each
+    device's gradients a step."""
+    grad_err, grad_name = max((share(g, grads["cpu"][0][n]), n)
+                              for n, g in grads["cuda"][0].items())
+    worst, worst_name, past, past_grad, bad = 0.0, None, 0, 0.0, []
+    cpu_p = dict(cpu.named_parameters())
+    for n, p in card.named_parameters():
+        got, want = p.detach().cpu().double(), cpu_p[n].detach().double()
+        if share(got, want) > worst:
+            worst, worst_name = share(got, want), n
+        mask = (got - want).abs() > BOOK_PARAM_TOL * want.abs().max()
+        if not mask.any():
+            continue
+        least = torch.stack([g[n].abs() for g in grads["cpu"]]).amin(0)[mask]
+        past += int(mask.sum())
+        past_grad = max(past_grad, float(least.max()))
+        if (least >= BOOK_GRAD_FLOOR).any():
+            bad.append((n, int((least >= BOOK_GRAD_FLOOR).sum())))
+    steps = len(grads["cpu"])
+    log(f"  {label}: step-1 gradients {grad_err:.2e} of their largest "
+        f"magnitude (worst {grad_name}); parameters after {steps} steps "
+        f"{worst:.2e} (worst {worst_name}; {past} entries past "
+        f"{BOOK_PARAM_TOL}, their least CPU gradient over the steps at "
+        f"most {past_grad:.2e} against {BOOK_GRAD_FLOOR})")
+    if grad_err > BOOK_PARAM_TOL:
+        fail(f"{label}: step-1 gradient {grad_name} {grad_err} of its "
+             f"largest magnitude, past {BOOK_PARAM_TOL}")
+    if bad:
+        fail(f"{label}: parameter entries past {BOOK_PARAM_TOL} where the "
+             f"CPU's gradient is at least {BOOK_GRAD_FLOOR}: {bad}")
+    return worst, past
+
+
+def phase_book_held():
+    """(a): both models at full width, batch and length cut, card against
+    the CPU from one set of weights: 2 eager Adam steps (losses within
+    BOOK_LOSS_TOL relative, step-1 gradients and parameters by
+    `hold_book_params`), then the translation model's beam search card
+    against CPU.  Most translation sources are padded."""
+    from paddle_tpu_torch.models import layer_from_numpy, layer_to_numpy
+
+    rng = np.random.default_rng(19)
+    out = {}
+    s, t = SENTIMENT, TRANSLATION
+    sent = sentiment_batch(rng, s["held_batch"], s["held_seq"], s["vocab"],
+                           s["held_min"])
+    trans = translation_batch(rng, t["held_batch"], t["held_seq"],
+                              t["vocab"])
+    # padded sources, so the encoder's masked reverse walk runs too
+    trans[1][1:] = rng.integers(t["held_min"], t["held_seq"],
+                                t["held_batch"] - 1)
+    batches = {"sentiment": (sent, s["lr"]), "translation": (trans, t["lr"])}
+    models = {}
+    for which, (batch, lr) in batches.items():
+        t0 = time.perf_counter()
+        cpu = book_build(which)
+        card = layer_from_numpy(book_build(which, seed=1),
+                                layer_to_numpy(cpu), "cuda")
+        losses, grads = {}, {"cuda": [], "cpu": []}
+        for dev, model in (("cuda", card), ("cpu", cpu)):
+            args = [torch.from_numpy(a).to(dev) for a in batch]
+            losses[dev] = book_steps(model, args, lr, BOOK["held_steps"],
+                                     grads[dev])
+        err = max(abs(a - b) / abs(b) for a, b in zip(losses["cuda"],
+                                                      losses["cpu"]))
+        log(f"  {which} at full width, B={len(batch[0])}, "
+            f"T={batch[0].shape[1]}: losses card {losses['cuda']} CPU "
+            f"{losses['cpu']} (worst {err:.2e} relative) "
+            f"({time.perf_counter() - t0:.1f} s)")
+        if not all(math.isfinite(x) for x in losses["cuda"]) \
+                or err > BOOK_LOSS_TOL:
+            fail(f"{which}: card losses {losses['cuda']} vs CPU "
+                 f"{losses['cpu']}, past {BOOK_LOSS_TOL} relative")
+        out[which] = hold_book_params(which, card, cpu, grads)
+        del grads
+        models[which] = (card, cpu, batch)
+    card, cpu, (src, src_len, _) = models["translation"]
+    runs = {}
+    for dev, model in (("cuda", card), ("cpu", cpu)):
+        make, made = recording_decoder()
+        with torch.no_grad():
+            ids, scores, lens = model.beam_decode(
+                torch.from_numpy(src).to(dev),
+                torch.from_numpy(src_len).to(dev), t["beam"],
+                t["held_steps"], decoder=make)
+        runs[dev] = (ids.cpu(), scores.cpu(), made[0].log)
+    (gi, gs, glog), (ci, cs, clog) = runs["cuda"], runs["cpu"]
+    gaps = beam_gaps(clog, t["beam"])
+    differs = []
+    for row in range(ci.shape[0]):
+        if torch.equal(gi[row], ci[row]):
+            continue
+        rows = slice(row * t["beam"], (row + 1) * t["beam"])
+        step = next(k for k, (g, c) in enumerate(zip(glog, clog))
+                    if not (torch.equal(g["sel"][rows].cpu(), c["sel"][rows])
+                            and torch.equal(g["parent"][rows].cpu(),
+                                            c["parent"][rows])))
+        differs.append((row, step, gaps[step][row]))
+        log(f"  beam search: sentence {row} diverges at step {step + 1}, "
+            f"where the CPU's gap between beam {t['beam']} and the next "
+            f"candidate is {gaps[step][row]:.2e}")
+    score_err = float((gs - cs).abs().max())
+    log(f"  beam search (beam {t['beam']}, {ci.shape[1]} steps, "
+        f"{ci.shape[0]} sentences): ids card vs CPU "
+        f"{'identical' if not differs else f'{len(differs)} differ'}; "
+        f"final scores max|diff| {score_err:.2e}; the CPU's least gap "
+        f"{min(min(g) for g in gaps):.2e}")
+    bad = [d for d in differs if d[2] >= BOOK_NEAR_TIE]
+    if bad:
+        fail(f"beam search: sentences diverge card vs CPU away from a near "
+             f"tie: {bad}")
+    if not differs and score_err > BOOK_LOSS_TOL * float(cs.abs().max()):
+        fail(f"beam search: final scores differ by {score_err}")
+    return out
+
+
+def book_timed(label, model, batches, lr):
+    """1 warm-up, BOOK["iters"] timed (every count set to 0 just before,
+    read just after) and BOOK["profiled"] profiled eager Adam steps."""
+    opt = book_adam(model, lr)
+
+    def step():
+        loss = model.loss(*next(batches))
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss.detach()
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses = [step() for _ in range(BOOK["warmup"])]
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    losses += [step() for _ in range(BOOK["iters"])]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    p_wall, busy, top, kernels = profile_steps(step, BOOK["profiled"])
+    losses = [float(x) for x in losses]
+    log(f"  {label}: losses {losses[0]:.4f} -> {losses[-1]:.4f}")
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"{label}: loss not finite: {losses}")
+    if any(launches.values()):
+        fail(f"{label} launched a kernel of the port: {launches}")
+    return dict(wall=wall, iters=BOOK["iters"], peak=peak, p_wall=p_wall,
+                busy=busy, top=top, kernels=kernels / BOOK["profiled"])
+
+
+def phase_book_run():
+    """(b): both models alone on the card at the chapters' sizes, and the
+    translation model's beam search over BOOK decode sentences."""
+    rng = np.random.default_rng(20)
+    s, t = SENTIMENT, TRANSLATION
+    n = BOOK["warmup"] + BOOK["iters"] + BOOK["profiled"]
+    out = {}
+    model = book_build("sentiment").to("cuda")
+    batches = iter([[torch.from_numpy(a).cuda() for a in sentiment_batch(
+        rng, s["batch"], s["seq"], s["vocab"], s["min_len"])]
+        for _ in range(n)])
+    out["sentiment"] = book_timed(
+        f"sentiment LSTM (B {s['batch']}, T {s['seq']}, 3 x {s['hidden']})",
+        model, batches, s["lr"])
+    out["sentiment"]["samples"] = s["batch"]
+    del model, batches
+    model = book_build("translation").to("cuda")
+    batches = iter([[torch.from_numpy(a).cuda() for a in translation_batch(
+        rng, t["batch"], t["seq"], t["vocab"])] for _ in range(n)])
+    out["translation"] = book_timed(
+        f"translation GRU (B {t['batch']}, T {t['seq']}, V {t['vocab']})",
+        model, batches, t["lr"])
+    out["translation"]["tokens"] = t["batch"] * t["seq"]
+    src, src_len, _ = (torch.from_numpy(a).cuda() for a in translation_batch(
+        rng, t["decode_batch"], t["seq"], t["vocab"]))
+
+    def decode():
+        with torch.no_grad():
+            return model.beam_decode(src, src_len, t["beam"],
+                                     t["decode_steps"])
+
+    decode()
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    ids, scores, lens = decode()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if any(read_launches().values()):
+        fail("the beam decode launched a kernel of the port")
+    if not torch.isfinite(scores).all() or ids.shape[0] != t["decode_batch"]:
+        fail(f"beam decode: ids {tuple(ids.shape)}, scores finite "
+             f"{bool(torch.isfinite(scores).all())}")
+    p_wall, busy, top, kernels = profile_steps(decode, 1)
+    out["decode"] = dict(wall=wall, steps=ids.shape[1], p_wall=p_wall,
+                         busy=busy, top=top, kernels=kernels)
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def book_numbers(card, run):
+    """(b)'s numbers: ms a step and samples/s or target tokens/s, the
+    decode's ms a step and sentences/s, each with its idle share, kernels
+    a step and peak memory."""
+    t = TRANSLATION
+    for key, what in (("sentiment", "sentiment LSTM"),
+                      ("translation", "translation GRU")):
+        r = run[key]
+        ms = r["wall"] / r["iters"] * 1e3
+        rate = (f"{r['samples'] / ms * 1e3:.1f} samples/s" if "samples" in r
+                else f"{r['tokens'] / ms * 1e3:.1f} target tokens/s")
+        log(f"  [{card}] {what}: {ms:.2f} ms per step over {r['iters']} "
+            f"steps, {rate}; peak memory {r['peak'] / 2**30:.2f} GiB; "
+            f"{r['kernels']:.0f} kernels a step")
+        book_idle(card, what, r)
+    d = run["decode"]
+    log(f"  [{card}] beam decode (beam {t['beam']}, "
+        f"{t['decode_batch']} sentences, {d['steps']} steps): "
+        f"{d['wall'] / d['steps'] * 1e3:.2f} ms a step, "
+        f"{t['decode_batch'] / d['wall']:.1f} sentences/s; "
+        f"{d['kernels'] / d['steps']:.0f} kernels a step")
+    book_idle(card, "beam decode", d)
+
+
+def book_idle(card, what, r):
+    if r["busy"] > 0:
+        log(f"  [{card}] {what} under torch.profiler: wall "
+            f"{r['p_wall']:.3f} s, kernels busy {r['busy']:.3f} s, idle "
+            f"share {1 - r['busy'] / r['p_wall']:.1%}")
+        for key, (us, count) in r["top"][:5]:
+            log(f"    {us / 1e3:9.2f} ms  {count:6d} calls  {key[:90]}")
+    else:
+        log(f"  [{card}] {what}: torch.profiler recorded no device time: "
+            f"device idle share not measured")
 
 
 def main():
@@ -6175,6 +6658,22 @@ def main():
     dygraph_out = phase_dygraph_run()
     dygraph_numbers(card, dygraph_out)
     bf16_numbers = flash_numbers(fa, card, torch.bfloat16)
+
+    phase("phase 19: recurrent nets and beam-search decoding (the book's "
+          "sentiment LSTM and GRU translation model, eager Adam; "
+          "BeamSearchDecoder + dynamic_decode)")
+    reset_launches()
+    log("  (a) held checks at full width, batch and length cut, card vs "
+        "CPU")
+    phase_book_held()
+    if any(read_launches().values()):
+        fail(f"the held checks launched a kernel of the port: "
+             f"{read_launches()}")
+    log("  (b) the chapters' sizes on the card")
+    book = phase_book_run()
+    book_numbers(card, book)
+    log(f"  phase 19 launched none of the six kernels of the port: "
+        f"{read_launches()}")
     phase(None)
     log(f"  whole run {time.perf_counter() - t_start:.1f} s wall")
     launches = {"ragged_paged_attention": gpu["launches"],

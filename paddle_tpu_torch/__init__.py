@@ -24,7 +24,12 @@ experts) axes, one process running each data shard's ranks in lockstep
 eager step) and through the high-level surface: ``io.DataLoader`` over
 datasets and samplers, ``hapi.Model`` with ``metric`` and
 ``callbacks``, ``summary``, ``flops``, and ``save``/``load`` in the
-JAX package's checkpoint format.
+JAX package's checkpoint format; and trains and decodes the recurrent
+nets (``nn.LSTM``, ``nn.GRU``, ``nn.SimpleRNN``, their cells, ``nn.RNN``,
+``nn.BiRNN``, ``nn.BeamSearchDecoder`` with ``nn.dynamic_decode``) over
+the op library (``ops``: creation, math, manipulation, activations,
+losses, beam search; ``tensor``; the creation, math and manipulation
+functions and ``to_tensor`` at the top level, as ``paddle.*``).
 It imports torch and numpy, never jax and never paddle_tpu.  Entry
 points run on the card unless the caller asks for the CPU
 (``device="cpu"``), where every kernel call takes the kernel's plain
@@ -33,17 +38,27 @@ PyTorch version.
 # serving first: its fleet tier imports the generation engine, which
 # imports serving.admission back
 from . import serving  # noqa: I001
+import torch
 from . import amp, callbacks, distributed, generation, hapi, io, metric, \
     models, nn, ops, optimizer, parallel, profiler, regularizer, static, \
     vision
+from . import tensor
 from .framework import load, save
+from .ops import creation as _creation
+from .ops import manipulation as _manipulation
+from .ops import math as _math
+from .ops.creation import *  # noqa: F401,F403
+from .ops.manipulation import *  # noqa: F401,F403
+from .ops.math import *  # noqa: F401,F403
 from .generation import (GenerationConfig, GenerationEngine,
                          SamplingParams, TinyCausalLM)
 from .hapi import Model, flops, summary
 
-__all__ = ["GenerationConfig", "GenerationEngine", "Model",
-           "SamplingParams", "TinyCausalLM", "amp", "callbacks",
-           "distributed", "flops", "generation", "hapi", "io", "load",
-           "metric", "models", "nn", "ops", "optimizer", "parallel",
-           "profiler", "regularizer", "save", "serving", "static",
-           "summary", "vision"]
+Tensor = torch.Tensor
+
+__all__ = _creation.__all__ + _manipulation.__all__ + _math.__all__ + [
+    "GenerationConfig", "GenerationEngine", "Model", "SamplingParams",
+    "Tensor", "TinyCausalLM", "amp", "callbacks", "distributed", "flops",
+    "generation", "hapi", "io", "load", "metric", "models", "nn", "ops",
+    "optimizer", "parallel", "profiler", "regularizer", "save", "serving",
+    "static", "summary", "tensor", "vision"]

@@ -1,12 +1,34 @@
-"""The functional ops GPT, BERT and ERNIE need, with the JAX package's
-semantics (``paddle_tpu/ops/nn_ops.py``, ``ops/loss.py``).  Mixed dtypes
-promote as JAX promotes them: a bfloat16 operand meeting a float32 one
-computes in float32.  Under dygraph AMP (``amp.auto_cast``) `linear`,
-`matmul` and `conv2d` first cast their float32 tensors as the JAX ops
-``linear``/``linear_nobias``, ``matmul_v2`` and ``conv2d`` are cast."""
+"""The functional namespace (``paddle_tpu/nn/functional.py``): the
+activation, softmax and dropout functions of ``ops.nn_ops``, the losses
+of ``ops.loss``, ``ops.nn_extra``'s `gather_tree`, `celu` and
+`pairwise_distance`, `label_smooth`, `diag_embed`, `sequence_mask` and
+the in-place aliases; and the layers' own functions (`linear`,
+`layer_norm`, `embedding`, `conv2d`, the pools, `batch_norm`).  Mixed
+dtypes promote as JAX promotes them: a bfloat16 operand meeting a
+float32 one computes in float32.  Under dygraph AMP (``amp.auto_cast``)
+`linear`, `matmul` and `conv2d` first cast their float32 tensors as the
+JAX ops ``linear``/``linear_nobias``, ``matmul_v2`` and ``conv2d`` are
+cast."""
 import torch
 
 from ..amp.auto_cast import amp_enabled, cast_inputs
+from ..ops.loss import (IGNORE_INDEX, binary_cross_entropy,  # noqa: F401
+                        binary_cross_entropy_with_logits, cosine_similarity,
+                        cross_entropy, hinge_loss, kl_div, l1_loss,
+                        margin_ranking_loss, mse_loss, nll_loss,
+                        sigmoid_focal_loss, smooth_l1_loss,
+                        softmax_with_cross_entropy, square_error_cost)
+from ..ops.manipulation import flatten, one_hot, pad  # noqa: F401
+from ..ops.math import matmul, matmul_promoted, tanh  # noqa: F401
+from ..ops.nn_extra import (celu, gather_tree,  # noqa: F401
+                            pairwise_distance)
+from ..ops.nn_ops import (alpha_dropout, dropout, dropout2d,  # noqa: F401
+                          elu, gelu, glu, hardshrink, hardsigmoid,
+                          hardswish, hardtanh, leaky_relu, log_sigmoid,
+                          log_softmax, maxout, mish, normalize, prelu, relu,
+                          relu6, selu, sigmoid, silu, softmax, softplus,
+                          softshrink, softsign, swish, tanhshrink,
+                          thresholded_relu)
 
 
 def linear(x, weight, bias=None):
@@ -22,23 +44,6 @@ def linear(x, weight, bias=None):
     return out if bias is None else out + bias
 
 
-def matmul_promoted(x, y):
-    """``x @ y`` in the promoted dtype of x and y, with no AMP cast."""
-    dt = torch.promote_types(x.dtype, y.dtype)
-    return torch.matmul(x.to(dt), y.to(dt))
-
-
-def matmul(x, y, transpose_x=False, transpose_y=False):
-    """``x @ y`` with either operand's last two axes swapped first, in
-    their promoted dtype (the JAX ``matmul_v2`` op, cast under AMP)."""
-    x, y = cast_inputs("matmul_v2", x, y)
-    if transpose_x and x.dim() > 1:
-        x = x.transpose(-1, -2)
-    if transpose_y and y.dim() > 1:
-        y = y.transpose(-1, -2)
-    return matmul_promoted(x, y)
-
-
 def layer_norm(x, weight, bias, epsilon=1e-5):
     """Normalise over the last axis: mean, centred variance,
     ``(x - mean) * rsqrt(var + epsilon)``, then weight and bias (which
@@ -48,113 +53,9 @@ def layer_norm(x, weight, bias, epsilon=1e-5):
     return (x - mean) * torch.rsqrt(var + epsilon) * weight + bias
 
 
-def gelu(x):
-    """Exact GELU, ``0.5 x (1 + erf(x / sqrt 2))`` (approximate=False)."""
-    return torch.nn.functional.gelu(x)
-
-
-def relu(x):
-    return torch.relu(x)
-
-
-def tanh(x):
-    return torch.tanh(x)
-
-
-def dropout(x, p, training=True, generator=None):
-    """``upscale_in_train`` dropout: keep with probability 1 - p and
-    divide by it; identity when not training or p == 0.  The keep mask
-    draws from `generator`, which it then requires."""
-    if not training or p == 0.0:
-        return x
-    if p == 1.0:
-        return torch.zeros_like(x)
-    if generator is None:
-        raise ValueError("dropout draws from an explicit torch.Generator: "
-                         "pass generator=")
-    keep = torch.rand(x.shape, generator=generator, device=x.device) \
-        < 1.0 - p
-    return torch.where(keep, x / (1.0 - p), torch.zeros_like(x))
-
-
 def embedding(ids, weight):
     """Rows of `weight` [num, dim] at integer `ids`."""
     return torch.nn.functional.embedding(ids.long(), weight)
-
-
-IGNORE_INDEX = -100
-
-
-def softmax_with_cross_entropy(logits, label):
-    """Per-position ``-log_softmax(logits)[label]`` with a trailing 1
-    ([..., 1]); a label [..., 1] is squeezed first; IGNORE_INDEX
-    positions give 0 (their label is clamped before the gather)."""
-    logp = torch.log_softmax(logits, dim=-1)
-    li = label
-    if li.dim() == logits.dim() and li.shape[-1] == 1:
-        li = li.squeeze(-1)
-    li = li.long()
-    safe = li.clamp(0, logits.shape[-1] - 1)
-    picked = logp.gather(-1, safe.unsqueeze(-1))
-    return torch.where((li == IGNORE_INDEX).unsqueeze(-1),
-                       torch.zeros_like(picked), -picked)
-
-
-def _reduce_loss(out, reduction):
-    if reduction == "mean":
-        return out.mean()
-    if reduction == "sum":
-        return out.sum()
-    return out
-
-
-def cross_entropy(input, label, weight=None, ignore_index=IGNORE_INDEX,
-                  reduction="mean", soft_label=False, axis=-1,
-                  use_softmax=True):
-    """``ops/loss.py::cross_entropy``: ``-log_softmax(input)`` at the
-    label along `axis` (``log(max(input, 1e-30))`` without
-    `use_softmax`), times the label's class `weight`, 0 at
-    `ignore_index`; a `soft_label` is a distribution, ``-sum(label *
-    logp)``.  The hard-label mean divides the sum by the summed weights
-    of the labels not ignored (their count without `weight`), at least
-    1e-12; otherwise `reduction` is "mean", "sum" or "none"."""
-    logp = (torch.log_softmax(input, dim=axis) if use_softmax
-            else torch.log(torch.clamp(input, min=1e-30)))
-    if soft_label:
-        return _reduce_loss(-(label * logp).sum(dim=axis), reduction)
-    li = label
-    if li.dim() == input.dim() and li.shape[axis] == 1:
-        li = li.squeeze(axis)
-    safe = li.long().clamp(0, input.shape[axis] - 1)
-    loss = -logp.gather(axis, safe.unsqueeze(axis)).squeeze(axis)
-    if weight is not None:
-        loss = loss * weight[safe]
-    loss = torch.where(li == ignore_index, torch.zeros_like(loss), loss)
-    if reduction != "mean":
-        return _reduce_loss(loss, reduction)
-    if weight is not None:
-        w_safe = label.long().clamp(0, weight.shape[0] - 1)
-        denom = torch.where(label == ignore_index,
-                            torch.zeros((), dtype=weight.dtype,
-                                        device=weight.device),
-                            weight[w_safe]).sum()
-    else:
-        denom = (label != ignore_index).sum().to(loss.dtype)
-    return loss.sum() / torch.clamp(denom, min=1e-12)
-
-
-def mse_loss(input, label, reduction="mean"):
-    """``(input - label)²``, reduced by `reduction`."""
-    return _reduce_loss((input - label).square(), reduction)
-
-
-def relu6(x):
-    """``clip(x, 0, 6)``."""
-    return torch.clamp(x, 0.0, 6.0)
-
-
-def flatten(x, start_axis=0, stop_axis=-1):
-    return torch.flatten(x, start_axis, stop_axis)
 
 
 def _pair(v, what):
@@ -295,3 +196,51 @@ def batch_norm(x, running_mean, running_var, weight=None, bias=None,
     if bias is not None:
         out = out + bias.reshape(shape)
     return out
+
+
+def label_smooth(label, prior_dist=None, epsilon=0.1, name=None):
+    """``label (1 - epsilon)`` plus ``epsilon / classes``, or
+    ``epsilon prior_dist``."""
+    smoothed = label * (1.0 - epsilon)
+    if prior_dist is None:
+        return smoothed + epsilon / label.shape[-1]
+    return smoothed + prior_dist * epsilon
+
+
+def diag_embed(input, offset=0, dim1=-2, dim2=-1):
+    """Each last-axis vector on the diagonal at `offset` of an [n, n +
+    |offset|] matrix (its transpose below the diagonal), as the JAX
+    function builds it; `dim1` and `dim2` are unused there too."""
+    n = input.shape[-1]
+    eye = torch.eye(n, n + abs(offset), dtype=input.dtype,
+                    device=input.device).roll(max(offset, 0), dims=1)
+    if offset >= 0:
+        return torch.einsum("...i,ij->...ij", input, eye)
+    return torch.einsum("...i,ij->...ji", input, eye)
+
+
+def sequence_mask(lengths, maxlen=None, dtype="int64"):
+    """``[..., maxlen]``: 1 before each length, 0 after; `maxlen` defaults
+    to the largest length (a host read)."""
+    from ..dtype import convert_dtype
+
+    m = int(maxlen) if maxlen is not None else int(lengths.max())
+    mask = torch.arange(m, device=lengths.device) < lengths[..., None]
+    return mask.to(convert_dtype(dtype))
+
+
+def _inplace_alias(fn):
+    """``fn`` applied in place: the result written into the input, whose
+    autograd history then runs through ``fn`` (a leaf that requires
+    grad refuses, as in the JAX package)."""
+    def method(x, *args, **kwargs):
+        return x.copy_(fn(x.clone(), *args, **kwargs))
+
+    method.__name__ = fn.__name__ + "_"
+    return method
+
+
+relu_ = _inplace_alias(relu)
+elu_ = _inplace_alias(elu)
+softmax_ = _inplace_alias(softmax)
+tanh_ = _inplace_alias(tanh)

@@ -1,5 +1,6 @@
-"""Loss layers (``paddle_tpu/nn/layers/loss.py``): `CrossEntropyLoss`
-and `MSELoss` over the functional losses."""
+"""Loss layers (``paddle_tpu/nn/layers/loss.py``) over the functional
+losses.  `CTCLoss` and `HSigmoidLoss` wait for ``ops/nn_extra.py``'s
+``ctc_loss`` and ``hsigmoid_loss``."""
 from torch import nn
 
 from .. import functional as F
@@ -30,3 +31,88 @@ class MSELoss(nn.Module):
 
     def forward(self, input, label):
         return F.mse_loss(input, label, reduction=self.reduction)
+
+
+class L1Loss(nn.Module):
+    def __init__(self, reduction="mean", name=None):
+        super().__init__()
+        self.reduction = reduction
+
+    def forward(self, input, label):
+        return F.l1_loss(input, label, reduction=self.reduction)
+
+
+class SmoothL1Loss(nn.Module):
+    def __init__(self, reduction="mean", delta=1.0, name=None):
+        super().__init__()
+        self.reduction, self.delta = reduction, delta
+
+    def forward(self, input, label):
+        return F.smooth_l1_loss(input, label, reduction=self.reduction,
+                                delta=self.delta)
+
+
+class BCELoss(nn.Module):
+    def __init__(self, weight=None, reduction="mean", name=None):
+        super().__init__()
+        self.weight, self.reduction = weight, reduction
+
+    def forward(self, input, label):
+        return F.binary_cross_entropy(input, label, weight=self.weight,
+                                      reduction=self.reduction)
+
+
+class BCEWithLogitsLoss(nn.Module):
+    def __init__(self, weight=None, reduction="mean", pos_weight=None,
+                 name=None):
+        super().__init__()
+        self.weight, self.reduction = weight, reduction
+        self.pos_weight = pos_weight
+
+    def forward(self, logit, label):
+        return F.binary_cross_entropy_with_logits(
+            logit, label, weight=self.weight, reduction=self.reduction,
+            pos_weight=self.pos_weight)
+
+
+class NLLLoss(nn.Module):
+    def __init__(self, weight=None, ignore_index=-100, reduction="mean",
+                 name=None):
+        super().__init__()
+        self.weight, self.ignore_index = weight, ignore_index
+        self.reduction = reduction
+
+    def forward(self, input, label):
+        return F.nll_loss(input, label, weight=self.weight,
+                          ignore_index=self.ignore_index,
+                          reduction=self.reduction)
+
+
+class KLDivLoss(nn.Module):
+    def __init__(self, reduction="mean"):
+        super().__init__()
+        self.reduction = reduction
+
+    def forward(self, input, label):
+        return F.kl_div(input, label, reduction=self.reduction)
+
+
+class MarginRankingLoss(nn.Module):
+    def __init__(self, margin=0.0, reduction="mean", name=None):
+        super().__init__()
+        self.margin, self.reduction = margin, reduction
+
+    def forward(self, input, other, label):
+        return F.margin_ranking_loss(input, other, label,
+                                     margin=self.margin,
+                                     reduction=self.reduction)
+
+
+class PairwiseDistance(nn.Module):
+    def __init__(self, p=2.0, epsilon=1e-6, keepdim=False, name=None):
+        super().__init__()
+        self.p, self.epsilon, self.keepdim = p, epsilon, keepdim
+
+    def forward(self, x, y):
+        return F.pairwise_distance(x, y, p=self.p, epsilon=self.epsilon,
+                                   keepdim=self.keepdim)

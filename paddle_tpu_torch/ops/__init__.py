@@ -1,5 +1,15 @@
-"""Hand-written CUDA kernels of the port, each beside its wrapper and
-its plain PyTorch version."""
+"""The op library (``paddle_tpu/ops``: creation, math, manipulation, the
+activation and dropout functions, losses, beam search) and the port's
+hand-written CUDA kernels, each beside its wrapper and its plain
+PyTorch version."""
+from . import creation, loss, manipulation, math, nn_extra, nn_ops, \
+    sequence_ops
+from .creation import *  # noqa: F401,F403
+from .loss import *  # noqa: F401,F403
+from .manipulation import *  # noqa: F401,F403
+from .math import *  # noqa: F401,F403
+from .nn_ops import *  # noqa: F401,F403
+from .sequence_ops import *  # noqa: F401,F403
 from .flash_attention import (flash_attention_bwd_dkdv_kernel,
                               flash_attention_bwd_dkdv_torch,
                               flash_attention_bwd_dq_kernel,
@@ -14,10 +24,12 @@ from .paged_attention import (RAGGED_Q_BLOCK, chunk_prefill_attention_kernel,
                               ragged_paged_attention_torch,
                               ragged_score_blocks)
 
-__all__ = ["RAGGED_Q_BLOCK", "flash_attention_bwd_dkdv_kernel",
-           "flash_attention_bwd_dkdv_torch", "flash_attention_bwd_dq_kernel",
-           "flash_attention_bwd_dq_torch", "flash_attention_fwd_kernel",
-           "flash_attention_fwd_torch", "chunk_prefill_attention_kernel",
-           "chunk_prefill_attention_torch", "paged_decode_attention_kernel",
-           "paged_decode_attention_torch", "ragged_paged_attention_kernel",
-           "ragged_paged_attention_torch", "ragged_score_blocks"]
+__all__ = creation.__all__ + loss.__all__ + manipulation.__all__ \
+    + math.__all__ + nn_ops.__all__ + sequence_ops.__all__ + [
+        "RAGGED_Q_BLOCK", "chunk_prefill_attention_kernel",
+        "chunk_prefill_attention_torch", "flash_attention_bwd_dkdv_kernel",
+        "flash_attention_bwd_dkdv_torch", "flash_attention_bwd_dq_kernel",
+        "flash_attention_bwd_dq_torch", "flash_attention_fwd_kernel",
+        "flash_attention_fwd_torch", "paged_decode_attention_kernel",
+        "paged_decode_attention_torch", "ragged_paged_attention_kernel",
+        "ragged_paged_attention_torch", "ragged_score_blocks"]

@@ -60,7 +60,12 @@ def test_import_pulls_in_neither_jax_nor_paddle_tpu():
         "io.dataset", "io.sampler", "io.dataloader", "metric",
         "hapi.model", "hapi.callbacks", "hapi.model_summary",
         "hapi.dynamic_flops", "callbacks", "framework",
-        "nn.layers.loss")} <= walked
+        "nn.layers.loss", "dtype", "ops.creation", "ops.manipulation",
+        "ops.math", "ops.nn_ops", "ops.loss", "ops.nn_extra",
+        "ops.sequence_ops", "nn.layers.activation", "nn.layers.rnn",
+        "nn.layers.decode", "tensor", "tensor.creation", "tensor.logic",
+        "tensor.manipulation", "tensor.math", "tensor.random",
+        "tensor.search", "tensor.stat")} <= walked
 
 
 def test_replica_worker_imports_neither_jax_nor_paddle_tpu():
