@@ -29,7 +29,13 @@ nets (``nn.LSTM``, ``nn.GRU``, ``nn.SimpleRNN``, their cells, ``nn.RNN``,
 ``nn.BiRNN``, ``nn.BeamSearchDecoder`` with ``nn.dynamic_decode``) over
 the op library (``ops``: creation, math, manipulation, activations,
 losses, beam search; ``tensor``; the creation, math and manipulation
-functions and ``to_tensor`` at the top level, as ``paddle.*``).
+functions and ``to_tensor`` at the top level, as ``paddle.*``); and
+runs the rest of the Paddle book: ``cos_sim``, ``linear_chain_crf``,
+``crf_decoding`` and ``nce`` at the top level, ``seed``, ``no_grad``,
+``enable_static`` and the mode-aware ``create_parameter``; the static
+graph's sub-blocks (``static.nn.cond``, ``while_loop``, ``switch_case``,
+``case``, ``static.StaticRNN``), static dropout and the inference
+clone (``Program.clone(for_test=True)``).
 It imports torch and numpy, never jax and never paddle_tpu.  Entry
 points run on the card unless the caller asks for the CPU
 (``device="cpu"``), where every kernel call takes the kernel's plain
@@ -43,22 +49,71 @@ from . import amp, callbacks, distributed, generation, hapi, io, metric, \
     models, nn, ops, optimizer, parallel, profiler, regularizer, static, \
     vision
 from . import tensor
-from .framework import load, save
+from .dtype import convert_dtype as _convert_dtype
+from .framework import get_rng_state, load, save, seed, set_rng_state
 from .ops import creation as _creation
 from .ops import manipulation as _manipulation
 from .ops import math as _math
 from .ops.creation import *  # noqa: F401,F403
 from .ops.manipulation import *  # noqa: F401,F403
 from .ops.math import *  # noqa: F401,F403
+from .ops.loss_extra import cos_sim
+from .ops.sequence_ops import crf_decoding, linear_chain_crf, nce
 from .generation import (GenerationConfig, GenerationEngine,
                          SamplingParams, TinyCausalLM)
 from .hapi import Model, flops, summary
 
 Tensor = torch.Tensor
+no_grad = torch.no_grad
+
+
+def enable_static():
+    static.program._dygraph_mode = False
+
+
+def disable_static():
+    static.program._dygraph_mode = True
+
+
+def in_dynamic_mode():
+    return static.program._dygraph_mode
+
+
+def create_parameter(shape, dtype="float32", name=None, attr=None,
+                     is_bias=False, default_initializer=None, device=None,
+                     generator=None, **kw):
+    """A parameter of `shape`: in dygraph an eager one (``nn.layer.
+    create_parameter``: a random initializer draws from `generator` on
+    the CPU, then the parameter moves to `device`, where None means the
+    card and raises without one), under `enable_static` a static one in
+    the default programs (``static.create_parameter``)."""
+    if in_dynamic_mode():
+        if kw:
+            raise TypeError(f"create_parameter: unsupported kwargs in "
+                            f"dygraph mode: {sorted(kw)}")
+        from .device import resolve_device
+        from .nn.layer import create_parameter as eager_parameter
+
+        p = eager_parameter(list(shape), attr, is_bias, default_initializer,
+                            generator=generator,
+                            dtype=_convert_dtype(dtype))
+        if p is not None:
+            p.data = p.data.to(resolve_device(device, "create_parameter"))
+            if name:
+                p.name = name
+        return p
+    return static.create_parameter(shape, dtype=dtype, name=name, attr=attr,
+                                   is_bias=is_bias,
+                                   default_initializer=default_initializer,
+                                   **kw)
+
 
 __all__ = _creation.__all__ + _manipulation.__all__ + _math.__all__ + [
     "GenerationConfig", "GenerationEngine", "Model", "SamplingParams",
-    "Tensor", "TinyCausalLM", "amp", "callbacks", "distributed", "flops",
-    "generation", "hapi", "io", "load", "metric", "models", "nn", "ops",
-    "optimizer", "parallel", "profiler", "regularizer", "save", "serving",
+    "Tensor", "TinyCausalLM", "amp", "callbacks", "cos_sim",
+    "create_parameter", "crf_decoding", "disable_static", "distributed",
+    "enable_static", "flops", "generation", "get_rng_state", "hapi",
+    "in_dynamic_mode", "io", "linear_chain_crf", "load", "metric",
+    "models", "nce", "nn", "no_grad", "ops", "optimizer", "parallel",
+    "profiler", "regularizer", "save", "seed", "serving", "set_rng_state",
     "static", "summary", "tensor", "vision"]

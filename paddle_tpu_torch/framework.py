@@ -68,3 +68,27 @@ def load(path, device=None, **configs):
     with open(path, "rb") as f:
         obj = pickle.load(f)
     return _from_saved(obj, dev)
+
+
+def seed(value):
+    """Seed the port's default generators, torch's CPU generator and each
+    card's (``torch.manual_seed``): what draws with no ``generator=``
+    (layers' weights, `nce`'s negatives with seed 0, static dropout's
+    base) then repeats.  Returns the CPU generator."""
+    return torch.manual_seed(int(value))
+
+
+def get_rng_state():
+    """The default generators' states: the CPU's, then each card's where
+    CUDA is initialized."""
+    states = [torch.get_rng_state()]
+    if torch.cuda.is_available() and torch.cuda.is_initialized():
+        states += torch.cuda.get_rng_state_all()
+    return states
+
+
+def set_rng_state(states):
+    """Restore what `get_rng_state` returned."""
+    torch.set_rng_state(states[0])
+    if len(states) > 1:
+        torch.cuda.set_rng_state_all(states[1:])

@@ -53,9 +53,15 @@ def layer_norm(x, weight, bias, epsilon=1e-5):
     return (x - mean) * torch.rsqrt(var + epsilon) * weight + bias
 
 
-def embedding(ids, weight):
-    """Rows of `weight` [num, dim] at integer `ids`."""
-    return torch.nn.functional.embedding(ids.long(), weight)
+def embedding(ids, weight, padding_idx=None):
+    """Rows of `weight` [num, dim] at integer `ids`; a lookup of a
+    `padding_idx` >= 0 gives zeros, and so no gradient to that row (a
+    negative one masks nothing, as in the JAX package: the layer counts
+    it from the end first)."""
+    out = torch.nn.functional.embedding(ids.long(), weight)
+    if padding_idx is not None and padding_idx >= 0:
+        out = out * (ids != padding_idx)[..., None].to(out.dtype)
+    return out
 
 
 def _pair(v, what):

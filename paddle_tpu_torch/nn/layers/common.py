@@ -36,8 +36,10 @@ class Linear(nn.Module):
 
 
 class Embedding(nn.Module):
-    """A [num_embeddings, embedding_dim] table, Normal(0, std).  Sparse
-    gradients (``sparse=True``) and ``padding_idx`` raise."""
+    """A [num_embeddings, embedding_dim] table, Normal(0, std).  A
+    `padding_idx` (negative: counted from the end) has its row zeroed
+    here and its lookups masked to zeros, so the row gets no gradient.
+    Sparse gradients (``sparse=True``) raise."""
 
     def __init__(self, num_embeddings, embedding_dim, padding_idx=None,
                  sparse=False, weight_attr=None, *, generator=None,
@@ -47,15 +49,18 @@ class Embedding(nn.Module):
             raise NotImplementedError(
                 "Embedding(sparse=True) is not ported: its gradient is "
                 "dense")
-        if padding_idx is not None:
-            raise NotImplementedError("Embedding(padding_idx=...) is not "
-                                      "ported")
+        self._padding_idx = (None if padding_idx is None
+                             else padding_idx if padding_idx >= 0
+                             else num_embeddings + padding_idx)
         self.weight = create_parameter(
             [num_embeddings, embedding_dim], weight_attr,
             default_initializer=Normal(0.0, std), generator=generator)
+        if self._padding_idx is not None:
+            with torch.no_grad():
+                self.weight[self._padding_idx] = 0.0
 
     def forward(self, ids):
-        return F.embedding(ids, self.weight)
+        return F.embedding(ids, self.weight, padding_idx=self._padding_idx)
 
 
 class Dropout(nn.Module):

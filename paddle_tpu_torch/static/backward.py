@@ -18,7 +18,10 @@ keeps that op-local graph; the grad op (``fn(saved, *out_grads)``, its
 ``forward_op`` the forward op's index) casts each cotangent to its
 forward output's dtype and differentiates the saved graph
 (`grad_from_saved`).  A missing cotangent counts as zero, as in the JAX
-package.
+package.  A bool or integer var (a comparison's output) carries no
+gradient.  An op with a ``grad_error`` (a ``while`` op: ``jax.vjp`` of
+``lax.while_loop`` raises) gets a grad op that raises that ValueError
+when it runs, where the JAX executor raises.
 """
 import torch
 
@@ -100,7 +103,11 @@ def append_backward(loss, parameter_list=None, no_grad_set=None,
         ins = getattr(op, "in_order", op.input_names())
         if any(n in requires for n in ins):
             for n in getattr(op, "out_order", op.output_names()):
-                requires.add(n)
+                v = block.vars.get(n)
+                # a bool or integer output (a comparison's) carries no
+                # gradient
+                if v is None or v.dtype.is_floating_point:
+                    requires.add(n)
 
     if loss.name not in requires:
         raise RuntimeError("loss does not depend on any trainable parameter")
@@ -154,13 +161,19 @@ def append_backward(loss, parameter_list=None, no_grad_set=None,
             new_grad_outs.append((src, gname))
 
         avail_mask = [g is not None for g in out_grads_avail]
+        grad_error = getattr(op, "grad_error", None)
+        if grad_error is not None:
+            def grad_fn(saved, *ogs, _msg=grad_error):
+                raise ValueError(_msg)
+        else:
+            def grad_fn(saved, *ogs, _m=avail_mask):
+                return grad_from_saved(saved, _m, ogs)
         gop = block.append_op(
             f"{op.type}_grad",
             {"X": list(in_names), "Out@GRAD": [g for g in out_grads_avail
                                                if g]},
             {"X@GRAD": [g for _, g in new_grad_outs]},
-            {}, fn=lambda saved, *ogs, _m=avail_mask: grad_from_saved(
-                saved, _m, ogs),
+            {}, fn=grad_fn,
         )
         gop.in_order = list(in_names) + [g for g in out_grads_avail if g]
         gop.out_order = [g for _, g in new_grad_outs]

@@ -19,10 +19,16 @@ operand of rank >= 2 as bfloat16 (1-D floats stay float32: batch-norm
 scale, bias and stats, biases); an op in `_AMP_F32_OPS` gets bfloat16
 operands as float32.  Parameters stay float32 in the scope.
 
+A sub-block (control flow, a StaticRNN step) runs inside its parent
+op's fn (``controlflow.py``).  An inference clone
+(``Program.clone(for_test=True)``) holds no grad or update op, so it
+runs the forward alone.
+
 Not ported, each raising NotImplementedError: a program with
 ``_mesh_axes`` (GSPMD), a multi-stage ``_pipeline_opt``,
 ``FLAGS_check_nan_inf`` (read from the environment, as the JAX package
-reads its flags), ``train_from_dataset`` and ``infer_from_dataset``.
+reads its flags), static AMP over a program with sub-blocks (their ops
+would run uncast), ``train_from_dataset`` and ``infer_from_dataset``.
 """
 import os
 
@@ -312,6 +318,10 @@ def _refuse_unported(program):
     if os.environ.get("FLAGS_check_nan_inf", "").lower() in ("1", "true",
                                                              "yes"):
         unported.append("FLAGS_check_nan_inf")
+    if getattr(program, "_amp_bf16", False) and len(program.blocks) > 1:
+        # the ops a sub-block runs would go uncast: never silently
+        unported.append("static AMP over a program with sub-blocks "
+                        "(control flow, StaticRNN)")
     if unported:
         raise NotImplementedError(
             "not supported by the PyTorch port yet: " + ", ".join(unported)

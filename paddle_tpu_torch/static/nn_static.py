@@ -6,16 +6,33 @@ Each emitted Operator keeps the JAX package's ``type``, ``in_order`` and
 carries `fn`, the op's function of tensors.  The ported ops are those of
 ResNet-50's training program (conv2d, batch_norm with its fused act,
 pool2d, relu, the elementwise ops, flatten, fc, softmax_with_cross_entropy
-and mean); dropout, control flow and the rest of the JAX file are not
-ported yet.
+and mean) and of the Paddle book's static programs: dropout, reshape,
+embedding, matmul, the tanh, sigmoid and softmax activations, transpose,
+reduce_sum, cross_entropy, accuracy, the comparisons, concat, layer_norm,
+nce and crf_decoding.  Control flow is ``controlflow.py``, StaticRNN and
+the utility ops ``extras.py``; the rest of the JAX file is not ported
+yet.
+
+Dropout draws its mask from a counter-based hash of the op's base seed,
+its persistable step counter and each element's index
+(``generation.sampling.hash_uniform_device``): the executor advances the
+counter once a run, so every run draws a fresh mask, the grad op
+differentiates the forward's own, and the card and the CPU draw the same
+mask for one seed.
 """
+import zlib
+
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..generation.sampling import (_GOLDEN, _MASK32, _mix32_device,
+                                   _mulmod32, hash_uniform_device)
 from ..nn.functional import batch_stats
+from ..ops import sequence_ops as S
 from .param_helper import create_parameter
-from .program import default_main_program, Variable
+from .program import (_identity, convert_dtype, default_main_program,
+                      Variable)
 
 
 def _cur_block():
@@ -89,6 +106,43 @@ _ELEMENTWISE = {
     "elementwise_div": lambda a, b: a / b,
 }
 
+_COMPARE = {
+    "less_than": lambda a, b: a < b,
+    "less_equal": lambda a, b: a <= b,
+    "greater_than": lambda a, b: a > b,
+    "greater_equal": lambda a, b: a >= b,
+    "equal": lambda a, b: a == b,
+    "not_equal": lambda a, b: a != b,
+}
+
+
+def _compare_emit(op_type, x, y):
+    """A comparison op: a bool output, against a var or a python
+    scalar."""
+    fn = _COMPARE[op_type]
+    if not isinstance(y, Variable):
+        c = float(y)
+        return emit(op_type, [("X", x)], [("Out", x.shape, "bool")],
+                    lambda a: fn(a, c), attrs={"scalar": c})
+    shape = _infer_eltwise_shape(x, y)
+    return emit(op_type, [("X", x), ("Y", y)], [("Out", shape, "bool")], fn)
+
+
+def less_than(x, y):
+    return _compare_emit("less_than", x, y)
+
+
+def greater_than(x, y):
+    return _compare_emit("greater_than", x, y)
+
+
+def equal(x, y):
+    return _compare_emit("equal", x, y)
+
+
+def not_equal(x, y):
+    return _compare_emit("not_equal", x, y)
+
 
 def _elementwise_emit(op_type, x, y, reverse=False):
     fn = _ELEMENTWISE[op_type]
@@ -135,18 +189,116 @@ def fc(x, size, weight_attr=None, bias_attr=None, activation=None,
         b = create_parameter([size], x.dtype, attr=bias_attr, is_bias=True)
         ins.append(("Bias", b))
     out = emit("fc", ins, [("Out", [x.shape[0], size], x.dtype)], fn)
-    if activation:
-        out = _maybe_act(out, activation)
-    return out
+    return _maybe_act(out, activation)
+
+
+def matmul(x, y, transpose_x=False, transpose_y=False, alpha=1.0,
+           name=None):
+    def fn(a, b):
+        if transpose_x:
+            a = a.transpose(-1, -2)
+        if transpose_y:
+            b = b.transpose(-1, -2)
+        out = torch.matmul(a, b)
+        return out * alpha if alpha != 1.0 else out
+
+    xs, ys = list(x.shape), list(y.shape)
+    if transpose_x:
+        xs[-1], xs[-2] = xs[-2], xs[-1]
+    if transpose_y:
+        ys[-1], ys[-2] = ys[-2], ys[-1]
+    return emit("matmul_v2", [("X", x), ("Y", y)],
+                [("Out", xs[:-1] + [ys[-1]], x.dtype)], fn,
+                attrs={"trans_x": transpose_x, "trans_y": transpose_y,
+                       "alpha": alpha})
+
+
+def _maybe_act(out, act):
+    """`out` through the static emitter of an activation attr string
+    (`fc`'s `activation`, the norms' `act`); no string, `out` itself."""
+    if not act:
+        return out
+    table = {"relu": relu, "tanh": tanh_act, "sigmoid": sigmoid_act,
+             "softmax": softmax}
+    if act not in table:
+        raise ValueError(f"unsupported activation attr {act!r}; "
+                         f"one of {sorted(table)}")
+    return table[act](out)
 
 
 def relu(x, name=None):
     return emit("relu", [("X", x)], [("Out", x.shape, x.dtype)], torch.relu)
 
 
+def tanh_act(x, name=None):
+    return emit("tanh", [("X", x)], [("Out", x.shape, x.dtype)], torch.tanh)
+
+
+def sigmoid_act(x, name=None):
+    return emit("sigmoid", [("X", x)], [("Out", x.shape, x.dtype)],
+                torch.sigmoid)
+
+
+def softmax(x, axis=-1, name=None):
+    return emit("softmax", [("X", x)], [("Out", x.shape, x.dtype)],
+                lambda v: torch.softmax(v, dim=axis), attrs={"axis": axis})
+
+
+def transpose(x, perm, name=None):
+    perm = [int(p) for p in perm]
+    shape = [x.shape[p] for p in perm] if x.shape else x.shape
+    return emit("transpose2", [("X", x)], [("Out", shape, x.dtype)],
+                lambda v: v.permute(perm), attrs={"axis": perm})
+
+
 def mean(x, name=None):
     return emit("reduce_mean", [("X", x)], [("Out", [1], x.dtype)],
                 lambda v: v.mean().reshape(1))
+
+
+def reduce_sum(x, dim=None, keep_dim=False, name=None):
+    axis = tuple(dim) if isinstance(dim, (list, tuple)) else dim
+    shape = [1] if axis is None and not keep_dim else x.shape
+
+    def fn(v):
+        if axis is None:
+            out = v.sum()
+            return out.reshape(shape) if not keep_dim else out.reshape(
+                [1] * v.dim())
+        return v.sum(dim=axis, keepdim=keep_dim)
+
+    return emit("reduce_sum", [("X", x)], [("Out", shape, x.dtype)], fn,
+                attrs={"dim": list(axis) if isinstance(axis, tuple)
+                       else axis, "keep_dim": keep_dim})
+
+
+def cross_entropy(input, label, soft_label=False, ignore_index=-100):
+    """-log of the probabilities `input` (floored at 1e-12) at `label`;
+    `ignore_index` is accepted and never read, as in the JAX package."""
+    def fn(p, lab):
+        logp = torch.log(torch.clamp(p, min=1e-12))
+        if soft_label:
+            return -(lab * logp).sum(dim=-1, keepdim=True)
+        li = lab
+        if li.dim() == p.dim() and li.shape[-1] == 1:
+            li = li.squeeze(-1)
+        return -torch.take_along_dim(logp, li[..., None].long(), dim=-1)
+
+    shape = list(input.shape[:-1]) + [1]
+    return emit("cross_entropy", [("X", input), ("Label", label)],
+                [("Y", shape, input.dtype)], fn,
+                attrs={"soft_label": soft_label})
+
+
+def accuracy(input, label, k=1):
+    """The share of rows whose argmax is the label ([1] float32; `k` is
+    accepted and never read, as in the JAX package)."""
+    def fn(p, lab):
+        pred = torch.argmax(p, dim=-1)
+        return (pred == lab.reshape(pred.shape)).float().mean().reshape(1)
+
+    return emit("accuracy", [("Out", input), ("Label", label)],
+                [("Accuracy", [1], "float32")], fn)
 
 
 def softmax_with_cross_entropy(logits, label, soft_label=False, axis=-1):
@@ -303,6 +455,63 @@ def batch_norm(input, act=None, is_test=False, momentum=0.9, epsilon=1e-5,
     return out
 
 
+def _dropout_keep(base, step, shape, keep_p):
+    """The keep mask of one run: element i kept where the hash uniform of
+    (the run's seed, i) is below `keep_p`, the run's seed a 32-bit mix of
+    `base` and the step counter `step` ([1] int32, on the device: no host
+    read)."""
+    seed = _mix32_device(_mulmod32(step.to(torch.int64) & _MASK32, _GOLDEN)
+                         ^ base)
+    n = int(np.prod(shape))
+    u = hash_uniform_device(seed, torch.arange(n, device=step.device))
+    return (u < keep_p).reshape(shape)
+
+
+def dropout(x, dropout_prob=0.5, is_test=False, seed=None, name=None):
+    """upscale_in_train dropout; at `is_test` or probability 0 the
+    identity.  A persistable int32 step counter (``dropout_step_N``, in
+    ``program._rng_step_vars``) feeds the mask with the base seed: `seed`,
+    else torch's initial seed (``paddle.seed``) mixed with the counter's
+    name, so stacked dropouts draw apart."""
+    if is_test or dropout_prob == 0.0:
+        return emit("dropout", [("X", x)], [("Out", x.shape, x.dtype)],
+                    _identity, attrs={"dropout_prob": dropout_prob,
+                                      "is_test": is_test, "seed": seed or 0})
+    ctr = create_parameter([1], "int32", default_value=0, stop_gradient=True,
+                           name_hint="dropout_step")
+    if seed is not None:
+        base = int(seed) & _MASK32
+    else:
+        base = ((torch.initial_seed() & _MASK32)
+                ^ zlib.crc32(ctr.name.encode())) & 0x7FFFFFFF
+    prog = default_main_program()
+    if not hasattr(prog, "_rng_step_vars"):
+        prog._rng_step_vars = []
+    prog._rng_step_vars.append(ctr.name)
+    keep_p = 1.0 - dropout_prob
+
+    def fn(v, c):
+        keep = _dropout_keep(base, c, v.shape, keep_p)
+        return torch.where(keep, v / keep_p, 0.0)
+
+    return emit("dropout", [("X", x), ("Seed", ctr)],
+                [("Out", x.shape, x.dtype)], fn,
+                attrs={"dropout_prob": dropout_prob, "is_test": is_test,
+                       "seed": base})
+
+
+def reshape(x, shape, name=None):
+    """A 0 keeps the input's dim; a -1 first dim takes the run's batch."""
+    shape2 = [x.shape[i] if s == 0 else s for i, s in enumerate(shape)]
+
+    def fn(v):
+        return v.reshape([v.shape[0] if s == -1 and i == 0 else s
+                          for i, s in enumerate(shape2)])
+
+    return emit("reshape2", [("X", x)], [("Out", shape2, x.dtype)], fn,
+                attrs={"shape": list(shape2)})
+
+
 def flatten(x, axis=1, name=None):
     shape = [int(np.prod(x.shape[:axis]) or -1), int(np.prod(x.shape[axis:]))]
 
@@ -313,11 +522,100 @@ def flatten(x, axis=1, name=None):
                 attrs={"axis": axis})
 
 
-def _maybe_act(out, act):
-    if act == "relu":
-        return relu(out)
-    if act in ("tanh", "sigmoid", "softmax"):
-        raise NotImplementedError(f"the {act} op is not ported yet")
-    if act:
-        raise ValueError(f"unsupported act {act!r}")
-    return out
+def embedding(input, size, padding_idx=None, param_attr=None,
+              dtype="float32"):
+    """``lookup_table_v2`` of a new [size[0], size[1]] table; a lookup of
+    `padding_idx` gives zeros (a negative one masks nothing, as in the
+    JAX package)."""
+    w = create_parameter(list(size), dtype, attr=param_attr)
+
+    def fn(idx, wv):
+        out = wv[idx.long()]
+        if padding_idx is not None:
+            out = out * (idx != padding_idx)[..., None].to(out.dtype)
+        return out
+
+    return emit("lookup_table_v2", [("Ids", input), ("W", w)],
+                [("Out", list(input.shape) + [size[1]], dtype)], fn,
+                attrs={"padding_idx": padding_idx})
+
+
+def layer_norm(input, scale=True, shift=True, begin_norm_axis=1,
+               epsilon=1e-5, param_attr=None, bias_attr=None, act=None,
+               name=None):
+    """Normalizes over the dims from `begin_norm_axis` (biased variance
+    E[(x - mean)²]), then the float32 scale and shift of that size."""
+    norm_shape = [int(np.prod(input.shape[begin_norm_axis:]))]
+    ins = [("X", input)]
+    if scale:
+        ins.append(("Scale", create_parameter(
+            norm_shape, "float32", attr=param_attr, default_value=1.0)))
+    if shift:
+        ins.append(("Bias", create_parameter(
+            norm_shape, "float32", attr=bias_attr, is_bias=True)))
+
+    def fn(v, *wb):
+        v2 = v.reshape(tuple(v.shape[:begin_norm_axis]) + (-1,))
+        m = v2.mean(dim=-1, keepdim=True)
+        var = torch.square(v2 - m).mean(dim=-1, keepdim=True)
+        out = (v2 - m) * torch.rsqrt(var + epsilon)
+        if scale:
+            out = out * wb[0]
+        if shift:
+            out = out + wb[-1]
+        return out.reshape(v.shape)
+
+    out = emit("layer_norm", ins, [("Y", input.shape, input.dtype)], fn,
+               attrs={"begin_norm_axis": begin_norm_axis,
+                      "epsilon": epsilon, "scale": scale, "shift": shift})
+    return _maybe_act(out, act)
+
+
+def concat_static(xs, axis=0):
+    shape = list(xs[0].shape)
+    ax = axis % len(shape)
+    shape[ax] = sum(x.shape[ax] for x in xs)
+    return emit("concat", [(f"X{i}", x) for i, x in enumerate(xs)],
+                [("Out", shape, xs[0].dtype)],
+                lambda *vs: torch.cat(vs, dim=axis))
+
+
+def nce(input, label, num_total_classes, sample_weight=None,
+        param_attr=None, bias_attr=None, num_neg_samples=10, name=None,
+        sampler="uniform", custom_dist=None, seed=0, is_sparse=False):
+    """`ops.sequence_ops.nce` over a new [num_total_classes, D] weight and
+    bias.  As in the JAX package, `sample_weight`, `custom_dist` and
+    `is_sparse` are accepted and never read."""
+    D = int(input.shape[-1])
+    w = create_parameter([num_total_classes, D], input.dtype,
+                         attr=param_attr)
+    ins = [("Input", input), ("Label", label), ("Weight", w)]
+    if bias_attr is not False:
+        ins.append(("Bias", create_parameter([num_total_classes],
+                                             input.dtype, attr=bias_attr,
+                                             is_bias=True)))
+
+    def fn(xv, lv, wv, *rest):
+        return S.nce(xv, wv, lv, rest[0] if rest else None,
+                     num_total_classes, num_neg_samples, sampler, seed)
+
+    return emit("nce", ins, [("Out", [input.shape[0], 1], input.dtype)], fn)
+
+
+def crf_decoding(input, param_attr, label=None, length=None):
+    """`ops.sequence_ops.crf_decoding` under the transition var
+    `param_attr` (the one `linear_chain_crf` trains)."""
+    ins = [("Emission", input), ("Transition", param_attr),
+           ("Length", length)]
+    return emit("crf_decoding", ins,
+                [("Out", list(input.shape[:2]), "int64")],
+                lambda ev, tv, lv: S.crf_decoding(ev, tv, lv))
+
+
+def fill_constant(shape, dtype, value):
+    """A source op: `shape` filled with `value` on the run's device."""
+    dt = convert_dtype(dtype)
+    return emit("fill_constant", [], [("Out", list(shape), dtype)],
+                lambda device: torch.full(tuple(shape), value, dtype=dt,
+                                          device=device),
+                attrs={"shape": list(shape), "value": value})

@@ -16,6 +16,10 @@ import torch
 
 from ..dtype import convert_dtype, dtype_name  # noqa: F401
 
+# False under ``paddle.enable_static()`` (the top-level create_parameter
+# reads it)
+_dygraph_mode = True
+
 
 class Variable:
     """VarDesc: a named, shaped, typed slot of a block."""
@@ -68,6 +72,25 @@ class Variable:
     def __truediv__(self, other):
         return self._emit("elementwise_div", other)
 
+    # comparisons emit bool ops (``__eq__`` stays identity: vars are
+    # dict keys)
+    def _compare(self, op_type, other):
+        from . import nn_static as NS
+
+        return NS._compare_emit(op_type, self, other)
+
+    def __lt__(self, other):
+        return self._compare("less_than", other)
+
+    def __le__(self, other):
+        return self._compare("less_equal", other)
+
+    def __gt__(self, other):
+        return self._compare("greater_than", other)
+
+    def __ge__(self, other):
+        return self._compare("greater_equal", other)
+
 
 Parameter = Variable
 
@@ -102,7 +125,9 @@ class Operator:
 
 
 class Block:
-    """BlockDesc: the vars and the ops of one block, in program order."""
+    """BlockDesc: the vars and the ops of one block, in program order.  A
+    sub-block (a control-flow branch or body, a StaticRNN step) has its
+    parent's index in `parent_idx`; the global block's is -1."""
 
     def __init__(self, program, idx, parent_idx=-1):
         self.program = program
@@ -147,10 +172,22 @@ class Block:
     def all_parameters(self):
         return [v for v in self.vars.values() if v.is_parameter]
 
+    def lookup(self, name):
+        """The var `name` of this block or the nearest enclosing one (a
+        sub-block's capture of a parent's var)."""
+        b = self
+        while b is not None:
+            if b.has_var(name):
+                return b.vars[name]
+            b = b.program.block(b.parent_idx) if b.parent_idx >= 0 else None
+        raise KeyError(f"captured variable {name!r} not found in any "
+                       f"enclosing block")
+
 
 class Program:
-    """ProgramDesc: the blocks (the ported ops use the global block), the
-    name counters and the startup seed."""
+    """ProgramDesc: the blocks (the global block, then the sub-blocks that
+    control flow and StaticRNN record, each run by one op of its
+    parent), the name counters and the startup seed."""
 
     def __init__(self):
         self.blocks = [Block(self, 0)]
@@ -165,6 +202,9 @@ class Program:
     def current_block(self):
         return self.blocks[self.current_block_idx]
 
+    def block(self, idx):
+        return self.blocks[idx]
+
     def _unique_name(self, prefix):
         self._name_counter[prefix] += 1
         return f"{prefix}_{self._name_counter[prefix]}"
@@ -173,13 +213,34 @@ class Program:
         return self.global_block().all_parameters()
 
     def clone(self, for_test=False):
-        """A deep copy.  The inference clone (``for_test=True``: backward
-        and update ops pruned, batch norm on its running stats, dropout
-        removed) is not ported yet."""
-        if for_test:
-            raise NotImplementedError(
-                "Program.clone(for_test=True) is not ported yet")
-        return copy.deepcopy(self)
+        """A deep copy.  ``for_test=True`` makes the inference clone, as
+        the JAX package does: every op that reads or writes an ``@GRAD``
+        name is pruned (the grad ops and the update ops), ``is_test`` is
+        set where an op has it, a training batch norm normalizes by its
+        running stats and leaves them as they are, dropout becomes the
+        identity (type ``scale``) and the clone advances no dropout step
+        counter."""
+        p = copy.deepcopy(self)
+        if not for_test:
+            return p
+        for b in p.blocks:
+            b.ops = [op for op in b.ops if not any(
+                "@GRAD" in n
+                for n in (list(getattr(op, "in_order", op.input_names()))
+                          + list(getattr(op, "out_order",
+                                         op.output_names()))))]
+            for op in b.ops:
+                if "is_test" in op.attrs:
+                    op.attrs["is_test"] = True
+                if op.type == "batch_norm" and len(op.out_order) > 1:
+                    op.fn = _bn_eval_fn(op.attrs["epsilon"],
+                                        op.attrs.get("act"))
+                if op.type in ("dropout", "dropout2d", "dropout3d"):
+                    op.type = "scale"
+                    op.fn = _identity
+                    op.in_order = op.in_order[:1]
+        p._rng_step_vars = []
+        return p
 
     def __repr__(self):
         lines = []
@@ -218,3 +279,26 @@ def program_guard(main_program, startup_program=None):
 
 def name_scope(prefix):
     return contextlib.nullcontext()
+
+
+def _identity(v):
+    return v
+
+
+def _bn_eval_fn(eps, act):
+    """A training batch norm's fn in a for_test clone: the running stats
+    normalize (in float32, the output back in the input's dtype, as the
+    op's ``is_test`` form does) and pass through as MeanOut and
+    VarianceOut unchanged."""
+    from .nn_static import _BN_ACTS
+
+    def fn(v, sc, b, m, va):
+        shape = [1, v.shape[1]] + [1] * (v.dim() - 2)
+        vf = v.float() if v.dtype != torch.float32 else v
+        out = (vf - m.reshape(shape)) * torch.rsqrt(va.reshape(shape) + eps)
+        out = out * sc.reshape(shape) + b.reshape(shape)
+        if act:
+            out = _BN_ACTS[act](out)
+        return out.to(v.dtype), m, va
+
+    return fn

@@ -65,7 +65,8 @@ def test_import_pulls_in_neither_jax_nor_paddle_tpu():
         "ops.sequence_ops", "nn.layers.activation", "nn.layers.rnn",
         "nn.layers.decode", "tensor", "tensor.creation", "tensor.logic",
         "tensor.manipulation", "tensor.math", "tensor.random",
-        "tensor.search", "tensor.stat")} <= walked
+        "tensor.search", "tensor.stat", "ops.loss_extra",
+        "static.controlflow", "static.extras")} <= walked
 
 
 def test_replica_worker_imports_neither_jax_nor_paddle_tpu():

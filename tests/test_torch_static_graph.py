@@ -474,7 +474,6 @@ def test_clone_is_a_program_that_trains_alike():
 
 
 @pytest.mark.parametrize("call", [
-    lambda m: m.clone(for_test=True),
     lambda m: tstatic.Executor("cpu").train_from_dataset(m),
     lambda m: tstatic.Executor("cpu").infer_from_dataset(m),
     lambda m: tstatic.ParamAttr(regularizer=0.01),
@@ -482,7 +481,7 @@ def test_clone_is_a_program_that_trains_alike():
     # still refuses on its way is an L1Decay, which JAX applies as L2
     lambda m: popt.SGD(0.1, weight_decay=popt.L1Decay(0.1)).minimize(
         torch.ones((), requires_grad=True)),
-], ids=["clone_for_test", "train_from_dataset", "infer_from_dataset",
+], ids=["train_from_dataset", "infer_from_dataset",
         "regularizer", "eager_minimize"])
 def test_unported_entry_points_raise(call):
     main, _, _ = _tiny_program()
