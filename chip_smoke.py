@@ -6318,33 +6318,33 @@ def eager_step(model, batches, lr):
     return step
 
 
-def timed_steps(label, step):
-    """1 warm-up, BOOK["iters"] timed (every count set to 0 just before,
-    read just after) and BOOK["profiled"] profiled calls of `step`
+def timed_steps(label, step, n=BOOK):
+    """n["warmup"] warm-up, n["iters"] timed (every count set to 0 just
+    before, read just after) and n["profiled"] profiled calls of `step`
     (returning the loss on the device).  The peak memory is what the
     steps held above the memory allocated before them (earlier phases'
     models stay allocated in a whole run)."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
-    losses = [step() for _ in range(BOOK["warmup"])]
+    losses = [step() for _ in range(n["warmup"])]
     torch.cuda.synchronize()
     reset_launches()
     t0 = time.perf_counter()
-    losses += [step() for _ in range(BOOK["iters"])]
+    losses += [step() for _ in range(n["iters"])]
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_launches()
     peak = torch.cuda.max_memory_allocated() - base
-    p_wall, busy, top, kernels = profile_steps(step, BOOK["profiled"])
+    p_wall, busy, top, kernels = profile_steps(step, n["profiled"])
     losses = [float(x.reshape(-1)[0]) for x in losses]
     log(f"  {label}: losses {losses[0]:.4f} -> {losses[-1]:.4f}")
     if not all(math.isfinite(x) for x in losses):
         fail(f"{label}: loss not finite: {losses}")
     if any(launches.values()):
         fail(f"{label} launched a kernel of the port: {launches}")
-    return dict(wall=wall, iters=BOOK["iters"], peak=peak, p_wall=p_wall,
-                busy=busy, top=top, kernels=kernels / BOOK["profiled"])
+    return dict(wall=wall, iters=n["iters"], peak=peak, p_wall=p_wall,
+                busy=busy, top=top, kernels=kernels / n["profiled"])
 
 
 def phase_book_run():
@@ -6477,9 +6477,10 @@ CUDNN_HELD = ("recognize_digits",)
 CUDNN_GRAD_TOL = 2e-3
 
 
-def book_chapters(P, nn, F, base, param, **gen):
+def book_chapters(P, nn, F, base, param, place=None, **gen):
     """The book's dygraph chapters over a package (as `book_models`):
-    `param(layer, shape, is_bias)` makes a free parameter of `layer`.
+    `param(layer, shape, is_bias)` makes a free parameter of `layer`;
+    `place` goes to the convolutions (the port's device).
     Each model's ``loss(*batch)`` is its training loss."""
 
     class Digits(base):
@@ -6489,17 +6490,18 @@ def book_chapters(P, nn, F, base, param, **gen):
         def __init__(self, filters, kernel, image, classes, pool=True):
             super().__init__()
             f1, f2 = filters
+            conv = dict(gen, **(place or {}))
             if pool:
                 side = ((image - kernel + 1) // 2 - kernel + 1) // 2
                 self.net = nn.Sequential(
-                    nn.Conv2D(1, f1, kernel, **gen), nn.ReLU(),
-                    nn.MaxPool2D(2, 2), nn.Conv2D(f1, f2, kernel, **gen),
+                    nn.Conv2D(1, f1, kernel, **conv), nn.ReLU(),
+                    nn.MaxPool2D(2, 2), nn.Conv2D(f1, f2, kernel, **conv),
                     nn.ReLU(), nn.MaxPool2D(2, 2), nn.Flatten(),
                     nn.Linear(f2 * side * side, classes, **gen))
             else:
                 self.net = nn.Sequential(
-                    nn.Conv2D(1, f1, kernel, stride=2, **gen), nn.ReLU(),
-                    nn.Conv2D(f1, f2, 3, stride=2, **gen), nn.ReLU(),
+                    nn.Conv2D(1, f1, kernel, stride=2, **conv), nn.ReLU(),
+                    nn.Conv2D(f1, f2, 3, stride=2, **conv), nn.ReLU(),
                     nn.Flatten(), nn.Linear(f2 * 5 * 5, classes, **gen))
 
         def loss(self, img, lbl):
@@ -6695,7 +6697,8 @@ def port_book_chapters(seed=0):
     return book_chapters(
         P, nn, F, torch.nn.Module,
         lambda layer, shape, is_bias=False: create_parameter(
-            shape, is_bias=is_bias, generator=g), generator=g)
+            shape, is_bias=is_bias, generator=g), {"device": "cpu"},
+        generator=g)
 
 
 CHAPTER_SIZES = {"recognize_digits": DIGITS, "word2vec": WORD2VEC,
@@ -7140,6 +7143,520 @@ def chapter_numbers(card, run):
         book_idle(card, which, r)
 
 
+# ------------------- phase 21: CycleGAN on the conv library -------------------
+# Zhu et al., "Unpaired Image-to-Image Translation using Cycle-Consistent
+# Adversarial Networks" (ICCV 2017, arXiv:1703.10593), section 4 and
+# appendix 7.2: the 9-block ResNet generator for 256x256 (c7s1-64, d128,
+# d256, R256 x 9, u128, u64, c7s1-3: reflection padding, instance norm
+# without affine parameters, ReLU, tanh out), the 70x70 PatchGAN
+# discriminator (C64-C128-C256-C512, 4x4 convolutions, LeakyReLU 0.2, no
+# norm on C64, C512 at stride 1, then a 4x4 convolution to one channel),
+# LSGAN losses, cycle weight 10 and identity weight 0.5 x 10, Adam 2e-4
+# with beta1 0.5, batch 1, weights N(0, 0.02).  A convolution followed by
+# the affine-free instance norm has no bias (the norm removes any bias,
+# which would only be a parameter without a gradient).  The paper's pool
+# of 50 generated images hands back the newest image while it fills, so
+# the runs here, of fewer iterations, draw none from it.  Images are made
+# from a seed in [-1, 1].
+# (a) holds at `held_blocks` residual blocks: all 9 while the CPU's side of
+# the hold takes at most 30 s on the chip's host, else 3 (PERF.md §6)
+CYCLEGAN = dict(ngf=64, ndf=64, blocks=9, image=256, batch=1, lr=2e-4,
+                beta1=0.5, lambda_cycle=10.0, lambda_identity=0.5,
+                held_blocks=9, warmup=1, iters=10, profiled=1)
+# (b)'s sweep, card (cuDNN on, TF32 off) against the CPU, of each tensor's
+# largest magnitude
+LAYER_SWEEP_TOL = 1e-4
+
+
+def cyclegan_nets(nn, base, gen, place):
+    """The generator and discriminator classes over a package's `nn`;
+    `gen` goes to every convolution (the port's generator), `place` to
+    the convolutions and norms (the port's device)."""
+    init = {"weight_attr": nn.initializer.Normal(0.0, 0.02)}
+
+    def conv(cin, cout, k, stride=1, padding=0, bias=True):
+        return nn.Conv2D(cin, cout, k, stride=stride, padding=padding,
+                         bias_attr=None if bias else False, **init, **gen,
+                         **place)
+
+    def norm(c):
+        return nn.InstanceNorm2D(c, weight_attr=False, bias_attr=False,
+                                 **place)
+
+    class ResnetBlock(base):
+        def __init__(self, dim):
+            super().__init__()
+            self.block = nn.Sequential(
+                nn.Pad2D(1, mode="reflect"), conv(dim, dim, 3, bias=False),
+                norm(dim), nn.ReLU(), nn.Pad2D(1, mode="reflect"),
+                conv(dim, dim, 3, bias=False), norm(dim))
+
+        def forward(self, x):
+            return x + self.block(x)
+
+    class Generator(base):
+        """c7s1-ngf, d(2 ngf), d(4 ngf), `blocks` residual blocks,
+        u(2 ngf), u(ngf), c7s1-3 and tanh."""
+
+        def __init__(self, ngf, blocks, channels=3):
+            super().__init__()
+            layers = [nn.Pad2D(3, mode="reflect"),
+                      conv(channels, ngf, 7, bias=False), norm(ngf),
+                      nn.ReLU()]
+            for mult in (1, 2):
+                layers += [conv(ngf * mult, ngf * mult * 2, 3, 2, 1,
+                                bias=False), norm(ngf * mult * 2),
+                           nn.ReLU()]
+            layers += [ResnetBlock(ngf * 4) for _ in range(blocks)]
+            for mult in (4, 2):
+                layers += [nn.Conv2DTranspose(
+                    ngf * mult, ngf * mult // 2, 3, stride=2, padding=1,
+                    output_padding=1, bias_attr=False, **init, **gen,
+                    **place), norm(ngf * mult // 2), nn.ReLU()]
+            layers += [nn.Pad2D(3, mode="reflect"), conv(ngf, channels, 7),
+                       nn.Tanh()]
+            self.net = nn.Sequential(*layers)
+
+        def forward(self, x):
+            return self.net(x)
+
+    class Discriminator(base):
+        """The 70x70 PatchGAN: C64-C128-C256-C512 and a 4x4 convolution
+        to one channel."""
+
+        def __init__(self, ndf, channels=3):
+            super().__init__()
+            layers = [conv(channels, ndf, 4, 2, 1), nn.LeakyReLU(0.2)]
+            for i, stride in ((1, 2), (2, 2), (3, 1)):
+                layers += [conv(ndf * 2 ** (i - 1), ndf * 2 ** i, 4, stride,
+                                1, bias=False), norm(ndf * 2 ** i),
+                           nn.LeakyReLU(0.2)]
+            layers += [conv(ndf * 8, 1, 4, 1, 1)]
+            self.net = nn.Sequential(*layers)
+
+        def forward(self, x):
+            return self.net(x)
+
+    return Generator, Discriminator
+
+
+def cyclegan_g_loss(P, F, nets, real_a, real_b, c=CYCLEGAN):
+    """The generators' loss of one iteration (LSGAN against ones, cycle
+    L1 x lambda, identity L1 x lambda x its weight) and the fakes the
+    discriminators then see: (loss, {term: loss}, fake_b, fake_a)."""
+    g_a, g_b, d_a, d_b = nets
+    fake_b, fake_a = g_a(real_a), g_b(real_b)
+    lam, idt = c["lambda_cycle"], c["lambda_cycle"] * c["lambda_identity"]
+    pa, pb = d_a(fake_b), d_b(fake_a)
+    terms = {"G_A": F.mse_loss(pa, P.ones_like(pa)),
+             "G_B": F.mse_loss(pb, P.ones_like(pb)),
+             "cycle_A": F.l1_loss(g_b(fake_b), real_a) * lam,
+             "cycle_B": F.l1_loss(g_a(fake_a), real_b) * lam,
+             "idt_A": F.l1_loss(g_a(real_b), real_b) * idt,
+             "idt_B": F.l1_loss(g_b(real_a), real_a) * idt}
+    loss = terms["G_A"] + terms["G_B"] + terms["cycle_A"] + \
+        terms["cycle_B"] + terms["idt_A"] + terms["idt_B"]
+    return loss, terms, fake_b, fake_a
+
+
+def cyclegan_d_loss(P, F, nets, real_a, real_b, fake_b, fake_a):
+    """The discriminators' loss: each LSGAN (real against ones, the
+    generators' fake, detached by the caller, against zeros) halved."""
+    _, _, d_a, d_b = nets
+    total = 0
+    for d, real, fake in ((d_a, real_b, fake_b), (d_b, real_a, fake_a)):
+        pr, pf = d(real), d(fake)
+        total = total + (F.mse_loss(pr, P.ones_like(pr))
+                         + F.mse_loss(pf, P.zeros_like(pf))) * 0.5
+    return total
+
+
+def cyclegan_images(rng, c, size=None):
+    """(real_a, real_b): [batch, 3, size, size] float32 in [-1, 1]."""
+    s = size or c["image"]
+    return tuple(rng.uniform(-1, 1, (c["batch"], 3, s, s)).astype(
+        np.float32) for _ in range(2))
+
+
+def port_cyclegan(c=CYCLEGAN, blocks=None, seed=0, device="cpu"):
+    """(G_A, G_B, D_A, D_B) of the port at `c`'s widths, built on the CPU
+    from `seed` (weights N(0, 0.02)) and moved to `device`."""
+    from paddle_tpu_torch import nn
+
+    g = torch.Generator().manual_seed(seed)
+    gen_cls, disc_cls = cyclegan_nets(nn, torch.nn.Module, {"generator": g},
+                                      {"device": "cpu"})
+    blocks = c["blocks"] if blocks is None else blocks
+    nets = (gen_cls(c["ngf"], blocks), gen_cls(c["ngf"], blocks),
+            disc_cls(c["ndf"]), disc_cls(c["ndf"]))
+    return tuple(n.to(device) for n in nets)
+
+
+def cyclegan_iteration(nets, opts, real_a, real_b, c=CYCLEGAN):
+    """One training iteration of the port as the paper's code runs it:
+    the generators' step with the discriminators frozen, then the
+    discriminators' step on the fakes of that forward.  Returns the
+    losses ({term: 0-d tensor}, with "G" and "D") on the device and the
+    gradients of the step ({net.name: tensor}) when asked by
+    `opts["grads"]`."""
+    import paddle_tpu_torch as P
+    from paddle_tpu_torch.nn import functional as F
+
+    g_a, g_b, d_a, d_b = nets
+    for d in (d_a, d_b):
+        d.requires_grad_(False)
+    loss_g, terms, fake_b, fake_a = cyclegan_g_loss(P, F, nets, real_a,
+                                                    real_b, c)
+    opts["G"].clear_grad()
+    loss_g.backward()
+    for d in (d_a, d_b):
+        d.requires_grad_(True)
+    loss_d = cyclegan_d_loss(P, F, nets, real_a, real_b, fake_b.detach(),
+                             fake_a.detach())
+    opts["D"].clear_grad()
+    loss_d.backward()
+    if opts.get("grads") is not None:
+        opts["grads"].append({f"{k}.{n}": p.grad.detach().clone()
+                              for k, net in zip(CYCLEGAN_NETS, nets)
+                              for n, p in net.named_parameters()})
+    opts["G"].step()
+    opts["D"].step()
+    return {**{k: v.detach() for k, v in terms.items()},
+            "G": loss_g.detach(), "D": loss_d.detach()}
+
+
+CYCLEGAN_NETS = ("G_A", "G_B", "D_A", "D_B")
+
+
+def cyclegan_optimizers(nets, c=CYCLEGAN):
+    from paddle_tpu_torch.optimizer import Adam
+
+    g_a, g_b, d_a, d_b = nets
+    return {"G": Adam(c["lr"], c["beta1"], parameters=list(
+        g_a.parameters()) + list(g_b.parameters())),
+        "D": Adam(c["lr"], c["beta1"], parameters=list(
+            d_a.parameters()) + list(d_b.parameters()))}
+
+
+def layer_sweep_cases(seed=21):
+    """(b)'s sweep: every function and layer this phase's slice ported,
+    once each at the CPU tests' sizes, as (name, fn, inputs, kwargs): a
+    function of `F`, or a layer built on the CPU (the card runs a copy);
+    float inputs are differentiated, integer ones are not."""
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.ops import nn_extra
+
+    r = np.random.default_rng(seed)
+    g = torch.Generator().manual_seed(seed)
+    cpu = {"generator": g, "device": "cpu"}
+
+    def f(*shape, lo=-2.0, hi=2.0):
+        return r.uniform(lo, hi, shape).astype(np.float32)
+
+    x1, x2, x3 = f(2, 4, 9), f(2, 4, 7, 6), f(1, 4, 5, 6, 4)
+    img, logits = f(1, 3, 6, 8), f(3, 6, 5, lo=-3, hi=3)
+    labels = np.array([[1, 1, 2], [4, 0, 0], [3, 2, 0]], np.int64)
+    lens = (np.array([6, 4, 5], np.int64), np.array([3, 0, 2], np.int64))
+    prob = np.exp(f(4, 3))
+    prob = (prob / prob.sum(-1, keepdims=True)).astype(np.float32)
+    feat = f(4, 5)
+    return [
+        ("conv1d", F.conv1d, (x1, f(6, 4, 3), f(6)), dict(padding="SAME")),
+        ("conv2d", F.conv2d, (np.ascontiguousarray(x2.transpose(0, 2, 3, 1)),
+                              f(6, 4, 3, 3)),
+         dict(stride=2, padding="SAME", data_format="NHWC")),
+        ("conv2d_transpose", F.conv2d_transpose, (x2, f(4, 3, 3, 2), f(3)),
+         dict(stride=(2, 1), padding=1, output_padding=(3, 2))),
+        ("conv3d", F.conv3d, (x3, f(6, 2, 2, 2, 2)),
+         dict(groups=2, padding="SAME")),
+        ("conv3d_transpose", F.conv3d_transpose, (x3, f(4, 3, 2, 3, 2)),
+         dict(stride=2, output_size=[11, 13, 10])),
+        ("conv1d_transpose", F.conv1d_transpose, (x1, f(4, 2, 3)),
+         dict(stride=3, groups=2, output_padding=2)),
+        ("Conv1D", nn.Conv1D(4, 6, 3, 2, 1, **cpu), (x1,), {}),
+        ("Conv2D", nn.Conv2D(4, 6, 3, 2, "SAME", **cpu), (x2,), {}),
+        ("Conv3D", nn.Conv3D(4, 6, (2, 3, 2), 1, 1, **cpu), (x3,), {}),
+        ("Conv1DTranspose", nn.Conv1DTranspose(4, 6, 3, 2, 1, 1, **cpu),
+         (x1,), {}),
+        ("Conv2DTranspose", nn.Conv2DTranspose(4, 6, 3, 2, 1, 1, **cpu),
+         (x2,), {}),
+        ("Conv3DTranspose", nn.Conv3DTranspose(4, 2, 2, 2, **cpu), (x3,),
+         {}),
+        ("max_pool1d", F.max_pool1d, (x1, 4, 2, [2, 1]), {}),
+        ("avg_pool1d", F.avg_pool1d, (x1, 3, 2, 1), {}),
+        ("max_pool2d", F.max_pool2d, (x2, 3, 2, [0, 2, 1, 1]), {}),
+        ("avg_pool2d", F.avg_pool2d, (x2, 3, 2, "SAME"), {}),
+        ("adaptive_avg_pool2d", F.adaptive_avg_pool2d, (x2, (4, 3)), {}),
+        ("adaptive_max_pool2d", F.adaptive_max_pool2d, (x2, (4, 3)), {}),
+        ("max_pool3d", F.max_pool3d, (x3, 3, 2, 1),
+         dict(ceil_mode=True, return_mask=True)),
+        ("avg_pool3d", F.avg_pool3d, (x3, 2), dict(ceil_mode=True)),
+        ("adaptive_avg_pool1d", F.adaptive_avg_pool1d, (x1, 4), {}),
+        ("adaptive_max_pool1d", F.adaptive_max_pool1d, (x1, 4), {}),
+        ("adaptive_avg_pool3d", F.adaptive_avg_pool3d, (x3, (3, 4, 2)), {}),
+        ("adaptive_max_pool3d", F.adaptive_max_pool3d, (x3, (3, 4, 2)), {}),
+        *[(cls, getattr(nn, cls)(*args), (x,), {}) for cls, args, x in (
+            ("MaxPool1D", (3, 2, "SAME"), x1), ("AvgPool1D", (3, 2, 1), x1),
+            ("MaxPool2D", (3, 2, 1), x2), ("AvgPool2D", (3, 2, 1), x2),
+            ("MaxPool3D", (3, 2, 1, True), x3),
+            ("AvgPool3D", (3, 2, 1, True), x3),
+            ("AdaptiveAvgPool1D", (4,), x1), ("AdaptiveMaxPool1D", (4,), x1),
+            ("AdaptiveAvgPool2D", ((4, 3),), x2),
+            ("AdaptiveMaxPool2D", ((4, 3),), x2),
+            ("AdaptiveAvgPool3D", ((3, 4, 2),), x3),
+            ("AdaptiveMaxPool3D", ((3, 4, 2),), x3))],
+        ("instance_norm", F.instance_norm, (x2, f(4), f(4)), {}),
+        ("group_norm", F.group_norm, (x2, 2, 1e-5, f(4), f(4)), {}),
+        ("local_response_norm", F.local_response_norm, (x2, 3), {}),
+        ("spectral_norm_apply", nn_extra.spectral_norm_apply,
+         (f(5, 3, 2, 3), 2), {}),
+        ("InstanceNorm2D", nn.InstanceNorm2D(4, **cpu), (x2,), {}),
+        ("InstanceNorm3D", nn.InstanceNorm3D(4, **cpu), (x3,), {}),
+        ("GroupNorm", nn.GroupNorm(2, 4, **cpu), (x2,), {}),
+        ("LocalResponseNorm", nn.LocalResponseNorm(3), (x2,), {}),
+        ("SpectralNorm", nn.SpectralNorm((5, 3, 2, 3), 1, 2, **cpu),
+         (f(5, 3, 2, 3),), {}),
+        ("SyncBatchNorm", nn.SyncBatchNorm(4, **cpu), (x2,), {}),
+        ("weight_norm", nn.utils.weight_norm(nn.Conv2D(3, 5, 3, **cpu)),
+         (img,), {}),
+        ("spectral_norm", nn.utils.spectral_norm(nn.Linear(3, 5, generator=g)),
+         (f(4, 3),), {}),
+        ("interpolate_nearest", F.interpolate, (img,), dict(scale_factor=1.5)),
+        ("interpolate_bilinear_down", F.interpolate, (img,),
+         dict(size=(4, 3), mode="bilinear")),
+        ("interpolate_bilinear_align", F.interpolate, (img,),
+         dict(size=(9, 13), mode="bilinear", align_corners=True)),
+        ("interpolate_bicubic", F.interpolate, (img,),
+         dict(size=(4, 11), mode="bicubic")),
+        ("pixel_shuffle", F.pixel_shuffle, (f(2, 8, 3, 2), 2), {}),
+        ("unfold", F.unfold, (img, 2), dict(paddings=[1, 0, 2, 1])),
+        ("fold", F.fold, (f(2, 12, 12), [4, 6], 2, 2, 1), {}),
+        *[(cls, getattr(nn, cls)(*args), (x,), {}) for cls, args, x in (
+            ("Identity", (), x2), ("Pad1D", ([2, 1], "reflect"), x1),
+            ("Pad2D", (2, "replicate"), x2), ("Pad3D", (1, "circular"), x3),
+            ("ZeroPad2D", ([0, 1, 2, 0],), x2),
+            ("Upsample", ((4, 3), None, "bilinear"), img),
+            ("UpsamplingBilinear2D", ((9, 7),), img),
+            ("UpsamplingNearest2D", (None, 2), img),
+            ("PixelShuffle", (2,), f(1, 8, 2, 3)),
+            ("Unfold", (3, 1, 1), img), ("Fold", ([3, 4], 2), f(2, 12, 6)),
+            ("Dropout2D", (0.0,), x2), ("Dropout3D", (0.0,), x3),
+            ("AlphaDropout", (0.0,), x2))],
+        ("dropout3d", F.dropout3d, (x3, 0.5), dict(training=False)),
+        ("CosineSimilarity", nn.CosineSimilarity(2), (x2, f(2, 4, 7, 6)), {}),
+        ("bilinear", F.bilinear, (feat[:, :3], feat, f(2, 3, 5), f(1, 2)),
+         {}),
+        ("Bilinear", nn.Bilinear(3, 5, 4, **cpu), (feat[:, :3], feat), {}),
+        ("ctc_loss", F.ctc_loss, (logits, labels) + lens,
+         dict(norm_by_times=True)),
+        ("CTCLoss", nn.CTCLoss(0, "sum"), (logits, labels) + lens, {}),
+        ("hsigmoid_loss", F.hsigmoid_loss,
+         (feat, r.integers(0, 6, (4, 1)), 6, f(5, 5)), {}),
+        ("HSigmoidLoss", nn.HSigmoidLoss(5, 7, **cpu),
+         (feat, r.integers(0, 7, (4, 1))), {}),
+        ("dice_loss", F.dice_loss, (prob, r.integers(0, 3, (4, 1))), {}),
+        ("log_loss", F.log_loss, (prob, r.integers(0, 2, (4, 3)).astype(
+            np.float32)), {}),
+        ("npair_loss", F.npair_loss, (f(4, 3), f(4, 3),
+                                      np.array([0, 1, 0, 2])), {}),
+        ("affine_grid", F.affine_grid, (f(2, 2, 3, lo=-1, hi=1),
+                                        [2, 3, 4, 5]), {}),
+        ("grid_sample", F.grid_sample, (f(2, 3, 4, 5), f(2, 3, 4, 2, lo=-1.2,
+                                                          hi=1.2)), {}),
+        ("temporal_shift", F.temporal_shift, (f(4, 8, 2, 2), 2), {}),
+    ]
+
+
+def sweep_run(fn, inputs, kw, device):
+    """`fn` on `device` over `inputs` (float arrays differentiated, a
+    layer's parameters too): its outputs and the gradients under a
+    fixed cotangent."""
+    import torch.nn as tnn
+
+    if isinstance(fn, tnn.Module):  # a copy each: the case stays unrun
+        fn = copy.deepcopy(fn).to(device)
+    args = [torch.from_numpy(np.array(a)).to(device)
+            if isinstance(a, np.ndarray) else a for a in inputs]
+    wrt = [a.requires_grad_() for a in args if isinstance(a, torch.Tensor)
+           and a.is_floating_point()]
+    if isinstance(fn, tnn.Module):
+        wrt += [p for p in fn.parameters() if p.requires_grad]
+    out = fn(*args, **kw)
+    outs = list(out) if isinstance(out, tuple) else [out]
+    floats = [o for o in outs if o.is_floating_point()]
+    loss = sum((o * torch.linspace(-1, 1, o.numel(), device=device)
+                .reshape(o.shape)).sum() for o in floats)
+    grads = torch.autograd.grad(loss, wrt, allow_unused=True)
+    return outs, [torch.zeros_like(w) if gr is None else gr
+                  for w, gr in zip(wrt, grads)]
+
+
+def phase_layer_sweep():
+    """(b): every ported function and layer, forward and backward, card
+    (cuDNN on, TF32 off) against the CPU at the CPU tests' sizes: the
+    worst share of each, held to LAYER_SWEEP_TOL; integer outputs (the
+    3-D pool's mask) equal."""
+    worst = []
+    for name, fn, inputs, kw in layer_sweep_cases():
+        c_out, c_grad = sweep_run(fn, inputs, kw, "cpu")
+        g_out, g_grad = sweep_run(fn, inputs, kw, "cuda")
+        errs = []
+        for got, want in zip(g_out + g_grad, c_out + c_grad):
+            if got.device.type != "cuda":
+                fail(f"{name}: an output on {got.device}")
+            if want.is_floating_point():
+                errs.append(share(got.detach().cpu(), want.detach()))
+            elif not torch.equal(got.cpu(), want):
+                fail(f"{name}: integer output differs card vs CPU")
+        err = max(errs)
+        worst.append((err, name))
+        if not err <= LAYER_SWEEP_TOL:
+            fail(f"{name}: card vs CPU {err:.3e} of the largest magnitude, "
+                 f"past {LAYER_SWEEP_TOL}")
+    worst.sort(reverse=True)
+    log(f"  {len(worst)} functions and layers, forward and every gradient, "
+        f"card vs CPU: worst {worst[0][0]:.2e} ({worst[0][1]}), held to "
+        f"{LAYER_SWEEP_TOL} of each tensor's largest magnitude")
+    log("  " + ", ".join(f"{n} {e:.1e}" for e, n in worst))
+
+
+def cyclegan_on(nets_cpu, device, c=CYCLEGAN):
+    """Copies of the CPU networks (at `c`'s widths) on `device`, the same
+    weights."""
+    from paddle_tpu_torch.models import layer_from_numpy, layer_to_numpy
+
+    blocks = sum(1 for m in nets_cpu[0].modules()
+                 if type(m).__name__ == "ResnetBlock")
+    fresh = port_cyclegan(c, blocks=blocks, seed=1)
+    return tuple(layer_from_numpy(new, layer_to_numpy(old), device)
+                 for new, old in zip(fresh, nets_cpu))
+
+
+@contextlib.contextmanager
+def relu_decisions(nets, pinned=None):
+    """Each ReLU and LeakyReLU call of `nets` records which inputs it
+    passes (`pinned` None), or takes the recorded decision of the same
+    call instead of its own: ``where(decision, x, slope x)``, the same
+    value and gradient as the activation's given the decision.  Yields
+    (the decisions in call order, [how many of its own the pinned run
+    overrode])."""
+    decisions = [] if pinned is None else pinned
+    taken, flips, handles = iter(decisions), [0], []
+
+    def hook(module, inputs, output):
+        x = inputs[0]
+        slope = module.kwargs.get("negative_slope", 0.0)
+        own = x > 0 if slope == 0.0 else x >= 0
+        if pinned is None:
+            decisions.append(own.detach().cpu())
+            return None
+        d = next(taken).to(x.device)
+        flips[0] += int((own != d).sum())
+        return torch.where(d, x, x * slope)
+
+    for net in nets:
+        handles += [m.register_forward_hook(hook) for m in net.modules()
+                    if type(m).__name__ in ("ReLU", "LeakyReLU")]
+    try:
+        yield decisions, flips
+    finally:
+        for h in handles:
+            h.remove()
+
+
+def phase_cyclegan_held():
+    """(a): the first full iteration at the published widths, 256x256,
+    batch 1, card against the CPU from one set of weights: every loss
+    term within BOOK_LOSS_TOL relative, every gradient and every
+    parameter after the step by phase 20's rule (`hold_book_params`).
+    The card's ReLUs take the CPU's decisions (`relu_decisions`; how many
+    differ is printed): an input within rounding of 0 that takes the
+    other side moves the gradient of the convolution before it by about
+    1 / sqrt(its positions), 3.89e-2 of a tensor's largest here.  cuDNN
+    stays on, unlike phase 20's hold: here PyTorch's own fp32
+    convolutions (cuDNN off, and the CPU's without oneDNN alike) are the
+    ones far from float64, 2.20e-3 of a residual block's largest
+    gradient, where cuDNN's are 1.56e-5 and the CPU's oneDNN 5.18e-6
+    (``tools/cyclegan_precision.py --part card``)."""
+    c = CYCLEGAN
+    rng = np.random.default_rng(30)
+    images = cyclegan_images(rng, c)
+    cpu = port_cyclegan(c, blocks=c["held_blocks"], seed=0)
+    card = cyclegan_on(cpu, "cuda", c)
+    losses, grads, secs, decisions = {}, {}, {}, None
+    for dev, nets in (("cpu", cpu), ("cuda", card)):
+        opts = dict(cyclegan_optimizers(nets, c), grads=[])
+        args = [torch.from_numpy(a).to(dev) for a in images]
+        with relu_decisions(nets, decisions) as (decisions, flips):
+            t0 = time.perf_counter()
+            out = cyclegan_iteration(nets, opts, *args, c=c)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            secs[dev] = time.perf_counter() - t0
+        losses[dev] = {k: float(v) for k, v in out.items()}
+        grads[dev] = opts["grads"]
+    n_dec = sum(d.numel() for d in decisions)
+    log(f"  held at {c['held_blocks']} residual blocks, ngf {c['ngf']}, "
+        f"ndf {c['ndf']}, {c['image']}x{c['image']}, batch {c['batch']}: "
+        f"the CPU's iteration {secs['cpu']:.1f} s, the card's "
+        f"{secs['cuda']:.2f} s; the card's ReLUs took the CPU's decision "
+        f"over {flips[0]} of their own, of {n_dec} in {len(decisions)} "
+        f"calls")
+    err = max(abs(losses["cuda"][k] - v) / abs(v)
+              for k, v in losses["cpu"].items())
+    log(f"  losses card {losses['cuda']} CPU {losses['cpu']} (worst "
+        f"{err:.2e} relative)")
+    if not all(math.isfinite(v) for v in losses["cuda"].values()) \
+            or err > BOOK_LOSS_TOL:
+        fail(f"cyclegan: card losses {losses['cuda']} vs CPU "
+             f"{losses['cpu']}, past {BOOK_LOSS_TOL} relative")
+
+    def named(nets):
+        return {f"{k}.{n}": p for k, net in zip(CYCLEGAN_NETS, nets)
+                for n, p in net.named_parameters()}
+
+    hold_book_params("cyclegan (one iteration)", named(card), named(cpu),
+                     {d: [{n: g.cpu() for n, g in gs[0].items()}]
+                      for d, gs in grads.items()})
+    del card, cpu
+    torch.cuda.empty_cache()
+    return secs["cpu"]
+
+
+def phase_cyclegan_run():
+    """(a) cont.: the full-width networks alone on the card (cuDNN on),
+    timed as phase 19's models are (`timed_steps`)."""
+    c = CYCLEGAN
+    rng = np.random.default_rng(31)
+    nets = port_cyclegan(c, seed=0, device="cuda")
+    opts = cyclegan_optimizers(nets, c)
+    n = c["warmup"] + c["iters"] + c["profiled"]
+    batches = iter([[torch.from_numpy(a).cuda() for a in
+                     cyclegan_images(rng, c)] for _ in range(n)])
+
+    def step():
+        return cyclegan_iteration(nets, opts, *next(batches), c=c)["G"]
+
+    out = timed_steps("CycleGAN (the generators' loss)", step, c)
+    del nets, opts, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def cyclegan_numbers(card, r):
+    c = CYCLEGAN
+    ms = r["wall"] / r["iters"] * 1e3
+    log(f"  [{card}] CycleGAN iteration (ngf {c['ngf']}, {c['blocks']} "
+        f"residual blocks, {c['image']}x{c['image']}, batch {c['batch']}, "
+        f"cuDNN on, TF32 off): {ms:.2f} ms per iteration over "
+        f"{r['iters']}, {1e3 / ms:.2f} iterations/s, "
+        f"{2 * c['batch'] * 1e3 / ms:.2f} images/s (one of each domain an "
+        f"iteration); peak memory {r['peak'] / 2**30:.2f} GiB above the "
+        f"iterations' start; {r['kernels']:.0f} kernels an iteration")
+    book_idle(card, "CycleGAN iteration", r)
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this run needs a card")
@@ -7452,6 +7969,22 @@ def main():
     chapters = phase_chapters_run()
     chapter_numbers(card, chapters)
     log(f"  phase 20 launched none of the six kernels of the port: "
+        f"{read_launches()}")
+
+    phase("phase 21: the convolution, norm, resampling and pooling layers "
+          "(CycleGAN at its published widths; every ported function and "
+          "layer card vs CPU)")
+    reset_launches()
+    log("  (a) CycleGAN's first iteration at full width, card vs CPU")
+    phase_cyclegan_held()
+    log("  (b) every ported function and layer, forward and backward")
+    phase_layer_sweep()
+    if any(read_launches().values()):
+        fail(f"the held checks launched a kernel of the port: "
+             f"{read_launches()}")
+    log("  (a) CycleGAN alone on the card, cuDNN on")
+    cyclegan_numbers(card, phase_cyclegan_run())
+    log(f"  phase 21 launched none of the six kernels of the port: "
         f"{read_launches()}")
     phase(None)
     log(f"  whole run {time.perf_counter() - t_start:.1f} s wall")

@@ -1,6 +1,8 @@
 """`flops` and `static_flops` (``paddle_tpu/hapi/dynamic_flops.py``):
 forward FLOPs of a module counted by forward hooks over a dry run, by
-the JAX package's rules for convolutions, linears and norms (the
+the JAX package's rules for the 1-D, 2-D, 3-D and transposed
+convolutions, linears and the batch, layer, group, instance and sync
+batch norms (the
 tensor-parallel linears, which are no ``Linear`` there, not counted);
 `custom_ops` adds rules per module class.  `static_flops` counts a
 static ``Program``'s matmul and conv2d ops from their variables'
@@ -42,10 +44,12 @@ def _default_table():
 
     table = {}
     for mod, names, fn in [
-        (C, ["Conv2D"], _count_conv),
+        (C, ["Conv1D", "Conv2D", "Conv3D", "Conv1DTranspose",
+             "Conv2DTranspose", "Conv3DTranspose"], _count_conv),
         (CM, ["Linear"], _count_linear),
         (N, ["BatchNorm", "BatchNorm1D", "BatchNorm2D", "BatchNorm3D",
-             "LayerNorm"], _count_norm),
+             "LayerNorm", "GroupNorm", "InstanceNorm1D", "InstanceNorm2D",
+             "InstanceNorm3D", "SyncBatchNorm"], _count_norm),
     ]:
         for n in names:
             table[getattr(mod, n)] = fn

@@ -1,17 +1,18 @@
 """The functional namespace (``paddle_tpu/nn/functional.py``): the
-activation, softmax and dropout functions of ``ops.nn_ops``, the losses
-of ``ops.loss``, ``ops.nn_extra``'s `gather_tree`, `celu` and
-`pairwise_distance`, `label_smooth`, `diag_embed`, `sequence_mask` and
-the in-place aliases; and the layers' own functions (`linear`,
-`layer_norm`, `embedding`, `conv2d`, the pools, `batch_norm`).  Mixed
+activation, softmax and dropout functions, the convolutions, pools,
+instance and group norms and resampling of ``ops.nn_ops``, the losses
+of ``ops.loss``, ``ops.nn_extra``'s 1-D and 3-D convolutions and pools,
+sampling grids, layer losses and the rest, `label_smooth`,
+`diag_embed`, `sequence_mask` and the in-place aliases; and the layers'
+own functions (`linear`, `layer_norm`, `embedding`, `batch_norm`).  Mixed
 dtypes promote as JAX promotes them: a bfloat16 operand meeting a
 float32 one computes in float32.  Under dygraph AMP (``amp.auto_cast``)
-`linear`, `matmul` and `conv2d` first cast their float32 tensors as the
-JAX ops ``linear``/``linear_nobias``, ``matmul_v2`` and ``conv2d`` are
-cast."""
+`linear`, `matmul` and the convolutions first cast their float32
+tensors as the JAX ops ``linear``/``linear_nobias``, ``matmul_v2``,
+``conv1d``, ``conv2d`` and ``conv2d_transpose`` are cast."""
 import torch
 
-from ..amp.auto_cast import amp_enabled, cast_inputs
+from ..amp.auto_cast import cast_inputs
 from ..ops.loss import (IGNORE_INDEX, binary_cross_entropy,  # noqa: F401
                         binary_cross_entropy_with_logits, cosine_similarity,
                         cross_entropy, hinge_loss, kl_div, l1_loss,
@@ -22,13 +23,26 @@ from ..ops.manipulation import flatten, one_hot, pad  # noqa: F401
 from ..ops.math import matmul, matmul_promoted, tanh  # noqa: F401
 from ..ops.nn_extra import (celu, gather_tree,  # noqa: F401
                             pairwise_distance)
-from ..ops.nn_ops import (alpha_dropout, dropout, dropout2d,  # noqa: F401
-                          elu, gelu, glu, hardshrink, hardsigmoid,
-                          hardswish, hardtanh, leaky_relu, log_sigmoid,
-                          log_softmax, maxout, mish, normalize, prelu, relu,
-                          relu6, selu, sigmoid, silu, softmax, softplus,
-                          softshrink, softsign, swish, tanhshrink,
-                          thresholded_relu)
+from ..ops.nn_extra import (adaptive_avg_pool1d,  # noqa: F401
+                            adaptive_avg_pool3d, adaptive_max_pool1d,
+                            adaptive_max_pool3d, affine_grid, avg_pool3d,
+                            bilinear, conv1d_transpose, conv3d,
+                            conv3d_transpose, ctc_loss, dice_loss, dropout3d,
+                            fold, grid_sample, hsigmoid_loss, log_loss,
+                            max_pool3d, npair_loss, temporal_shift)
+from ..ops.nn_ops import _affine
+from ..ops.nn_ops import (adaptive_avg_pool2d,  # noqa: F401
+                          adaptive_max_pool2d, alpha_dropout, avg_pool1d,
+                          avg_pool2d, conv1d, conv2d, conv2d_transpose,
+                          dropout, dropout2d, elu, gelu, glu, group_norm,
+                          hardshrink, hardsigmoid, hardswish, hardtanh,
+                          instance_norm, interpolate, leaky_relu,
+                          local_response_norm, log_sigmoid, log_softmax,
+                          max_pool1d, max_pool2d, maxout, mish, normalize,
+                          pixel_shuffle, prelu, relu, relu6, selu, sigmoid,
+                          silu, softmax, softplus, softshrink, softsign,
+                          swish, tanhshrink, thresholded_relu, unfold,
+                          upsample)
 
 
 def linear(x, weight, bias=None):
@@ -64,107 +78,6 @@ def embedding(ids, weight, padding_idx=None):
     return out
 
 
-def _pair(v, what):
-    if isinstance(v, str):
-        raise NotImplementedError(f"a string {what} ({v!r}) is not ported")
-    if isinstance(v, (list, tuple)):
-        return tuple(int(x) for x in v) * (1 if len(v) == 2 else 2)
-    return (int(v),) * 2
-
-
-def _pads(padding):
-    """(top, bottom, left, right) of a paddle 2-D padding: an int, two
-    per-axis values or four (top, bottom, left, right); a string
-    raises."""
-    if isinstance(padding, str):
-        raise NotImplementedError(
-            f"string padding {padding!r} is not ported")
-    if isinstance(padding, int):
-        return (padding,) * 4
-    padding = [int(p) for p in padding]
-    if len(padding) == 2:
-        return padding[0], padding[0], padding[1], padding[1]
-    if len(padding) == 4:
-        return tuple(padding)
-    raise ValueError(f"bad padding {padding}")
-
-
-def _nchw(data_format):
-    if data_format != "NCHW":
-        raise NotImplementedError(
-            f"data_format={data_format!r} is not ported: NCHW only")
-
-
-def conv2d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
-           data_format="NCHW"):
-    """2-D convolution, NCHW input and OIHW weight (``ops/nn_ops.py::
-    conv2d``); an asymmetric padding is zero-padded first.  Under AMP x
-    and weight are cast (the JAX ``conv2d`` op) and the bias is added
-    after, uncast (its ``conv2d_bias`` op): a float32 bias makes the sum
-    float32, as in JAX."""
-    _nchw(data_format)
-    if amp_enabled():
-        x, weight = cast_inputs("conv2d", x, weight)
-        if bias is not None:
-            out = conv2d(x, weight, None, stride, padding, dilation, groups)
-            bias, = cast_inputs("conv2d_bias", bias)
-            return out + bias.reshape(1, -1, 1, 1)
-    t, b, left, r = _pads(padding)
-    if t != b or left != r:
-        x = torch.nn.functional.pad(x, (left, r, t, b))
-        t = left = 0
-    return torch.nn.functional.conv2d(
-        x, weight, bias, _pair(stride, "stride"), (t, left),
-        _pair(dilation, "dilation"), groups)
-
-
-def _pool_args(kernel_size, stride, padding, ceil_mode, data_format):
-    _nchw(data_format)
-    if ceil_mode:
-        raise NotImplementedError("ceil_mode=True is not ported (the JAX "
-                                  "pools ignore it)")
-    k = _pair(kernel_size, "kernel_size")
-    s = _pair(stride, "stride") if stride is not None else k
-    t, b, left, r = _pads(padding)
-    if t != b or left != r or 2 * t > k[0] or 2 * left > k[1]:
-        raise NotImplementedError(
-            f"pool padding {padding} is not ported: symmetric and at most "
-            f"half the window only")
-    return k, s, (t, left)
-
-
-def max_pool2d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
-               return_mask=False, data_format="NCHW"):
-    """Max over each window, the padding counting as -inf."""
-    if return_mask:
-        raise NotImplementedError("return_mask=True is not ported (the JAX "
-                                  "pool answers None)")
-    k, s, p = _pool_args(kernel_size, stride, padding, ceil_mode,
-                         data_format)
-    return torch.nn.functional.max_pool2d(x, k, s, p)
-
-
-def avg_pool2d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
-               exclusive=True, divisor_override=None, data_format="NCHW"):
-    """Mean over each window; `exclusive` leaves the padding out of the
-    count (PyTorch's ``count_include_pad=False``)."""
-    if divisor_override is not None:
-        raise NotImplementedError("divisor_override is not ported (the JAX "
-                                  "pool ignores it)")
-    k, s, p = _pool_args(kernel_size, stride, padding, ceil_mode,
-                         data_format)
-    return torch.nn.functional.avg_pool2d(x, k, s, p,
-                                          count_include_pad=not exclusive)
-
-
-def adaptive_avg_pool2d(x, output_size, data_format="NCHW"):
-    """Window i of n inputs over o outputs spans ``floor(i n / o)`` to
-    ``ceil((i + 1) n / o)``, as ``ops/nn_extra.py::_adaptive_nd``."""
-    _nchw(data_format)
-    return torch.nn.functional.adaptive_avg_pool2d(
-        x, _pair(output_size, "output_size"))
-
-
 def batch_stats(x, axes):
     """Mean and biased variance ``E[x²] − mean²`` over `axes`, the
     arithmetic of ``ops/nn_ops.py::batch_norm`` (PyTorch's batch norm
@@ -197,11 +110,7 @@ def batch_norm(x, running_mean, running_var, weight=None, bias=None,
         mean, var = running_mean, running_var
     out = (x - mean.reshape(shape)) * torch.rsqrt(var.reshape(shape)
                                                    + epsilon)
-    if weight is not None:
-        out = out * weight.reshape(shape)
-    if bias is not None:
-        out = out + bias.reshape(shape)
-    return out
+    return _affine(out, weight, bias, shape)
 
 
 def label_smooth(label, prior_dist=None, epsilon=0.1, name=None):

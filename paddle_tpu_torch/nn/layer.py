@@ -94,3 +94,12 @@ def create_parameter(shape, attr=None, is_bias=False,
     p.need_clip = attr.need_clip
     p.is_bias = is_bias
     return p
+
+
+def place(module, device):
+    """`module` moved to `device`, where None means the card (a layer
+    built without one raises when CUDA is missing, instead of staying on
+    the CPU)."""
+    from ..device import resolve_device
+
+    return module.to(resolve_device(device, type(module).__name__))

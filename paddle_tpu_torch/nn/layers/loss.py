@@ -1,9 +1,10 @@
 """Loss layers (``paddle_tpu/nn/layers/loss.py``) over the functional
-losses.  `CTCLoss` and `HSigmoidLoss` wait for ``ops/nn_extra.py``'s
-``ctc_loss`` and ``hsigmoid_loss``."""
+losses.  `HSigmoidLoss` holds parameters and is built on `device`, where
+None means the card."""
 from torch import nn
 
 from .. import functional as F
+from ..layer import create_parameter, place
 
 
 class CrossEntropyLoss(nn.Module):
@@ -116,3 +117,39 @@ class PairwiseDistance(nn.Module):
     def forward(self, x, y):
         return F.pairwise_distance(x, y, p=self.p, epsilon=self.epsilon,
                                    keepdim=self.keepdim)
+
+
+class CTCLoss(nn.Module):
+    def __init__(self, blank=0, reduction="mean"):
+        super().__init__()
+        self.blank, self.reduction = blank, reduction
+
+    def forward(self, log_probs, labels, input_lengths, label_lengths,
+                norm_by_times=False):
+        return F.ctc_loss(log_probs, labels, input_lengths, label_lengths,
+                          blank=self.blank, reduction=self.reduction,
+                          norm_by_times=norm_by_times)
+
+
+class HSigmoidLoss(nn.Module):
+    """Hierarchical sigmoid over the default complete tree: weight
+    [num_classes - 1, feature_size] (XavierNormal) and bias
+    [num_classes - 1] (zeros), which `F.hsigmoid_loss` leaves unused, as
+    in the JAX layer."""
+
+    def __init__(self, feature_size, num_classes, weight_attr=None,
+                 bias_attr=None, is_custom=False, is_sparse=False,
+                 name=None, *, generator=None, device=None):
+        super().__init__()
+        if num_classes < 2:
+            raise ValueError("num_classes must be >= 2")
+        self.num_classes = num_classes
+        self.weight = create_parameter([num_classes - 1, feature_size],
+                                       weight_attr, generator=generator)
+        self.bias = create_parameter([num_classes - 1], bias_attr,
+                                     is_bias=True, generator=generator)
+        place(self, device)
+
+    def forward(self, input, label):
+        return F.hsigmoid_loss(input, label, self.num_classes, self.weight,
+                               bias=self.bias)

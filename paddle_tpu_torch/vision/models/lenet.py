@@ -16,10 +16,10 @@ class LeNet(nn.Module):
         dev, g = start(device, "LeNet", generator)
         self.num_classes = num_classes
         self.features = Sequential(
-            Conv2D(1, 6, 3, stride=1, padding=1, generator=g),
+            Conv2D(1, 6, 3, stride=1, padding=1, generator=g, device="cpu"),
             ReLU(),
             MaxPool2D(2, 2),
-            Conv2D(6, 16, 5, stride=1, padding=0, generator=g),
+            Conv2D(6, 16, 5, stride=1, padding=0, generator=g, device="cpu"),
             ReLU(),
             MaxPool2D(2, 2))
         if num_classes > 0:

@@ -14,8 +14,8 @@ class ConvBNLayer(nn.Module):
         super().__init__()
         self.conv = Conv2D(in_c, out_c, k, stride=stride, padding=padding,
                            groups=groups, bias_attr=False,
-                           generator=generator)
-        self.bn = BatchNorm2D(out_c)
+                           generator=generator, device="cpu")
+        self.bn = BatchNorm2D(out_c, device="cpu")
         self.act = act_cls() if act_cls else None
 
     def forward(self, x):

@@ -1,11 +1,16 @@
 """ResNet (``paddle_tpu/vision/models/resnet.py``): BasicBlock,
 BottleneckBlock and ResNet-18/34/50/101/152."""
+import functools
+
 from torch import nn
 
 from ...nn import (AdaptiveAvgPool2D, BatchNorm2D, Conv2D, Linear,
                    MaxPool2D, ReLU, Sequential)
 from ...nn import functional as F
 from ._place import no_pretrained, start
+
+# the layers are built on the CPU and the model moves them
+_batch_norm = functools.partial(BatchNorm2D, device="cpu")
 
 
 class BasicBlock(nn.Module):
@@ -15,13 +20,13 @@ class BasicBlock(nn.Module):
                  groups=1, base_width=64, dilation=1, norm_layer=None, *,
                  generator):
         super().__init__()
-        norm_layer = norm_layer or BatchNorm2D
+        norm_layer = norm_layer or _batch_norm
         self.conv1 = Conv2D(inplanes, planes, 3, padding=1, stride=stride,
-                            bias_attr=False, generator=generator)
+                            bias_attr=False, generator=generator, device="cpu")
         self.bn1 = norm_layer(planes)
         self.relu = ReLU()
         self.conv2 = Conv2D(planes, planes, 3, padding=1, bias_attr=False,
-                            generator=generator)
+                            generator=generator, device="cpu")
         self.bn2 = norm_layer(planes)
         self.downsample = downsample
         self.stride = stride
@@ -42,17 +47,17 @@ class BottleneckBlock(nn.Module):
                  groups=1, base_width=64, dilation=1, norm_layer=None, *,
                  generator):
         super().__init__()
-        norm_layer = norm_layer or BatchNorm2D
+        norm_layer = norm_layer or _batch_norm
         width = int(planes * (base_width / 64.0)) * groups
         self.conv1 = Conv2D(inplanes, width, 1, bias_attr=False,
-                            generator=generator)
+                            generator=generator, device="cpu")
         self.bn1 = norm_layer(width)
         self.conv2 = Conv2D(width, width, 3, padding=dilation, stride=stride,
                             groups=groups, dilation=dilation,
-                            bias_attr=False, generator=generator)
+                            bias_attr=False, generator=generator, device="cpu")
         self.bn2 = norm_layer(width)
         self.conv3 = Conv2D(width, planes * self.expansion, 1,
-                            bias_attr=False, generator=generator)
+                            bias_attr=False, generator=generator, device="cpu")
         self.bn3 = norm_layer(planes * self.expansion)
         self.relu = ReLU()
         self.downsample = downsample
@@ -82,11 +87,11 @@ class ResNet(nn.Module):
         self.base_width = width
         self.num_classes = num_classes
         self.with_pool = with_pool
-        self._norm_layer = BatchNorm2D
+        self._norm_layer = _batch_norm
         self.inplanes = 64
         self.dilation = 1
         self.conv1 = Conv2D(3, self.inplanes, 7, stride=2, padding=3,
-                            bias_attr=False, generator=g)
+                            bias_attr=False, generator=g, device="cpu")
         self.bn1 = self._norm_layer(self.inplanes)
         self.relu = ReLU()
         self.maxpool = MaxPool2D(3, stride=2, padding=1)
@@ -106,7 +111,8 @@ class ResNet(nn.Module):
         if stride != 1 or self.inplanes != planes * block.expansion:
             downsample = Sequential(
                 Conv2D(self.inplanes, planes * block.expansion, 1,
-                       stride=stride, bias_attr=False, generator=generator),
+                       stride=stride, bias_attr=False, generator=generator,
+                       device="cpu"),
                 norm_layer(planes * block.expansion))
         layers = [block(self.inplanes, planes, stride, downsample,
                         self.groups, self.base_width, 1, norm_layer,

@@ -26,9 +26,9 @@ def make_layers(cfg, batch_norm=False, *, generator):
             layers.append(MaxPool2D(2, 2))
         else:
             layers.append(Conv2D(in_channels, v, 3, padding=1,
-                                 generator=generator))
+                                 generator=generator, device="cpu"))
             if batch_norm:
-                layers.append(BatchNorm2D(v))
+                layers.append(BatchNorm2D(v, device="cpu"))
             layers.append(ReLU())
             in_channels = v
     return Sequential(*layers)

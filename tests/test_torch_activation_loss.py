@@ -199,10 +199,8 @@ def test_layers_match_jax(name, jax_results):
 
 
 def test_the_layer_library_has_the_jax_names():
-    """All 28 activation layers and the loss layers but `CTCLoss` and
-    `HSigmoidLoss` (which wait for ``ctc_loss`` and ``hsigmoid_loss``)
-    under their JAX names, and the functional names of the ported
-    modules."""
+    """All 28 activation layers and every loss layer under their JAX
+    names, and the functional names of the ported modules."""
     from paddle_tpu.nn.layers import activation as jact
     from paddle_tpu.nn.layers import loss as jloss
 
@@ -212,7 +210,7 @@ def test_the_layer_library_has_the_jax_names():
             and n not in ("Layer", "Constant")]
     assert len(acts) == 28
     losses = [n for n in dir(jloss) if isinstance(getattr(jloss, n), type)
-              and n not in ("Layer", "CTCLoss", "HSigmoidLoss")]
+              and n != "Layer"]
     missing = [n for n in acts + losses if not hasattr(pnn, n)]
     assert not missing, missing
     from paddle_tpu.ops import loss as jl

@@ -186,7 +186,7 @@ def test_o2_decorate_casts_parameters_and_buffers_as_jax():
     jnet = JaxLeNet()
     state = {n: np.asarray(t._data) for n, t in jnet.state_dict().items()}
     pnet = layer_from_numpy(LeNet(device="cpu"), state, device="cpu")
-    bn = pnn.BatchNorm2D(4)
+    bn = pnn.BatchNorm2D(4, device="cpu")
     pamp.decorate([pnet, bn], level="O2")
     jax_decorate(jnet, level="O2")
     assert {p.dtype for p in pnet.parameters()} == {torch.bfloat16}

@@ -33,6 +33,7 @@ from paddle_tpu_torch import optimizer as popt
 from paddle_tpu_torch.models import layer_from_numpy
 from paddle_tpu_torch.models.weights import scope_from_numpy
 from paddle_tpu_torch.ops import sequence_ops as PS
+from torch_op_parity import with_params
 
 LOSS_TOL = 1e-5
 PARITY_STEPS = 3
@@ -91,17 +92,13 @@ def _jax_train(model, batch, lr, steps):
     opt = paddle.optimizer.Adam(learning_rate=lr, parameters=params)
 
     def loss_of(datas, key):
-        saved, op_key = [p._data for p in params], JS._op_key
+        op_key = JS._op_key
         try:
-            for p, d in zip(params, datas):
-                p._data = d
             JS._op_key = lambda seed: key
-            with paddle.no_grad():
-                return model.loss(*args)._data
+            return with_params(params, datas,
+                               lambda: model.loss(*args)._data)
         finally:
             JS._op_key = op_key
-            for p, d in zip(params, saved):
-                p._data = d
 
     @jax.jit
     def train_step(datas, states, key):

@@ -1,8 +1,9 @@
 """Port parity: the PaddlePaddle book's two recurrent models, chapter 06's
 sentiment LSTM and chapter 08's GRU encoder-decoder with beam search
 (``chip_smoke.book_models``, one source for both packages), at toy
-widths (2 layers, H 16, V 64), three eager Adam steps from the JAX
-model's weights carried by ``models.layer_from_numpy``, both on the CPU.
+widths (2 layers, H 16, V 64), three Adam steps from the JAX model's
+weights carried by ``models.layer_from_numpy``, both on the CPU (each
+JAX step traced into one jitted value, gradient and update).
 
 Every step's loss within 1e-5 relative, and after the last step every
 parameter within 1e-4 of its tensor's largest magnitude; a parameter
@@ -11,6 +12,7 @@ positions are masked out) is bounded as ``test_torch_bert.py`` bounds
 one, moved exactly where JAX's moved and at most 2 x the summed step
 sizes from it.  After training, the translation model's beam ids equal
 JAX's."""
+import jax
 import numpy as np
 import pytest
 import torch
@@ -22,6 +24,7 @@ import paddle_tpu.nn as jnn
 import paddle_tpu.nn.functional as JF
 from paddle_tpu_torch import optimizer as popt
 from paddle_tpu_torch.models import layer_from_numpy
+from torch_op_parity import with_params
 
 STEPS, LR = 3, 5e-3
 LOSS_TOL, PARAM_TOL = 1e-5, 1e-4
@@ -34,24 +37,56 @@ def _jax_state(layer):
     return {n: np.array(t._data) for n, t in layer.state_dict().items()}
 
 
-def _train(model, loss_fn, opt, steps, jax):
-    """Losses of `steps` eager Adam steps, the first step's gradients and
-    the parameters after the last."""
-    losses, first = [], None
+def _train(model, loss_fn, opt, steps):
+    """Losses of `steps` eager Adam steps of the port's model, and the
+    parameters after the last."""
+    losses = []
     for _ in range(steps):
         loss = loss_fn()
         loss.backward()
-        if first is None:
-            first = {n: (np.asarray(p.grad._data) if jax else
-                         p.grad.numpy()) if p.grad is not None else None
-                     for n, p in model.named_parameters()}
         opt.step()
         opt.clear_grad()
-        losses.append(float(np.asarray(loss._data)) if jax
-                      else loss.item())
-    final = {n: np.array(p._data) if jax else p.detach().numpy().copy()
+        losses.append(loss.item())
+    final = {n: p.detach().numpy().copy()
              for n, p in model.named_parameters()}
-    return losses, first, final
+    return losses, final
+
+
+def _jax_train(model, args, steps):
+    """`steps` Adam steps of the JAX model, each one call of a jitted
+    function (instead of one compile per eager op): its ``loss`` under
+    ``jax.value_and_grad`` (the parameters' data swapped for the traced
+    values), then the JAX optimizer's ``update``, the rule its eager
+    ``step`` applies.  Returns the losses, the first step's gradients
+    (None where the eager tape gives none: a parameter the loss does not
+    reach) and the parameters after the last, which the model keeps."""
+    named = list(model.named_parameters())
+    params = [p for _, p in named]
+    opt = paddle.optimizer.Adam(learning_rate=LR, parameters=params)
+    targs = [paddle.to_tensor(a) for a in args]
+
+    def loss_of(datas):
+        return with_params(params, datas, lambda: model.loss(*targs)._data)
+
+    @jax.jit
+    def step(datas, states):
+        loss, grads = jax.value_and_grad(loss_of)(datas)
+        new = [opt.update(d, g, st, LR)
+               for d, g, st in zip(datas, grads, states)]
+        return loss, grads, [n[0] for n in new], [n[1] for n in new]
+
+    datas = [p._data for p in params]
+    states = [opt._state_for(p) for p in params]
+    losses, first = [], None
+    for _ in range(steps):
+        loss, grads, datas, states = step(datas, states)
+        losses.append(float(loss))
+        if first is None:
+            first = {n: np.asarray(g) for (n, _), g in zip(named, grads)}
+    for p, d in zip(params, datas):
+        p._data = d
+    return losses, first, {n: np.array(d) for (n, _), d in zip(named,
+                                                                datas)}
 
 
 def _run_both(build_args, cls_index, loss_args):
@@ -64,13 +99,10 @@ def _run_both(build_args, cls_index, loss_args):
     jm = jcls(**build_args)
     start = _jax_state(jm)
     pm = layer_from_numpy(pcls(**build_args), start, device="cpu")
-    jargs = [paddle.to_tensor(a) for a in loss_args]
     pargs = [torch.from_numpy(a) for a in loss_args]
-    jopt = paddle.optimizer.Adam(learning_rate=LR,
-                                 parameters=jm.parameters())
     popt_ = popt.Adam(learning_rate=LR, parameters=pm.parameters())
-    jl, jg, jf = _train(jm, lambda: jm.loss(*jargs), jopt, STEPS, True)
-    pl, _, pf = _train(pm, lambda: pm.loss(*pargs), popt_, STEPS, False)
+    jl, jg, jf = _jax_train(jm, loss_args, STEPS)
+    pl, pf = _train(pm, lambda: pm.loss(*pargs), popt_, STEPS)
     return (jl, jg, start, jf), (pl, pf), jm, pm
 
 

@@ -5,15 +5,20 @@ is one call of a function or layer both packages export under one name;
 every float input (and a layer's parameters) under seeded cotangents;
 `jax_traced` runs many cases' JAX calls traced into one jitted forward
 and one jitted gradient, instead of one compile per eager op; `hold`
-compares a case's port run with its JAX results."""
+compares a case's port run with its JAX results.  A layer case's JAX
+layer is built once, its initializers drawing from numpy
+(`jax_static_start.numpy_initializers`), and the port's layer carries
+its state (``models.layer_from_numpy``)."""
 import numpy as np
 import torch
+from jax_static_start import numpy_initializers
 
 import paddle_tpu as paddle
 import paddle_tpu.nn as jnn
 import paddle_tpu.nn.functional as JF
 import paddle_tpu_torch as ptorch
 from paddle_tpu_torch import nn as pnn
+from paddle_tpu_torch.models import layer_from_numpy
 from paddle_tpu_torch.nn import functional as PF
 
 FWD_TOL, GRAD_TOL = 1e-6, 1e-5
@@ -32,15 +37,20 @@ def rand_i(shape, hi, seed=0, lo=0):
 
 
 def case(fname, *args, nograd=False, pkw=None, ns="top", ctor=(),
-         **kw):
+         ckw=None, pctor=None, setup=None, **kw):
     """One call: the name both packages export in namespace `ns` ("top",
     "F", or "nn" for a layer built with `ctor` and then called), its
     positional arguments (numpy arrays, lists of them, or python
     values), its keyword arguments (arrays among them become tensors,
     float ones differentiated after the positional ones), and the
-    port-only ones (`pkw`)."""
+    port-only ones (`pkw`; `pctor` for the port layer's constructor,
+    which both packages' take `ckw` too).
+    `setup(layer, package)` runs on each package's new layer (the JAX
+    package's module, or the port's ``nn``) before its state is read."""
     return dict(fname=fname, args=args, kw=kw, pkw=pkw or {},
-                nograd=nograd, ns=ns, ctor=ctor)
+                nograd=nograd, ns=ns, ctor=ctor, ckw=ckw or {},
+                pctor=pctor or {},
+                setup=setup)
 
 
 def leaves(v):
@@ -61,12 +71,34 @@ def is_float(a):
     return isinstance(a, np.ndarray) and a.dtype == np.float32
 
 
+def jax_layer(c):
+    """The case's JAX layer, built once (its state kept as it was built,
+    for the port's layer to carry)."""
+    if "layer" not in c:
+        with numpy_initializers(len(c["fname"])):
+            layer = getattr(jnn, c["fname"])(*c["ctor"], **c["ckw"])
+            if c["setup"] is not None:
+                c["setup"](layer, paddle.nn)
+        c["layer"] = layer
+        c["state"] = {n: np.asarray(t._data)
+                      for n, t in layer.state_dict().items()}
+    return c["layer"]
+
+
 def _callable(c, jax):
     ns = NAMESPACES[c["ns"]][0 if jax else 1]
     fn = getattr(ns, c["fname"])
-    if c["ns"] == "nn":
-        return fn(*c["ctor"])
-    return fn
+    if c["ns"] != "nn":
+        return fn
+    if jax:
+        return jax_layer(c)
+    jax_layer(c)
+    layer = fn(*c["ctor"], **c["ckw"], **c["pctor"])
+    if c["setup"] is not None:
+        c["setup"](layer, pnn)
+    if c["state"]:
+        layer_from_numpy(layer, c["state"], device="cpu")
+    return layer
 
 
 def cotangents(vals):
@@ -99,6 +131,9 @@ def run(c, jax):
     vals = [np.asarray(o._data) if jax else o.detach().numpy()
             for o in outs]
     params = list(fn.parameters()) if c["ns"] == "nn" else []
+    for p in params:
+        if jax:
+            p.clear_grad()
     grads = None
     fouts = [o for o, v in zip(outs, vals) if v.dtype == np.float32]
     if (inputs or params) and fouts and not c["nograd"]:
@@ -116,17 +151,40 @@ def run(c, jax):
     return vals, grads
 
 
+def _params(c):
+    return list(jax_layer(c).parameters()) if c["ns"] == "nn" else []
+
+
+def with_params(params, datas, fn):
+    """`fn()` under ``no_grad`` with each JAX parameter's data swapped for
+    the matching array of `datas` (traced ones, inside a jitted function
+    that JAX differentiates itself), put back after."""
+    saved = [p._data for p in params]
+    try:
+        for p, d in zip(params, datas):
+            p._data = d
+        with paddle.no_grad():
+            return fn()
+    finally:
+        for p, d in zip(params, saved):
+            p._data = d
+
+
 def jax_traced(cases):
-    """`run`'s JAX results for `cases` (pairs of a key and a case without
-    parameters) through the JAX package's functions traced into one
-    jitted forward and gradient: the same functions on the same values, each case's cotangents as `run` draws them."""
+    """`run`'s JAX results for `cases` (pairs of a key and a case)
+    through the JAX package's functions traced into one jitted forward
+    and gradient: the same functions on the same values, a layer's
+    parameters swapped for traced ones (a layer whose forward updates
+    its state belongs in an eager `run`), each case's cotangents as
+    `run` draws them."""
     import jax
     import jax.numpy as jnp
 
     from paddle_tpu.core.tensor import _wrap_data
 
     floats = [[np.asarray(a) for a in leaves(list(c["args"]) + list(
-        c["kw"].values())) if is_float(a)] for _, c in cases]
+        c["kw"].values())) if is_float(a)]
+        + [np.asarray(p._data) for p in _params(c)] for _, c in cases]
 
     def forward(inputs):
         outs = []
@@ -139,7 +197,9 @@ def jax_traced(cases):
 
                 args = [convert(a, make) for a in c["args"]]
                 kw = {k: convert(v, make) for k, v in c["kw"].items()}
-                out = _callable(c, True)(*args, **kw)
+                params = _params(c)
+                out = with_params(params, [next(it) for _ in params],
+                                  lambda: _callable(c, True)(*args, **kw))
                 outs.append([o._data for o in leaves(out)])
         return outs
 
