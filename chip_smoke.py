@@ -5987,11 +5987,12 @@ BOOK_NEAR_TIE = 1e-4     # the CPU's gap under which a beam may differ
 
 
 def book_models(P, nn, F, base, **gen):
-    """The book's two recurrent models over a package: `P` its top level,
-    `nn` its layers, `F` its functional namespace, `base` its layer class
-    and `gen` the keyword arguments its layers draw their weights with
-    (``generator=`` for the port, none for the JAX package, whose layers
-    draw from its global key).  The same code builds and runs either."""
+    """The book's recurrent models and chapter 06's convolution net over a
+    package: `P` its top level, `nn` its layers, `F` its functional
+    namespace, `base` its layer class and `gen` the keyword arguments its
+    layers draw their weights with (``generator=`` for the port, none for
+    the JAX package, whose layers draw from its global key).  The same
+    code builds and runs either."""
 
     class SentimentLSTM(base):
         """Chapter 06's stacked_lstm_net: embedding, stacked LSTMs over
@@ -6068,7 +6069,41 @@ def book_models(P, nn, F, base, **gen):
                 Cell(), BOS, EOS, beam), inits=(h0,), max_step_num=max_steps,
                 return_length=True)
 
-    return SentimentLSTM, Seq2Seq
+    class SentimentConv(base):
+        """Chapter 06's convolution_net: an embedding (sparse gradients
+        by default, the chapter's ``is_sparse=True``) zeroed past each
+        review's length (the chapter feeds LoD sequences, which have no
+        padding), two ``sequence_conv_pool`` branches of windows 3 and 4,
+        each `filters` wide with a bias and tanh and pooled by "sqrt",
+        and an fc over both branches to the classes, softmax and cross
+        entropy.  A linear layer holds each window's filter [context ·
+        emb, filters] and bias, the layout ``sequence_conv`` reads."""
+
+        def __init__(self, vocab, emb, filters, classes, sparse=True):
+            super().__init__()
+            self.embedding = nn.Embedding(vocab, emb, sparse=sparse, **gen)
+            self.conv3 = nn.Linear(3 * emb, filters, **gen)
+            self.conv4 = nn.Linear(4 * emb, filters, **gen)
+            self.fc = nn.Linear(2 * filters, classes, **gen)
+
+        @staticmethod
+        def conv_pool(x, lens, conv, context):
+            h = P.sequence_conv(x, conv.weight, lens,
+                                context_length=context) + conv.bias
+            return P.sequence_pool(P.tanh(h), lens, "sqrt")
+
+        def forward(self, ids, lens):
+            mask = F.sequence_mask(lens, ids.shape[1], dtype="float32")
+            x = self.embedding(ids) * mask.unsqueeze(-1)
+            return self.fc(P.concat([self.conv_pool(x, lens, self.conv3, 3),
+                                     self.conv_pool(x, lens, self.conv4, 4)],
+                                    axis=-1))
+
+        def loss(self, ids, lens, label):
+            return P.mean(F.softmax_with_cross_entropy(self(ids, lens),
+                                                       label))
+
+    return SentimentLSTM, Seq2Seq, SentimentConv
 
 
 def sentiment_batch(rng, batch, seq, vocab, min_len):
@@ -6101,7 +6136,7 @@ def port_book_models(seed=0):
 def book_build(which, seed=0):
     """Phase 19's model `which` ("sentiment" or "translation") at the
     chapter's widths, on the CPU from a generator of `seed`."""
-    sent, trans = port_book_models(seed)
+    sent, trans, _ = port_book_models(seed)
     if which == "sentiment":
         c = SENTIMENT
         return sent(c["vocab"], c["emb"], c["hidden"], c["layers"],
@@ -6116,16 +6151,26 @@ def book_adam(model, lr):
     return optimizer.Adam(learning_rate=lr, parameters=model.parameters())
 
 
-def book_steps(model, batch, lr, n, grads=None):
-    """`n` eager Adam steps of ``model.loss(*batch)``: the losses; each
-    step's gradients appended to `grads` where given."""
-    opt = book_adam(model, lr)
+def book_steps(model, batch, lr, n, grads=None, make_opt=None, rows=None):
+    """`n` eager steps of ``model.loss(*batch)`` under ``make_opt(model,
+    lr)`` (Adam by default): the losses; each step's gradients (a sparse
+    one made dense) appended to `grads` where given, and the embedding's
+    sparse gradient, coalesced (ids, rows) on the CPU, to `rows`."""
+    from paddle_tpu_torch.core.indexed_slices import coalesce
+
+    opt = (make_opt or book_adam)(model, lr)
     losses = []
     for _ in range(n):
         loss = model.loss(*batch)
         loss.backward()
+        if rows is not None:
+            g = model.embedding.weight.grad
+            if not g.is_sparse:
+                fail(f"the embedding's gradient is {g.layout}, not sparse")
+            rows.append(tuple(t.cpu() for t in coalesce(g)))
         if grads is not None:
-            grads.append({k: p.grad.detach().cpu().clone()
+            grads.append({k: (p.grad.to_dense() if p.grad.is_sparse
+                              else p.grad).detach().cpu().clone()
                           for k, p in model.named_parameters()})
         opt.step()
         opt.clear_grad()
@@ -6304,10 +6349,11 @@ def phase_book_held():
     return out
 
 
-def eager_step(model, batches, lr):
-    """One eager Adam step of `model` on the next of `batches`, returning
-    the loss on the device (phases 19 and 20)."""
-    opt = book_adam(model, lr)
+def eager_step(model, batches, lr, make_opt=None):
+    """One eager step of `model` on the next of `batches` under
+    ``make_opt(model, lr)`` (Adam by default), returning the loss on the
+    device (phases 19, 20 and 22)."""
+    opt = (make_opt or book_adam)(model, lr)
 
     def step():
         loss = model.loss(*next(batches))
@@ -7470,38 +7516,52 @@ def layer_sweep_cases(seed=21):
 
 def sweep_run(fn, inputs, kw, device):
     """`fn` on `device` over `inputs` (float arrays differentiated, a
-    layer's parameters too): its outputs and the gradients under a
-    fixed cotangent."""
+    layer's parameters too; a list of arrays becomes a list of tensors):
+    its outputs and the gradients under a fixed cotangent (a sparse one
+    made dense; zeros where no float output depends on them)."""
     import torch.nn as tnn
 
     if isinstance(fn, tnn.Module):  # a copy each: the case stays unrun
         fn = copy.deepcopy(fn).to(device)
-    args = [torch.from_numpy(np.array(a)).to(device)
-            if isinstance(a, np.ndarray) else a for a in inputs]
-    wrt = [a.requires_grad_() for a in args if isinstance(a, torch.Tensor)
+
+    def tensor(a):
+        if isinstance(a, list) and a and isinstance(a[0], np.ndarray):
+            return [tensor(x) for x in a]
+        if isinstance(a, np.ndarray):
+            return torch.from_numpy(np.array(a)).to(device)
+        return a
+
+    args = [tensor(a) for a in inputs]
+    flat = [t for a in args for t in (a if isinstance(a, list) else [a])]
+    wrt = [a.requires_grad_() for a in flat if isinstance(a, torch.Tensor)
            and a.is_floating_point()]
     if isinstance(fn, tnn.Module):
         wrt += [p for p in fn.parameters() if p.requires_grad]
     out = fn(*args, **kw)
     outs = list(out) if isinstance(out, tuple) else [out]
-    floats = [o for o in outs if o.is_floating_point()]
-    loss = sum((o * torch.linspace(-1, 1, o.numel(), device=device)
-                .reshape(o.shape)).sum() for o in floats)
-    grads = torch.autograd.grad(loss, wrt, allow_unused=True)
-    return outs, [torch.zeros_like(w) if gr is None else gr
+    floats = [o for o in outs if o.is_floating_point() and o.requires_grad]
+    grads = [None] * len(wrt)
+    if floats and wrt:
+        loss = sum((o * torch.linspace(-1, 1, o.numel(), device=device)
+                    .reshape(o.shape)).sum() for o in floats)
+        grads = torch.autograd.grad(loss, wrt, allow_unused=True)
+    return outs, [torch.zeros_like(w) if gr is None else
+                  gr.to_dense() if gr.is_sparse else gr
                   for w, gr in zip(wrt, grads)]
 
 
-def phase_layer_sweep():
-    """(b): every ported function and layer, forward and backward, card
-    (cuDNN on, TF32 off) against the CPU at the CPU tests' sizes: the
-    worst share of each, held to LAYER_SWEEP_TOL; integer outputs (the
-    3-D pool's mask) equal."""
+def phase_layer_sweep(cases=None):
+    """(b): every ported function and layer of a slice (`cases`, else
+    phase 21's `layer_sweep_cases`), forward and backward, card (cuDNN
+    on, TF32 off) against the CPU at the CPU tests' sizes: the worst
+    share of each, held to LAYER_SWEEP_TOL; integer outputs (the 3-D
+    pool's mask, lengths, ids, the metric ops' counts) equal; every
+    output on the card."""
     worst = []
-    for name, fn, inputs, kw in layer_sweep_cases():
+    for name, fn, inputs, kw in cases or layer_sweep_cases():
         c_out, c_grad = sweep_run(fn, inputs, kw, "cpu")
         g_out, g_grad = sweep_run(fn, inputs, kw, "cuda")
-        errs = []
+        errs = [0.0]
         for got, want in zip(g_out + g_grad, c_out + c_grad):
             if got.device.type != "cuda":
                 fail(f"{name}: an output on {got.device}")
@@ -7519,6 +7579,7 @@ def phase_layer_sweep():
         f"card vs CPU: worst {worst[0][0]:.2e} ({worst[0][1]}), held to "
         f"{LAYER_SWEEP_TOL} of each tensor's largest magnitude")
     log("  " + ", ".join(f"{n} {e:.1e}" for e, n in worst))
+    return worst
 
 
 def cyclegan_on(nets_cpu, device, c=CYCLEGAN):
@@ -7655,6 +7716,372 @@ def cyclegan_numbers(card, r):
         f"iteration); peak memory {r['peak'] / 2**30:.2f} GiB above the "
         f"iterations' start; {r['kernels']:.0f} kernels an iteration")
     book_idle(card, "CycleGAN iteration", r)
+
+
+# ---------- phase 22: the sequence library and sparse embeddings ----------
+# Chapter 06 of the PaddlePaddle v2.1 book (understand_sentiment), its
+# convolution_net: the imdb dictionary of 5,147 words, EMB_DIM 128,
+# HID_DIM 512 filters a window (3 and 4), CLASS_DIM 2, BATCH_SIZE 128,
+# ``Adagrad(learning_rate=0.002)`` on an ``is_sparse=True`` embedding;
+# phase 19's reviews (padded to 256, lengths from 64, id 0 the padding).
+# (a) holds it at full width with batch and length cut, card against the
+# CPU; (c) a 2,000,000 x 128 sparse table (the JAX package's
+# tests/test_sparse_grad.py case) with lazy Adam; (d) the chapter's
+# sizes, sparse and dense.
+CONV_NET = dict(vocab=5147, emb=128, filters=512, classes=2, batch=128,
+                seq=256, min_len=64, lr=2e-3, held_batch=16, held_seq=32,
+                held_min=8, held_steps=2)
+LARGE_TABLE = dict(rows=2_000_000, dim=128, batch=8, seq=16, lr=0.1)
+SPARSE_RISE = 16 * 2**20      # (c)'s peak rise over the held bytes
+
+
+def conv_build(sparse=True, seed=0):
+    """Phase 22's convolution_net at the chapter's widths, on the CPU from
+    a generator of `seed`."""
+    c = CONV_NET
+    return port_book_models(seed)[2](c["vocab"], c["emb"], c["filters"],
+                                      c["classes"], sparse=sparse)
+
+
+def conv_adagrad(model, lr):
+    from paddle_tpu_torch import optimizer
+
+    return optimizer.Adagrad(learning_rate=lr, parameters=model.parameters())
+
+
+def phase_sequence_held():
+    """(a): convolution_net at full width, batch and length cut, card
+    against the CPU from one set of weights, 2 sparse Adagrad steps:
+    losses within BOOK_LOSS_TOL relative, the embedding's coalesced
+    gradient the same ids with rows within BOOK_PARAM_TOL of their
+    largest, step-1 gradients and the stepped parameters by
+    `hold_book_params` (phase 19's rule; the floor is Adagrad's
+    epsilon)."""
+    from paddle_tpu_torch.models import layer_from_numpy, layer_to_numpy
+
+    c = CONV_NET
+    t0 = time.perf_counter()
+    batch = sentiment_batch(np.random.default_rng(22), c["held_batch"],
+                            c["held_seq"], c["vocab"], c["held_min"])
+    cpu = conv_build()
+    card = layer_from_numpy(conv_build(seed=1), layer_to_numpy(cpu), "cuda")
+    losses, grads, rows = {}, {"cuda": [], "cpu": []}, {"cuda": [],
+                                                         "cpu": []}
+    for dev, model in (("cuda", card), ("cpu", cpu)):
+        args = [torch.from_numpy(a).to(dev) for a in batch]
+        losses[dev] = book_steps(model, args, c["lr"], c["held_steps"],
+                                 grads[dev], conv_adagrad, rows[dev])
+    err = max(abs(a - b) / abs(b) for a, b in zip(losses["cuda"],
+                                                  losses["cpu"]))
+    log(f"  convolution_net at full width (V {c['vocab']}, E {c['emb']}, "
+        f"2 x {c['filters']} filters), B={c['held_batch']}, "
+        f"T={c['held_seq']}: losses card {losses['cuda']} CPU "
+        f"{losses['cpu']} (worst {err:.2e} relative) "
+        f"({time.perf_counter() - t0:.1f} s)")
+    if not all(math.isfinite(x) for x in losses["cuda"]) \
+            or err > BOOK_LOSS_TOL:
+        fail(f"convolution_net: card losses {losses['cuda']} vs CPU "
+             f"{losses['cpu']}, past {BOOK_LOSS_TOL} relative")
+    row_err = 0.0
+    for k, ((gi, gv), (ci, cv)) in enumerate(zip(rows["cuda"],
+                                                 rows["cpu"])):
+        if not torch.equal(gi, ci):
+            fail(f"convolution_net step {k + 1}: the sparse gradient's ids "
+                 f"differ card vs CPU")
+        row_err = max(row_err, share(gv, cv))
+    log(f"  the embedding's sparse gradient: {rows['cpu'][0][0].numel()} "
+        f"ids of {c['vocab']} at step 1, the same ids on both; rows "
+        f"{row_err:.2e} of their largest magnitude")
+    if row_err > BOOK_PARAM_TOL:
+        fail(f"convolution_net: sparse gradient rows {row_err} of their "
+             f"largest, past {BOOK_PARAM_TOL}")
+    worst, past = hold_book_params("convolution_net", dict(
+        card.named_parameters()), dict(cpu.named_parameters()), grads)
+    return dict(loss=err, rows=row_err, params=worst, past=past)
+
+
+def static_sequence_case(B, T, D):
+    """The static sequence program (``static.nn``'s sequence_conv, the
+    pools, first and last steps, softmax, reverse and row_conv, their
+    means summed the loss) and a function that runs it on `x`'s device
+    from one start scope: the outputs and the filters' gradients, as
+    tensors there."""
+    from paddle_tpu_torch import static
+    from paddle_tpu_torch.models.weights import scope_from_numpy, \
+        scope_to_numpy
+
+    main, startup = static.Program(), static.Program()
+    with static.program_guard(main, startup):
+        xv = static.data("x", [B, T, D])
+        n = static.data("len", [B], "int64")
+        conv = static.nn.sequence_conv(xv, n, 5, filter_size=3, act="tanh")
+        outs = [static.nn.sequence_pool(conv, n, k) for k in (
+            "sum", "average", "sqrt", "max", "last", "first")]
+        outs += [static.nn.sequence_first_step(conv, n),
+                 static.nn.sequence_last_step(conv, n),
+                 static.nn.sequence_softmax(conv, n),
+                 static.nn.sequence_reverse(conv, n),
+                 static.nn.row_conv(xv, 2, act="tanh")]
+        loss = static.nn.mean(outs[0])
+        for o in outs[1:]:
+            loss = loss + static.nn.mean(o)
+        grads = [g for _, g in static.append_backward(loss)]
+    scope = static.Scope()
+    static.Executor("cpu").run(startup, scope=scope)
+    start = scope_to_numpy(scope)
+
+    def run(x, lens):
+        return tuple(static.Executor(x.device).run(
+            main, feed={"x": x.detach(), "len": lens},
+            fetch_list=[loss] + outs + grads,
+            scope=scope_from_numpy(start, x.device), return_numpy=False))
+    return run
+
+
+def sequence_sweep_cases(seed=22):
+    """(b)'s sweep: every function and layer of this phase's slice (the
+    sparse embedding and the selected-rows functions, `PyLayer` and
+    `grad`, the sequence ops, the segment pools, the loss and metric
+    long tail, the static sequence program) once each at the CPU tests'
+    sizes, as phase 21's `layer_sweep_cases`."""
+    import paddle_tpu_torch as P
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.autograd import PyLayer
+    from paddle_tpu_torch.core.indexed_slices import indexed_slices
+    from paddle_tpu_torch.nn import functional as F
+
+    r = np.random.default_rng(seed)
+    g = torch.Generator().manual_seed(seed)
+
+    class Exp(PyLayer):
+        @staticmethod
+        def forward(ctx, v):
+            y = torch.exp(v)
+            ctx.save_for_backward(y)
+            return y
+
+        @staticmethod
+        def backward(ctx, dy):
+            y, = ctx.saved_tensor()
+            return dy * y
+
+    def f(*shape, lo=-2.0, hi=2.0):
+        return r.uniform(lo, hi, shape).astype(np.float32)
+
+    def i(*shape, hi=9):
+        return r.integers(0, hi, shape)
+
+    lens = np.array([6, 3, 1, 4])
+    x3 = f(4, 6, 3) * (np.arange(6)[None, :, None] < lens[:, None, None])
+    prob = np.exp(f(4, 5))
+    prob = (prob / prob.sum(-1, keepdims=True)).astype(np.float32)
+    tags = (i(3, 8, hi=5), i(3, 8, hi=5))
+
+    def selected(ids, rows):
+        return indexed_slices(ids, rows, (9, 3))
+
+    def merged(ids, rows):
+        m = P.merge_selected_rows(selected(ids, rows))
+        return m.values(), m.indices()[0]
+
+    return [
+        ("Embedding_sparse", nn.Embedding(9, 3, sparse=True, generator=g),
+         (i(4, 5),), {}),
+        ("embedding_sparse", F.embedding, (i(4, 5), f(9, 3)),
+         dict(padding_idx=0, sparse=True)),
+        ("get_tensor_from_selected_rows",
+         lambda ids, rows: P.get_tensor_from_selected_rows(
+             selected(ids, rows)), (i(6), f(6, 3)), {}),
+        ("merge_selected_rows", merged, (i(6), f(6, 3)), {}),
+        ("PyLayer", Exp.apply, (f(3, 4),), {}),
+        ("grad_create_graph", lambda x: P.grad((x * x * x).sum(), x,
+                                               create_graph=True)[0],
+         (f(5),), {}),
+        ("sample_logits", P.sample_logits, (f(4, 20), i(4, 2, hi=20), 6),
+         dict(seed=5)),
+        ("sampling_id", P.sampling_id, (prob,), dict(seed=9)),
+        ("add_position_encoding", P.add_position_encoding, (f(2, 5, 6),),
+         dict(alpha=0.7, beta=1.3)),
+        ("im2sequence", P.im2sequence, (f(2, 3, 5, 6),),
+         dict(filter_size=[2, 3], stride=1, padding=1)),
+        ("row_conv", P.row_conv, (x3, f(3, 3)), {}),
+        ("conv_shift", P.conv_shift, (f(3, 7), f(3, 3)), {}),
+        *[(f"segment_{k}", getattr(P, f"segment_{k}"),
+           (f(7, 3), np.array([0, 0, 1, 3, 3, 2, 1])), {})
+          for k in ("sum", "mean", "max", "min")],
+        *[(f"sequence_pool_{k}", P.sequence_pool, (x3, lens, k), {})
+          for k in ("sum", "average", "sqrt", "max", "last", "first")],
+        ("sequence_first_step", P.sequence_first_step, (x3, lens), {}),
+        ("sequence_last_step", P.sequence_last_step, (x3, lens), {}),
+        ("sequence_softmax", P.sequence_softmax, (x3, lens), {}),
+        ("sequence_reverse", P.sequence_reverse, (x3, lens), {}),
+        ("sequence_pad", P.sequence_pad, (f(10, 3), np.array([3, 5, 2])),
+         dict(pad_value=-1.0)),
+        ("sequence_unpad", P.sequence_unpad, (f(3, 5, 2),
+                                              np.array([3, 5, 2])), {}),
+        ("sequence_expand", P.sequence_expand, (f(3, 2), [2, 0, 3]), {}),
+        ("sequence_conv", P.sequence_conv, (x3, f(12, 5), lens),
+         dict(context_length=4)),
+        ("sequence_concat", P.sequence_concat,
+         ([f(3, 4, 2), f(3, 3, 2)], [np.array([2, 4, 0]),
+                                     np.array([3, 1, 2])]), {}),
+        ("sequence_enumerate", P.sequence_enumerate,
+         (i(3, 6), np.array([6, 2, 4]), 3), dict(pad_value=-1)),
+        ("sequence_expand_as", P.sequence_expand_as,
+         (f(3, 2), np.array([2, 3, 1])), {}),
+        ("sequence_reshape", P.sequence_reshape,
+         (f(3, 4, 2), np.array([2, 4, 1]), 1), {}),
+        ("sequence_scatter", P.sequence_scatter,
+         (f(8), np.array([[1, 3, 3], [2, 0, 7]]), f(2, 3), np.array([3, 1])),
+         {}),
+        ("sequence_slice", P.sequence_slice,
+         (f(3, 5, 2), np.array([5, 4, 5]), np.array([1, 0, 3]),
+          np.array([2, 4, 3])), {}),
+        ("huber_loss", P.huber_loss, (f(4, 5), f(4, 5)), dict(delta=0.5)),
+        ("rank_loss", P.rank_loss, (f(4, 1, lo=0, hi=1), f(4, 1), f(4, 1)),
+         {}),
+        ("bpr_loss", P.bpr_loss, (f(4, 5), i(4, 1, hi=5)), {}),
+        ("modified_huber_loss", P.modified_huber_loss,
+         (f(6, lo=-3, hi=3), i(6, hi=2).astype(np.float32)), {}),
+        ("teacher_student_sigmoid_loss", P.teacher_student_sigmoid_loss,
+         (f(8, lo=-20, hi=20), np.array([-2.0, -1.5, -0.5, -0.2, 0.3, 0.9,
+                                         1.2, 1.9], np.float32)), {}),
+        ("center_loss", P.center_loss, (f(4, 5), np.array([0, 2, 0, 1]),
+                                        f(3, 5)), dict(alpha=0.3)),
+        ("squared_l2_distance", P.squared_l2_distance, (f(3, 2, 4),
+                                                        f(3, 2, 4)), {}),
+        ("squared_l2_norm", P.squared_l2_norm, (f(4, 5),), {}),
+        ("l1_norm", P.l1_norm, (f(4, 5),), {}),
+        ("clip_by_norm", P.clip_by_norm, (f(4, 5), 1.0), {}),
+        ("mean_iou", P.mean_iou, (i(20, hi=4), i(20, hi=4), 4), {}),
+        ("edit_distance", P.edit_distance, (i(3, 6, hi=4), i(3, 5, hi=4)),
+         dict(input_length=np.array([6, 3, 0]),
+              label_length=np.array([5, 4, 2]))),
+        ("ctc_align", P.ctc_align, (np.array([[1, 1, 0, 2, 2, 0, 3],
+                                              [0, 4, 4, 4, 0, 0, 4]]),), {}),
+        ("positive_negative_pair", P.positive_negative_pair,
+         (f(6), f(6), np.array([0, 0, 0, 1, 1, 1])), {}),
+        ("chunk_eval", P.chunk_eval, tags,
+         dict(chunk_scheme="IOB", num_chunk_types=2,
+              seq_length=np.array([8, 6, 7]))),
+        ("static_sequence_program", static_sequence_case(*x3.shape),
+         (x3, lens), {}),
+    ]
+
+
+def phase_sparse_table():
+    """(c): LARGE_TABLE's sparse Embedding with lazy Adam on the card.
+    After a first step (Adam's state made), a second backward and step
+    may raise the peak allocated memory by SPARSE_RISE at most above the
+    bytes held before it; every row outside the step's ids stays
+    bitwise, and the touched rows equal a dense Adam step on those rows
+    within 1e-6."""
+    from paddle_tpu_torch import nn, optimizer
+
+    c = LARGE_TABLE
+    t0 = time.perf_counter()
+    emb = nn.Embedding(c["rows"], c["dim"], sparse=True,
+                       generator=torch.Generator().manual_seed(0)).cuda()
+    opt = optimizer.Adam(learning_rate=c["lr"], parameters=emb.parameters())
+    rng = np.random.default_rng(23)
+    first, second = (torch.from_numpy(rng.integers(
+        0, c["rows"], (c["batch"], c["seq"]))).cuda() for _ in range(2))
+
+    def loss_of(ids):
+        out = emb(ids)
+        return (out * out).mean()
+
+    loss_of(first).backward()
+    opt.step()
+    opt.clear_grad()
+    st = opt._states[id(emb.weight)]
+    touched = torch.unique(second)
+    before = (emb.weight.detach()[touched].clone(),
+              {k: st[k][touched].clone() for k in ("moment1", "moment2")},
+              st["beta1_pow"].clone(), st["beta2_pow"].clone())
+    snapshot = emb.weight.detach().clone()
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    loss_of(second).backward()
+    grad = emb.weight.grad
+    nnz = grad._values().shape[0]
+    opt.step()
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t1
+    rise = torch.cuda.max_memory_allocated() - held
+    moved = torch.nonzero((emb.weight.detach() != snapshot).any(dim=1))[:, 0]
+    outside = int((~torch.isin(moved, touched)).sum())
+    merged = grad.coalesce()
+    want, _ = optimizer.Adam(learning_rate=c["lr"]).update(
+        before[0], merged.values(), {**before[1], "beta1_pow": before[2],
+                                     "beta2_pow": before[3]}, c["lr"])
+    row_err = float((emb.weight.detach()[merged.indices()[0]] - want).abs()
+                    .max())
+    dense_mb = c["rows"] * c["dim"] * 4 / 2**20
+    log(f"  {c['rows']:,} x {c['dim']} fp32 table ({snapshot.numel() * 4 / 1e9:.2f} "
+        f"GB), lazy Adam, {c['batch']} x {c['seq']} ids a step: the second "
+        f"backward and step raised the peak {rise / 2**20:.2f} MiB above "
+        f"the {held / 2**30:.2f} GiB held (bound {SPARSE_RISE / 2**20:.0f} "
+        f"MiB; a dense gradient alone {dense_mb:.0f} MiB); the gradient "
+        f"{nnz} rows; {moved.numel()} rows moved, {outside} outside the "
+        f"step's {touched.numel()} ids; touched rows against a dense Adam "
+        f"step on them {row_err:.2e}; the step {step_s * 1e3:.2f} ms "
+        f"({time.perf_counter() - t0:.1f} s)")
+    if rise > SPARSE_RISE:
+        fail(f"sparse table: the step raised the peak {rise} bytes, past "
+             f"{SPARSE_RISE}")
+    if outside or moved.numel() == 0:
+        fail(f"sparse table: {outside} rows outside the step's ids moved "
+             f"({moved.numel()} moved)")
+    if row_err > 1e-6:
+        fail(f"sparse table: touched rows {row_err} from a dense Adam step")
+    del emb, opt, st, snapshot, grad, merged
+    torch.cuda.empty_cache()
+    return dict(rise=rise, held=held, nnz=nnz, step_ms=step_s * 1e3)
+
+
+def phase_sequence_run():
+    """(d): convolution_net at the chapter's sizes alone on the card, timed
+    as phase 19's models are (`timed_steps`), with the sparse embedding
+    and then with a dense one."""
+    c = CONV_NET
+    n = BOOK["warmup"] + BOOK["iters"] + BOOK["profiled"]
+    out = {}
+    for sparse in (True, False):
+        rng = np.random.default_rng(24)
+        model = conv_build(sparse=sparse).to("cuda")
+        batches = iter([[torch.from_numpy(a).cuda() for a in sentiment_batch(
+            rng, c["batch"], c["seq"], c["vocab"], c["min_len"])]
+            for _ in range(n)])
+        out[sparse] = timed_steps(
+            f"convolution_net (B {c['batch']}, T {c['seq']}, "
+            f"{'sparse' if sparse else 'dense'} embedding)",
+            eager_step(model, batches, c["lr"], conv_adagrad))
+        del model, batches
+    torch.cuda.empty_cache()
+    return out
+
+
+def sequence_numbers(card, run):
+    """(d)'s numbers: ms a step and samples/s, sparse and dense, with the
+    idle share, kernels a step and peak memory of each."""
+    c = CONV_NET
+    ms = {}
+    for sparse, r in run.items():
+        what = (f"convolution_net, {'sparse' if sparse else 'dense'} "
+                f"embedding")
+        ms[sparse] = r["wall"] / r["iters"] * 1e3
+        log(f"  [{card}] {what} (B {c['batch']}, T {c['seq']}, Adagrad): "
+            f"{ms[sparse]:.2f} ms per step over {r['iters']} steps, "
+            f"{c['batch'] / ms[sparse] * 1e3:.1f} samples/s; peak memory "
+            f"{r['peak'] / 2**30:.3f} GiB above the steps' start; "
+            f"{r['kernels']:.0f} kernels a step")
+        book_idle(card, what, r)
+    log(f"  [{card}] convolution_net sparse / dense ms a step: "
+        f"{ms[True] / ms[False]:.3f} (this call)")
+    return ms
 
 
 def main():
@@ -7985,6 +8412,25 @@ def main():
     log("  (a) CycleGAN alone on the card, cuDNN on")
     cyclegan_numbers(card, phase_cyclegan_run())
     log(f"  phase 21 launched none of the six kernels of the port: "
+        f"{read_launches()}")
+    phase("phase 22: the sequence library, sparse embeddings and autograd "
+          "(chapter 06's convolution_net with sparse Adagrad; every "
+          "function of the slice card vs CPU; a 2,000,000-row sparse "
+          "table)")
+    reset_launches()
+    log("  (a) convolution_net at full width, batch and length cut, card "
+        "vs CPU")
+    phase_sequence_held()
+    log("  (b) every function and layer of the slice, forward and backward")
+    phase_layer_sweep(sequence_sweep_cases())
+    log("  (c) a sparse table with lazy Adam")
+    phase_sparse_table()
+    if any(read_launches().values()):
+        fail(f"the held checks launched a kernel of the port: "
+             f"{read_launches()}")
+    log("  (d) the chapter's sizes on the card, sparse then dense embedding")
+    sequence_numbers(card, phase_sequence_run())
+    log(f"  phase 22 launched none of the six kernels of the port: "
         f"{read_launches()}")
     phase(None)
     log(f"  whole run {time.perf_counter() - t_start:.1f} s wall")

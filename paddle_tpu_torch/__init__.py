@@ -35,7 +35,12 @@ runs the rest of the Paddle book: ``cos_sim``, ``linear_chain_crf``,
 ``enable_static`` and the mode-aware ``create_parameter``; the static
 graph's sub-blocks (``static.nn.cond``, ``while_loop``, ``switch_case``,
 ``case``, ``static.StaticRNN``), static dropout and the inference
-clone (``Program.clone(for_test=True)``).
+clone (``Program.clone(for_test=True)``); and trains text models over
+sequences with sparse embedding tables: the sequence op family and the
+segment pools, the loss and metric long tail, the selected-rows
+functions (``ops``, at the top level), ``Embedding(sparse=True)`` with
+the eager step's lazy row update, and ``autograd`` (``PyLayer``,
+``backward``, ``grad``).
 It imports torch and numpy, never jax and never paddle_tpu.  Entry
 points run on the card unless the caller asks for the CPU
 (``device="cpu"``), where every kernel call takes the kernel's plain
@@ -45,9 +50,9 @@ PyTorch version.
 # imports serving.admission back
 from . import serving  # noqa: I001
 import torch
-from . import amp, callbacks, distributed, generation, hapi, io, metric, \
-    models, nn, ops, optimizer, parallel, profiler, regularizer, static, \
-    vision
+from . import amp, autograd, callbacks, distributed, generation, hapi, io, \
+    metric, models, nn, ops, optimizer, parallel, profiler, regularizer, \
+    static, vision
 from . import tensor
 from .dtype import convert_dtype as _convert_dtype
 from .framework import get_rng_state, load, save, seed, set_rng_state
@@ -57,8 +62,13 @@ from .ops import math as _math
 from .ops.creation import *  # noqa: F401,F403
 from .ops.manipulation import *  # noqa: F401,F403
 from .ops.math import *  # noqa: F401,F403
-from .ops.loss_extra import cos_sim
-from .ops.sequence_ops import crf_decoding, linear_chain_crf, nce
+from .autograd import enable_grad, grad, is_grad_enabled, set_grad_enabled
+from .ops import framework_ops as _framework_ops
+from .ops import loss_extra as _loss_extra
+from .ops import sequence_ops as _sequence_ops
+from .ops.framework_ops import *  # noqa: F401,F403
+from .ops.loss_extra import *  # noqa: F401,F403
+from .ops.sequence_ops import *  # noqa: F401,F403
 from .generation import (GenerationConfig, GenerationEngine,
                          SamplingParams, TinyCausalLM)
 from .hapi import Model, flops, summary
@@ -108,12 +118,14 @@ def create_parameter(shape, dtype="float32", name=None, attr=None,
                                    **kw)
 
 
-__all__ = _creation.__all__ + _manipulation.__all__ + _math.__all__ + [
-    "GenerationConfig", "GenerationEngine", "Model", "SamplingParams",
-    "Tensor", "TinyCausalLM", "amp", "callbacks", "cos_sim",
-    "create_parameter", "crf_decoding", "disable_static", "distributed",
-    "enable_static", "flops", "generation", "get_rng_state", "hapi",
-    "in_dynamic_mode", "io", "linear_chain_crf", "load", "metric",
-    "models", "nce", "nn", "no_grad", "ops", "optimizer", "parallel",
-    "profiler", "regularizer", "save", "seed", "serving", "set_rng_state",
-    "static", "summary", "tensor", "vision"]
+__all__ = _creation.__all__ + _manipulation.__all__ + _math.__all__ \
+    + _framework_ops.__all__ + _loss_extra.__all__ + _sequence_ops.__all__ \
+    + ["GenerationConfig", "GenerationEngine", "Model", "SamplingParams",
+       "Tensor", "TinyCausalLM", "amp", "autograd", "callbacks",
+       "create_parameter", "disable_static", "distributed", "enable_grad",
+       "enable_static", "flops", "generation", "get_rng_state", "grad",
+       "hapi", "in_dynamic_mode", "io", "is_grad_enabled", "load",
+       "metric", "models", "nn", "no_grad", "ops", "optimizer", "parallel",
+       "profiler", "regularizer", "save", "seed", "serving",
+       "set_grad_enabled", "set_rng_state", "static", "summary", "tensor",
+       "vision"]

@@ -2,12 +2,12 @@
 `GradScaler`.
 
 `unscale_` multiplies every gradient of the optimizer's parameters by
-1/scale and reduces "any of them not finite" to one flag on the device,
-read once per step (the JAX package reads one per parameter; the skip
-and the update are the same).  `step` skips the optimizer's step when
-the flag is set, leaving the parameters, the optimizer's state and its
-step count as they were; the LR scheduler is the caller's to step, as
-in JAX.  `update` is the dynamic rule of ``update_loss_scaling``.  As in
+1/scale (a sparse one's rows, keeping it sparse) and reduces "any of
+them not finite" to one flag on the device, read once per step (the JAX
+package reads one per parameter; the skip and the update are the
+same).  `step` skips the optimizer's step when the flag is set, leaving
+the parameters, the optimizer's state and its step count as they were;
+the LR scheduler is the caller's to step, as in JAX.  `update` is the dynamic rule of ``update_loss_scaling``.  As in
 JAX, `step` unscales whatever `unscale_` already did: call one or the
 other."""
 import torch
@@ -44,12 +44,9 @@ class AmpScaler:
             for p in optimizer._parameter_list or ():
                 if p.grad is None:
                     continue
-                if p.grad.is_sparse:
-                    raise NotImplementedError(
-                        "sparse gradients are not ported (Embedding("
-                        "sparse=True) is refused)")
                 p.grad = p.grad * inv
-                flags.append((~torch.isfinite(p.grad)).any())
+                vals = p.grad._values() if p.grad.is_sparse else p.grad
+                flags.append((~torch.isfinite(vals)).any())
         self._found_inf = bool(torch.stack(flags).any()) if flags else False
 
     def minimize(self, optimizer, scaled_loss):

@@ -2,12 +2,19 @@
 ``[(param, grad), ...]`` that the eager optimizer step applies before
 its updates.  Norms are taken in float32; a norm clip scales by ``min(1,
 clip_norm / max(norm, 1e-6))``; a parameter with ``need_clip = False``
-keeps its gradient (it still counts in the global norm)."""
+keeps its gradient (it still counts in the global norm).  A sparse
+gradient (``Embedding(sparse=True)``) is made dense first, as the
+reference merges its SelectedRows."""
 import torch
 
 
 def _need_clip(p):
     return getattr(p, "need_clip", True)
+
+
+def _densify(params_grads):
+    return [(p, g.to_dense() if g is not None and g.is_sparse else g)
+            for p, g in params_grads]
 
 
 def _scale(norm, clip_norm):
@@ -22,6 +29,7 @@ class ClipGradByGlobalNorm:
         self.clip_norm = clip_norm
 
     def __call__(self, params_grads):
+        params_grads = _densify(params_grads)
         grads = [g for _, g in params_grads if g is not None]
         if not grads:
             return params_grads
@@ -39,7 +47,7 @@ class ClipGradByNorm:
 
     def __call__(self, params_grads):
         out = []
-        for p, g in params_grads:
+        for p, g in _densify(params_grads):
             if g is None or not _need_clip(p):
                 out.append((p, g))
                 continue
@@ -60,7 +68,7 @@ class ClipGradByValue:
     def __call__(self, params_grads):
         return [(p, g) if g is None or not _need_clip(p)
                 else (p, torch.clamp(g, self.min, self.max))
-                for p, g in params_grads]
+                for p, g in _densify(params_grads)]
 
 
 def utils_clip_grad_norm_(parameters, max_norm):

@@ -13,6 +13,7 @@ tensors as the JAX ops ``linear``/``linear_nobias``, ``matmul_v2``,
 import torch
 
 from ..amp.auto_cast import cast_inputs
+from ..core.indexed_slices import indexed_slices
 from ..ops.loss import (IGNORE_INDEX, binary_cross_entropy,  # noqa: F401
                         binary_cross_entropy_with_logits, cosine_similarity,
                         cross_entropy, hinge_loss, kl_div, l1_loss,
@@ -67,12 +68,42 @@ def layer_norm(x, weight, bias, epsilon=1e-5):
     return (x - mean) * torch.rsqrt(var + epsilon) * weight + bias
 
 
-def embedding(ids, weight, padding_idx=None):
+class _SparseLookup(torch.autograd.Function):
+    """Rows of a weight at integer ids whose weight gradient is a sparse
+    COO tensor of one row per lookup, in lookup order
+    (``core.indexed_slices``).  PyTorch's own sparse embedding drops a
+    padding index's rows from its gradient; this one keeps them (as
+    zeros, the caller masks the output), as JAX's ``IndexedSlices``
+    does."""
+
+    @staticmethod
+    def forward(ctx, weight, ids):
+        ctx.save_for_backward(ids)
+        ctx.dense_shape = tuple(weight.shape)
+        return torch.nn.functional.embedding(ids, weight)
+
+    @staticmethod
+    def backward(ctx, cot):
+        ids, = ctx.saved_tensors
+        return indexed_slices(ids, cot, ctx.dense_shape), None
+
+
+def embedding(ids, weight, padding_idx=None, sparse=False, name=None):
     """Rows of `weight` [num, dim] at integer `ids`; a lookup of a
     `padding_idx` >= 0 gives zeros, and so no gradient to that row (a
     negative one masks nothing, as in the JAX package: the layer counts
-    it from the end first)."""
-    out = torch.nn.functional.embedding(ids.long(), weight)
+    it from the end first).  With `sparse`, where autograd records the
+    lookup, the weight's gradient is a sparse COO tensor of one row per
+    lookup (a padding lookup's row zero) instead of a dense [num, dim]
+    one.  The compiled steps (``parallel.CompiledTrainStep``,
+    ``PipelinedTrainStep``) densify it, as JAX's gradient is dense under
+    tracing, and the static graph's ``lookup_table_v2`` is a dense op of
+    its own."""
+    ids = ids.long()
+    if sparse and torch.is_grad_enabled() and weight.requires_grad:
+        out = _SparseLookup.apply(weight, ids)
+    else:
+        out = torch.nn.functional.embedding(ids, weight)
     if padding_idx is not None and padding_idx >= 0:
         out = out * (ids != padding_idx)[..., None].to(out.dtype)
     return out

@@ -43,16 +43,15 @@ class Embedding(nn.Module):
     """A [num_embeddings, embedding_dim] table, Normal(0, std).  A
     `padding_idx` (negative: counted from the end) has its row zeroed
     here and its lookups masked to zeros, so the row gets no gradient.
-    Sparse gradients (``sparse=True``) raise."""
+    With ``sparse=True`` the weight's eager gradient is a sparse COO
+    tensor of the looked-up rows (`F.embedding`), which the optimizers'
+    eager step applies to those rows alone."""
 
     def __init__(self, num_embeddings, embedding_dim, padding_idx=None,
                  sparse=False, weight_attr=None, *, generator=None,
                  std=1.0):
         super().__init__()
-        if sparse:
-            raise NotImplementedError(
-                "Embedding(sparse=True) is not ported: its gradient is "
-                "dense")
+        self._sparse = sparse
         self._padding_idx = (None if padding_idx is None
                              else padding_idx if padding_idx >= 0
                              else num_embeddings + padding_idx)
@@ -64,7 +63,8 @@ class Embedding(nn.Module):
                 self.weight[self._padding_idx] = 0.0
 
     def forward(self, ids):
-        return F.embedding(ids, self.weight, padding_idx=self._padding_idx)
+        return F.embedding(ids, self.weight, padding_idx=self._padding_idx,
+                           sparse=self._sparse)
 
 
 class Dropout(nn.Module):

@@ -8,7 +8,8 @@ three paths that apply it:
   gradient clipping (``nn.clip``), ``L2Decay`` at the optimizer or per
   parameter, each parameter's ``optimize_attr["learning_rate"]``,
   AdamW's ``apply_decay_param_fun`` and Lamb's
-  ``exclude_from_weight_decay_fn``; `clear_grad`, `minimize`,
+  ``exclude_from_weight_decay_fn``, and the lazy row update of a sparse
+  gradient (``Embedding(sparse=True)``); `clear_grad`, `minimize`,
   `state_dict` and `set_state_dict`;
 - `fused_update` over dicts of tensors, the compiled train step's
   (``parallel.TrainStep``);
@@ -31,6 +32,7 @@ import numbers
 import numpy as np
 import torch
 
+from ..core.indexed_slices import coalesce
 from .lr import LRScheduler
 
 
@@ -55,6 +57,9 @@ class Optimizer:
 
     decoupled_weight_decay = False
     apply_decay_param_fun = None
+    # False for a rule that reads whole-parameter statistics (Lamb's
+    # trust ratio): a sparse gradient then takes the dense update
+    sparse_safe = True
 
     def __init__(self, learning_rate=0.001, parameters=None,
                  weight_decay=None, grad_clip=None):
@@ -121,43 +126,92 @@ class Optimizer:
 
     def step(self):
         """One update of every parameter with a gradient that requires
-        grad, in JAX's order: the step count, the learning rate read once,
-        the gradient clip over all the pairs, then each parameter's own
-        update at ``lr * optimize_attr["learning_rate"]``.  A parameter
-        without a gradient keeps its value and its state."""
+        grad, in JAX's order: the step count, the learning rate read once;
+        the sparse gradients' lazy updates (`_sparse_param_step`), unless
+        a gradient clip makes them dense; the clip over the dense pairs,
+        then each parameter's own update at ``lr *
+        optimize_attr["learning_rate"]``.  A parameter without a gradient
+        keeps its value and its state."""
         if self._parameter_list is None:
             raise ValueError("Optimizer created without parameters")
         self._global_step += 1
         lr = self.get_lr()
         params_grads = [(p, p.grad) for p in self._parameter_list
                         if p.grad is not None and p.requires_grad]
+        sparse = [(p, g) for p, g in params_grads if g.is_sparse]
+        params_grads = [(p, g) for p, g in params_grads if not g.is_sparse]
         with torch.no_grad():
+            if self._grad_clip is not None:
+                # a clip reads every gradient: the sparse ones densify
+                params_grads += [(p, g.to_dense()) for p, g in sparse]
+                sparse = []
+            for p, g in sparse:
+                self._sparse_param_step(p, g, lr * self._param_lr(p))
             if self._grad_clip is not None:
                 params_grads = self._grad_clip(params_grads)
             for p, g in params_grads:
-                plr = lr * getattr(p, "optimize_attr", {}).get(
-                    "learning_rate", 1.0)
-                self._dense_param_step(p, g, plr)
+                self._dense_param_step(p, g, lr * self._param_lr(p))
 
-    def _dense_param_step(self, p, g, plr):
-        name = p.name
-        g = g.to(p.dtype)
+    @staticmethod
+    def _param_lr(p):
+        return getattr(p, "optimize_attr", {}).get("learning_rate", 1.0)
+
+    def _decay_of(self, p):
+        """The weight-decay coefficient of parameter `p`: its own
+        regularizer's, else the optimizer's, 0 where
+        `apply_decay_param_fun` says no."""
         wd = self.weight_decay
         reg = getattr(p, "regularizer", None)
         if reg is not None:
             wd = float(reg._coeff)
-        if self.apply_decay_param_fun is not None and name \
-                and not self.apply_decay_param_fun(name):
+        if self.apply_decay_param_fun is not None and p.name \
+                and not self.apply_decay_param_fun(p.name):
             wd = 0.0
+        return wd
+
+    def _dense_param_step(self, p, g, plr):
+        g = g.to(p.dtype)
+        wd = self._decay_of(p)
         pv = p.detach()
         if wd and not self.decoupled_weight_decay:
             g = g + wd * pv
-        self._current_param_name = name
+        self._current_param_name = p.name
         new_p, self._states[id(p)] = self.update(pv, g, self._state_for(p),
                                                  plr)
         if wd and self.decoupled_weight_decay:
             new_p = new_p - plr * wd * pv
         p.copy_(new_p)
+
+    def _sparse_param_step(self, p, g, plr):
+        """The lazy update of a sparse COO gradient `g`: its duplicate
+        rows summed, then the rule over the touched rows of the parameter
+        and of each parameter-shaped state tensor, with the decay of
+        those rows; every other row stays as it was, bitwise.  Scalar
+        state (Adam's beta powers) advances once a step.  A rule that is
+        not `sparse_safe` takes the dense update."""
+        if not self.sparse_safe:
+            self._dense_param_step(p, g.to_dense(), plr)
+            return
+        ids, rows = coalesce(g)
+        state = self._state_for(p)
+        by_row = {k for k, v in state.items() if v.shape == p.shape}
+        row_state = {k: v[ids] if k in by_row else v
+                     for k, v in state.items()}
+        cur = p.detach()[ids]
+        rows = rows.to(p.dtype)
+        wd = self._decay_of(p)
+        if wd and not self.decoupled_weight_decay:
+            rows = rows + wd * cur
+        self._current_param_name = p.name
+        new_rows, new_state = self.update(cur, rows, row_state, plr)
+        if wd and self.decoupled_weight_decay:
+            new_rows = new_rows - plr * wd * cur
+        p.index_copy_(0, ids, new_rows)
+        for k, v in new_state.items():
+            if k in by_row:
+                state[k].index_copy_(0, ids, v.to(state[k].dtype))
+            else:
+                state[k] = v
 
     def clear_grad(self):
         for p in self._parameter_list or ():
@@ -426,7 +480,10 @@ class Lamb(Optimizer):
     parameter (1 where either norm is 0).  Its decay lives in the rule,
     so `fused_update` adds none; the eager step names the parameter it
     updates, so ``exclude_from_weight_decay_fn(name)`` True turns that
-    parameter's decay off."""
+    parameter's decay off.  The trust ratio needs the whole parameter, so
+    a sparse gradient takes the dense update."""
+
+    sparse_safe = False
 
     def __init__(self, learning_rate=0.001, lamb_weight_decay=0.01,
                  beta1=0.9, beta2=0.999, epsilon=1e-6, *, parameters=None,

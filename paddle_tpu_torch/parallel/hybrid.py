@@ -250,6 +250,14 @@ def split_batch(batch, dp):
     return out
 
 
+def dense_grads(grads):
+    """`grads` with each sparse one (``Embedding(sparse=True)``) made
+    dense: a compiled step's gradients are dense, as JAX's are under
+    tracing."""
+    return [g.to_dense() if g is not None and g.is_sparse else g
+            for g in grads]
+
+
 def _moved(t, device):
     """Bytes `t` carries from its device to `device` (0 on one device)."""
     return 0 if t.device == device else t.numel() * t.element_size()
@@ -552,7 +560,8 @@ class CompiledTrainStep:
             for x in per_rank[1:]:
                 total = total + x.to(total.device)
             grp.sent.clear()
-            gs = torch.autograd.grad(total, ps, allow_unused=True)
+            gs = dense_grads(torch.autograd.grad(total, ps,
+                                                 allow_unused=True))
             for ax, n in grp.sent.items():
                 self.group_bytes[ax] = self.group_bytes.get(ax, 0) + n
             if after is not None:       # the recompute rewound them

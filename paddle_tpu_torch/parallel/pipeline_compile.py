@@ -47,7 +47,7 @@ from ..distributed import spmd
 from ..distributed.spmd import swapped_all
 from ..optimizer.lr import LRScheduler
 from .hybrid import (FlatLayout, _mean, _moved, amp_cast, clean_spec,
-                     local_shape, make_fused_update,
+                     dense_grads, local_shape, make_fused_update,
                      refuse_eager_only_params, seeded_generator, shard_axes_of,
                      shard_of, zero_shard_update)
 
@@ -344,7 +344,8 @@ class PipelinedTrainStep:
         inputs = [self.other[c][d][n] for c, d in o_keys for n in o_names]
         inputs += [layer[rel] for s, c, d in b_keys
                    for layer in self.blocks[s][c][d] for rel in rels]
-        grads = list(torch.autograd.grad(total, inputs, allow_unused=True))
+        grads = dense_grads(torch.autograd.grad(total, inputs,
+                                                allow_unused=True))
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(inputs, grads)]
         if self.remat:

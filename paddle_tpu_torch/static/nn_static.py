@@ -9,9 +9,15 @@ pool2d, relu, the elementwise ops, flatten, fc, softmax_with_cross_entropy
 and mean) and of the Paddle book's static programs: dropout, reshape,
 embedding, matmul, the tanh, sigmoid and softmax activations, transpose,
 reduce_sum, cross_entropy, accuracy, the comparisons, concat, layer_norm,
-nce and crf_decoding.  Control flow is ``controlflow.py``, StaticRNN and
-the utility ops ``extras.py``; the rest of the JAX file is not ported
-yet.
+nce and crf_decoding; and the sequence family (``sequence_pool`` and its
+first and last steps, ``sequence_softmax``, ``sequence_reverse``,
+``sequence_conv``, ``sequence_concat``, ``sequence_enumerate``,
+``sequence_expand``, ``sequence_expand_as``, ``sequence_reshape``,
+``sequence_scatter``, ``sequence_slice``) and ``row_conv``, each an op
+over ``ops.sequence_ops``' function whose output shapes come from one
+run of it on zeros (`_infer_emit`, JAX's ``eval_shape``).  Control flow
+is ``controlflow.py``, StaticRNN and the utility ops ``extras.py``; the
+rest of the JAX file is not ported yet.
 
 Dropout draws its mask from a counter-based hash of the op's base seed,
 its persistable step counter and each element's index
@@ -619,3 +625,139 @@ def fill_constant(shape, dtype, value):
                 lambda device: torch.full(tuple(shape), value, dtype=dt,
                                           device=device),
                 attrs={"shape": list(shape), "value": value})
+
+
+def _infer_emit(op_type, fn, ins, attrs=None):
+    """`emit` an op whose output shapes and dtypes come from one run of
+    `fn` on zero CPU tensors of its inputs' shapes (a -1 dim taken as 1),
+    JAX's ``jax.eval_shape``: an output's leading 1 becomes -1 where an
+    input's leading dim is -1."""
+    with torch.no_grad():
+        outs = fn(*[torch.zeros([1 if int(d) < 0 else int(d)
+                                 for d in v.shape], dtype=v.dtype)
+                    for _, v in ins])
+    multi = isinstance(outs, tuple)
+    dyn_batch = any(v.shape and int(v.shape[0]) < 0 for _, v in ins)
+    spec = []
+    for i, o in enumerate(outs if multi else (outs,)):
+        shape = list(o.shape)
+        if dyn_batch and shape and shape[0] == 1:
+            shape[0] = -1
+        spec.append((f"Out{i}" if multi or i else "Out", shape, o.dtype))
+    return emit(op_type, ins, spec, fn, attrs=attrs)
+
+
+def row_conv(input, future_context_size, param_attr=None, act=None,
+             name=None):
+    """`ops.sequence_ops.row_conv` under a new [future_context_size + 1,
+    D] filter."""
+    w = create_parameter([future_context_size + 1, int(input.shape[-1])],
+                         input.dtype, attr=param_attr)
+    return _maybe_act(_infer_emit("row_conv", S.row_conv,
+                                  [("X", input), ("Filter", w)]), act)
+
+
+def sequence_pool(input, length, pool_type="average"):
+    return _infer_emit(
+        "sequence_pool", lambda xv, lv: S.sequence_pool(xv, lv, pool_type),
+        [("X", input), ("Length", length)])
+
+
+def sequence_first_step(input, length):
+    return _infer_emit("sequence_first_step", S.sequence_first_step,
+                       [("X", input), ("Length", length)])
+
+
+def sequence_last_step(input, length):
+    return _infer_emit("sequence_last_step", S.sequence_last_step,
+                       [("X", input), ("Length", length)])
+
+
+def sequence_softmax(input, length):
+    return _infer_emit("sequence_softmax", S.sequence_softmax,
+                       [("X", input), ("Length", length)])
+
+
+def sequence_reverse(x, length, name=None):
+    return _infer_emit("sequence_reverse", S.sequence_reverse,
+                       [("X", x), ("Length", length)])
+
+
+def sequence_conv(input, length, num_filters, filter_size=3,
+                  filter_stride=1, padding=True, padding_start=None,
+                  param_attr=None, bias_attr=None, act=None, name=None):
+    """`ops.sequence_ops.sequence_conv` under a new [filter_size · D,
+    num_filters] filter.  As the JAX package's, it makes no bias whatever
+    `bias_attr` says, and reads neither `filter_stride` nor
+    `padding`."""
+    w = create_parameter([filter_size * int(input.shape[-1]), num_filters],
+                         input.dtype, attr=param_attr)
+
+    def fn(xv, lv, wv):
+        return S.sequence_conv(xv, wv, lv, context_length=filter_size,
+                               context_start=padding_start)
+
+    return _maybe_act(_infer_emit(
+        "sequence_conv", fn, [("X", input), ("Length", length),
+                              ("Filter", w)]), act)
+
+
+def sequence_concat(inputs, lengths, name=None):
+    """The concatenated rows and their lengths (two outputs)."""
+    n = len(inputs)
+    return _infer_emit(
+        "sequence_concat",
+        lambda *vals: S.sequence_concat(list(vals[:n]), list(vals[n:])),
+        [(f"X{i}", v) for i, v in enumerate(inputs)]
+        + [(f"Len{i}", v) for i, v in enumerate(lengths)])
+
+
+def sequence_enumerate(input, length, win_size, pad_value=0, name=None):
+    return _infer_emit(
+        "sequence_enumerate",
+        lambda xv, lv: S.sequence_enumerate(xv, lv, win_size, pad_value),
+        [("X", input), ("Length", length)])
+
+
+def sequence_expand(x, ref_lengths, name=None):
+    """Its output's row count is the sum of `ref_lengths`, so they are
+    host values (a list or an array), not a program Variable."""
+    if isinstance(ref_lengths, Variable):
+        raise TypeError(
+            "static sequence_expand needs host lengths (list/ndarray): the "
+            "output shape is data-dependent")
+    return _infer_emit("sequence_expand",
+                       lambda xv: S.sequence_expand(xv, ref_lengths),
+                       [("X", x)])
+
+
+def sequence_expand_as(x, y, ref_length, name=None):
+    """Each row of `x` over `ref_length` steps of y's time width."""
+    T = int(y.shape[1])
+    return _infer_emit(
+        "sequence_expand_as",
+        lambda xv, yv, lv: S.sequence_expand_as(xv, lv, maxlen=T),
+        [("X", x), ("Y", y), ("RefLen", ref_length)])
+
+
+def sequence_reshape(input, length, new_dim, name=None):
+    """The reshaped rows and their lengths (two outputs)."""
+    return _infer_emit(
+        "sequence_reshape",
+        lambda xv, lv: S.sequence_reshape(xv, lv, new_dim),
+        [("X", input), ("Length", length)])
+
+
+def sequence_scatter(input, index, updates, length, name=None):
+    return _infer_emit(
+        "sequence_scatter", S.sequence_scatter,
+        [("X", input), ("Ids", index), ("Updates", updates),
+         ("Length", length)])
+
+
+def sequence_slice(input, length, offset, slice_length, name=None):
+    """The slices and their lengths (two outputs)."""
+    return _infer_emit(
+        "sequence_slice", S.sequence_slice,
+        [("X", input), ("Length", length), ("Offset", offset),
+         ("SliceLen", slice_length)])

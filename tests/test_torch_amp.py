@@ -264,8 +264,10 @@ def test_skipped_step_leaves_optimizer_state_and_loads_jax_state():
     ps = pamp.GradScaler()
     ps.load_state_dict(js.state_dict())
     assert ps.state_dict() == js.state_dict()
-    with pytest.raises(NotImplementedError):
-        pw.grad = torch.ones(4).to_sparse()
-        scaler.unscale_(opt)
+    # a sparse gradient unscales its rows and stays sparse
+    pw.grad = torch.ones(4).to_sparse()
+    scaler.unscale_(opt)
+    assert pw.grad.is_sparse
+    assert torch.equal(pw.grad.to_dense(), torch.full((4,), 1 / scaler._scale))
 
 

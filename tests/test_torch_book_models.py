@@ -1,9 +1,13 @@
 """Port parity: the PaddlePaddle book's two recurrent models, chapter 06's
-sentiment LSTM and chapter 08's GRU encoder-decoder with beam search
-(``chip_smoke.book_models``, one source for both packages), at toy
-widths (2 layers, H 16, V 64), three Adam steps from the JAX model's
+sentiment LSTM and chapter 08's GRU encoder-decoder with beam search,
+and chapter 06's convolution net (``chip_smoke.book_models``, one source
+for both packages), at toy widths (2 layers, H 16, V 64; the convolution
+net E 16, 16 filters), three Adam steps (the convolution net: three
+Adagrad steps on its sparse embedding gradient) from the JAX model's
 weights carried by ``models.layer_from_numpy``, both on the CPU (each
-JAX step traced into one jitted value, gradient and update).
+JAX step traced into one jitted value, gradient and update; under
+``jit`` the JAX embedding's gradient is dense, and Adagrad moves no row
+a step leaves at zero, so the port's lazy update is held to it).
 
 Every step's loss within 1e-5 relative, and after the last step every
 parameter within 1e-4 of its tensor's largest magnitude; a parameter
@@ -30,6 +34,7 @@ STEPS, LR = 3, 5e-3
 LOSS_TOL, PARAM_TOL = 1e-5, 1e-4
 SENTIMENT = dict(vocab=64, emb=16, hidden=16, layers=2, classes=2)
 TRANSLATION = dict(vocab=64, word=16, hidden=16)
+CONVOLUTION = dict(vocab=64, emb=16, filters=16, classes=2)
 B, T_SENT, T_TRANS, BEAM = 4, 8, 6, 3
 
 
@@ -38,7 +43,7 @@ def _jax_state(layer):
 
 
 def _train(model, loss_fn, opt, steps):
-    """Losses of `steps` eager Adam steps of the port's model, and the
+    """Losses of `steps` eager steps of the port's model, and the
     parameters after the last."""
     losses = []
     for _ in range(steps):
@@ -52,8 +57,8 @@ def _train(model, loss_fn, opt, steps):
     return losses, final
 
 
-def _jax_train(model, args, steps):
-    """`steps` Adam steps of the JAX model, each one call of a jitted
+def _jax_train(model, args, steps, opt_cls="Adam"):
+    """`steps` `opt_cls` steps of the JAX model, each one call of a jitted
     function (instead of one compile per eager op): its ``loss`` under
     ``jax.value_and_grad`` (the parameters' data swapped for the traced
     values), then the JAX optimizer's ``update``, the rule its eager
@@ -62,7 +67,8 @@ def _jax_train(model, args, steps):
     reach) and the parameters after the last, which the model keeps."""
     named = list(model.named_parameters())
     params = [p for _, p in named]
-    opt = paddle.optimizer.Adam(learning_rate=LR, parameters=params)
+    opt = getattr(paddle.optimizer, opt_cls)(learning_rate=LR,
+                                             parameters=params)
     targs = [paddle.to_tensor(a) for a in args]
 
     def loss_of(datas):
@@ -89,7 +95,7 @@ def _jax_train(model, args, steps):
                                                                 datas)}
 
 
-def _run_both(build_args, cls_index, loss_args):
+def _run_both(build_args, cls_index, loss_args, opt_cls="Adam"):
     """The JAX model and its port copy trained alike: (JAX losses, JAX
     first gradients, JAX start, JAX final), (port losses, final), and the
     two trained models."""
@@ -100,8 +106,9 @@ def _run_both(build_args, cls_index, loss_args):
     start = _jax_state(jm)
     pm = layer_from_numpy(pcls(**build_args), start, device="cpu")
     pargs = [torch.from_numpy(a) for a in loss_args]
-    popt_ = popt.Adam(learning_rate=LR, parameters=pm.parameters())
-    jl, jg, jf = _jax_train(jm, loss_args, STEPS)
+    popt_ = getattr(popt, opt_cls)(learning_rate=LR,
+                                   parameters=pm.parameters())
+    jl, jg, jf = _jax_train(jm, loss_args, STEPS, opt_cls)
     pl, pf = _train(pm, lambda: pm.loss(*pargs), popt_, STEPS)
     return (jl, jg, start, jf), (pl, pf), jm, pm
 
@@ -129,6 +136,14 @@ def sentiment():
     ids, lens, label = chip_smoke.sentiment_batch(
         rng, B, T_SENT, SENTIMENT["vocab"], 3)
     return _run_both(SENTIMENT, 0, (ids, lens, label))
+
+
+@pytest.fixture(scope="module")
+def convolution():
+    rng = np.random.default_rng(2)
+    ids, lens, label = chip_smoke.sentiment_batch(
+        rng, B, T_SENT, CONVOLUTION["vocab"], 3)
+    return _run_both(CONVOLUTION, 2, (ids, lens, label), "Adagrad")
 
 
 @pytest.fixture(scope="module")
@@ -168,3 +183,18 @@ def test_translation_beam_ids_after_training_match_jax(translation):
     np.testing.assert_allclose(got[1].numpy(), np.asarray(want[1]._data),
                                rtol=1e-5, atol=1e-5)
     assert got[0].shape == (B, 5, BEAM)
+
+
+def test_convolution_net_three_sparse_adagrad_steps_match_jax(convolution):
+    """Chapter 06's convolution_net: the port's embedding gradient is
+    sparse (one row per lookup) and its step lazy; losses, then every
+    parameter, and the rows no review names stay as they started."""
+    jax_run, port_run, _, pm = convolution
+    _hold(jax_run, port_run)
+    assert pm.embedding._sparse
+    ids = chip_smoke.sentiment_batch(np.random.default_rng(2), B, T_SENT,
+                                     CONVOLUTION["vocab"], 3)[0]
+    unused = np.setdiff1d(np.arange(CONVOLUTION["vocab"]), ids)
+    start, final = jax_run[2]["embedding.weight"], port_run[1][
+        "embedding.weight"]
+    np.testing.assert_array_equal(final[unused], start[unused])

@@ -305,8 +305,9 @@ def test_param_attr_names_and_options_reach_the_step():
     assert set(opt.state_dict()) == set(jopt.state_dict())
     with pytest.raises(NotImplementedError, match="L1Decay"):
         pnn.ParamAttr(regularizer=popt.L1Decay(0.1))
-    with pytest.raises(NotImplementedError, match="sparse"):
-        pnn.Embedding(4, 2, sparse=True, generator=torch.Generator())
+    # sparse gradients are ported (tests/test_torch_sparse_grad.py)
+    assert pnn.Embedding(4, 2, sparse=True, generator=torch.Generator(
+        ))._sparse
 
 
 def test_utils_clip_grad_norm_matches_jax():
